@@ -1,0 +1,422 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line each; any failure raises and exits non-zero:
+
+1. card: name and power limit (``nvidia-smi``); build the kernel library
+   from ``pipelinedp_tpu_torch/csrc/segsum_lanes.cu`` and print the build
+   seconds;
+2. kernel vs plain: ``segment_sum_lanes`` on the card against its plain
+   PyTorch version, bit for bit, at the shapes of the tests and on the
+   flagship aggregation's own lane stack (P = 65536, C = 6, N = 25M),
+   where the kernel, the plain version and one ``index_add_`` call (the
+   library yardstick, never called by the port) are timed with CUDA
+   events; and once more on a dense stack of that shape over the zipf(1.3)
+   keys, the worst case for the atomics;
+3. main path, GPU vs CPU: ``DPEngine.aggregate`` at 1M rows and 8k
+   partitions through ``TorchBackend(device="cuda")`` and
+   ``TorchBackend(device="cpu")`` with one seed: the same kept keys and
+   bit-identical float64 releases, and the kernel launched on the card;
+4. main path at full scale: the MovieLens-25M-shaped flagship (25M rows,
+   162k users, 59k partitions, COUNT+SUM+MEAN, Laplace, L0=4, Linf=2,
+   eps=1, delta=1e-6, private selection) with the launch counts zeroed
+   just before and read just after;
+5. a ``kernels`` JSON line per ported kernel, then the card line, then
+   the result line ``{"ok": true, "device": {...}}`` last.
+
+``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
+after phase 4: CUDA-event times of each device stage, and the device
+busy share and top operators from ``torch.profiler``. ``--out DIR``
+writes the phase records (``chip_smoke.json``) and the profiler table
+(``flagship_profile.txt``) into DIR.
+
+It exits non-zero, and prints no result, without a CUDA device.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet): the memory rate, and the float32
+# rate outside the tensor cores, taken for the kernel's int32 adds.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+FLAGSHIP = dict(rows=25_000_000, users=162_000, partitions=59_000, seed=6)
+RECORD = {"phases": {}}
+
+
+def log(phase: str, **fields) -> None:
+    RECORD["phases"][phase] = fields
+    print(f"[{phase}] " + json.dumps(fields, default=float), flush=True)
+
+
+def zipf_columns(n_rows, n_users, n_partitions, seed, value_hi=10.0):
+    """The columns of the JAX package's ``bench.zipf_dataset``: zipf(1.3)
+    partition keys modulo the partition count, uniform users and values,
+    from one numpy generator in that order."""
+    rng = np.random.default_rng(seed)
+    raw = rng.zipf(1.3, size=n_rows) % n_partitions
+    pids = rng.integers(0, n_users, n_rows)
+    values = rng.uniform(0.0, value_hi, n_rows)
+    return pids, raw.astype(np.int64), values
+
+
+def cuda_ms(fn, reps: int = 21, warm: int = 3) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` warm runs (CUDA
+    events around each run)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_card():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    from pipelinedp_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    _build.load("segsum_lanes")
+    log("card", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), torch=torch.__version__,
+        cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+    return smi
+
+
+def phase_kernel(columns):
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    checked = []
+    shapes = [(8, 2, 1000), (64, 11, 5000), (1024, 14, 20_000),
+              (8192, 4, 3000)]
+    for P, C, n in shapes:
+        pk = torch.randint(0, P, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        cols = torch.randint(0, 4096, (n, C), generator=gen, device=dev,
+                             dtype=torch.int32)
+        got = segsum.segment_sum_lanes(cols, pk, P)
+        want = segsum.segment_sum_lanes_plain(cols, pk, P)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"mismatch at P={P} C={C} n={n}"
+        checked.append([P, C, n])
+    for bits in (12, 11, 4):
+        n, P = 8192, 16
+        cols = torch.full((n, 3), (1 << bits) - 1, dtype=torch.int32,
+                          device=dev)
+        pk = torch.zeros(n, dtype=torch.int32, device=dev)
+        got = segsum.segment_sum_lanes(cols, pk, P)
+        assert int(got[0, 0]) == n * ((1 << bits) - 1)
+        assert torch.equal(got, segsum.segment_sum_lanes_plain(cols, pk, P))
+        checked.append([P, 3, n, f"lane_max_{bits}bit"])
+
+    # The flagship's own lane stack, as the main path builds it: bounding
+    # keeps 8 rows per user at most (L0=4, Linf=2), so most rows of the
+    # stack are zero and issue no atomic.
+    stack, spk, P = flagship_stack(columns)
+    n, C = stack.shape
+    got = segsum.segment_sum_lanes(stack, spk, P)
+    want = segsum.segment_sum_lanes_plain(stack, spk, P)
+    torch.cuda.synchronize()
+    max_abs_err = int((got.long() - want.long()).abs().max())
+    assert max_abs_err == 0, f"flagship mismatch: {max_abs_err}"
+    checked.append([P, C, n, "flagship stack"])
+    timings = time_kernel(stack, spk, P)
+    nonzero_rows = float((stack != 0).any(dim=1).float().mean())
+    del stack, spk, got, want
+
+    # The same shape with every element nonzero: the worst case for the
+    # atomics on zipf(1.3) keys, where a quarter of the rows share one
+    # partition.
+    keys = torch.from_numpy(columns[1].astype(np.int32)).to(dev)
+    dense = torch.randint(0, 64, (n, C), generator=gen, device=dev,
+                          dtype=torch.int32)
+    dense[:, :2] = 1
+    assert torch.equal(segsum.segment_sum_lanes(dense, keys, P),
+                       segsum.segment_sum_lanes_plain(dense, keys, P))
+    checked.append([P, C, n, "dense zipf1.3"])
+    dense_timings = time_kernel(dense, keys, P)
+    hot_share = float(np.bincount(columns[1]).max() / n)
+    del dense, keys
+    log("kernel", kernel="segment_sum_lanes", bit_equal_shapes=checked,
+        flagship=dict(shape=[P, C, n], nonzero_row_share=nonzero_rows,
+                      **timings),
+        dense_zipf=dict(hottest_partition_row_share=hot_share,
+                        **dense_timings))
+    return dict(max_abs_err=max_abs_err, **timings)
+
+
+def flagship_stack(columns):
+    """The [N, C] lane stack and sorted keys that ``_reduce_per_pk`` hands
+    the kernel in the flagship aggregation (same data, params and seed)."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    from pipelinedp_tpu_torch.ops import prng
+    params = pdt.AggregateParams(**flagship_params(pdt))
+    config = te.FusedConfig.from_params(params, public=False)
+    enc = te.encode(pdt.ArrayDataset(*columns), None, None)
+    pid, pk, values = te.put_on_device(enc, torch.device("cuda"))
+    fx_bits = te._fx_plan(enc.n_rows)[0]
+    k_bound = prng.split(prng.PRNGKey(FLAGSHIP["seed"]), 3)[0]
+    spk, masked, keep_row, seg_marker = te._bound_rows(config, pid, pk,
+                                                       values, k_bound)
+    stack, _ = te._lane_stack(config, masked, keep_row, seg_marker, fx_bits)
+    return stack, spk.to(torch.int32).contiguous(), te._pad_pow2(
+        len(enc.pk_vocab))
+
+
+def time_kernel(cols, pk, P):
+    """Median ms of the kernel, its plain version and one ``index_add_``
+    (the library yardstick), and the bound for these inputs."""
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    n, C = cols.shape
+    pk_long = pk.long()
+
+    def library():
+        return torch.zeros(P, C, dtype=torch.int32,
+                           device=cols.device).index_add_(0, pk_long, cols)
+
+    assert torch.equal(library(), segsum.segment_sum_lanes_plain(cols, pk, P))
+    # Least work for these inputs. Every element of cols must be read to
+    # know it is zero, but the answer needs pk only at rows with a nonzero
+    # lane: count the 32-byte sectors of pk those rows touch (the least
+    # the memory moves), plus the output written once. Operations: one
+    # int32 add per nonzero element.
+    nonzero = cols != 0
+    rows = nonzero.any(dim=1).nonzero().squeeze(1)
+    pk_sectors = int(torch.unique((pk.data_ptr() + 4 * rows) // 32).numel())
+    bytes_moved = n * C * 4 + pk_sectors * 32 + P * C * 4
+    adds = int(nonzero.sum())
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = adds / SCALAR_OPS_PER_S * 1e3
+    return dict(
+        ms=cuda_ms(lambda: segsum.segment_sum_lanes(cols, pk, P)),
+        plain_ms=cuda_ms(lambda: segsum.segment_sum_lanes_plain(cols, pk, P)),
+        library_ms=cuda_ms(library),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_bytes=bytes_moved, pk_sectors_needed=pk_sectors,
+        nonzero_elements=adds)
+
+
+def _aggregate(pdt, columns, params_kw, device, seed):
+    pids, pks, values = columns
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    engine = pdt.DPEngine(acc, pdt.TorchBackend(device=device,
+                                                rng_seed=seed))
+    result = engine.aggregate(
+        pdt.ArrayDataset(privacy_ids=pids, partition_keys=pks,
+                         values=values),
+        pdt.AggregateParams(**params_kw), pdt.DataExtractors())
+    acc.compute_budgets()
+    rows = list(result)
+    return rows, result.timings
+
+
+def flagship_params(pdt):
+    """``bench.py``'s ``flagship_params``: MEAN+COUNT+SUM, Laplace, L0=4,
+    Linf=2, values in [0, 10]; private selection (truncated geometric)."""
+    return dict(metrics=[pdt.Metrics.MEAN, pdt.Metrics.COUNT,
+                         pdt.Metrics.SUM],
+                noise_kind=pdt.NoiseKind.LAPLACE,
+                max_partitions_contributed=4,
+                max_contributions_per_partition=2, min_value=0.0,
+                max_value=10.0)
+
+
+def phase_gpu_vs_cpu():
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    columns = zipf_columns(1_000_000, 40_000, 8192, seed=7)
+    params = flagship_params(pdt)
+    segsum.reset_launches()
+    gpu_rows, gpu_t = _aggregate(pdt, columns, params, "cuda", 7)
+    gpu_launches = segsum.LAUNCHES
+    cpu_rows, cpu_t = _aggregate(pdt, columns, params, "cpu", 7)
+    assert segsum.LAUNCHES == gpu_launches, "the CPU run launched a kernel"
+    assert gpu_launches >= 1, "the CUDA run never launched the kernel"
+    assert [k for k, _ in gpu_rows] == [k for k, _ in cpu_rows], (
+        "kept partition keys differ between the card and the CPU")
+    assert len(gpu_rows) > 0
+    for (k, a), (_, b) in zip(gpu_rows, cpu_rows):
+        assert a._fields == b._fields
+        assert (np.asarray(a, np.float64).tobytes() ==
+                np.asarray(b, np.float64).tobytes()), f"release differs at {k}"
+    log("gpu_vs_cpu", rows=1_000_000, partitions=8192,
+        kept=len(gpu_rows), identical=True, launches=gpu_launches,
+        gpu_device_s=gpu_t["device_s"], cpu_device_s=cpu_t["device_s"])
+
+
+def phase_flagship(columns):
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.reset_launches()
+    t0 = time.perf_counter()
+    rows, timings = _aggregate(pdt, columns, flagship_params(pdt), "cuda",
+                               FLAGSHIP["seed"])
+    wall_s = time.perf_counter() - t0
+    launches = segsum.LAUNCHES
+    assert launches >= 1, "the flagship run never launched the kernel"
+    assert len(rows) > 0, "the flagship kept no partition"
+    released = np.asarray([tuple(m) for _, m in rows], np.float64)
+    assert released.shape == (len(rows), 3)
+    assert np.isfinite(released).all()
+    assert rows[0][1]._fields == ("mean", "count", "sum")
+    n_parts = int(np.unique(columns[1]).size)
+    log("flagship", rows=FLAGSHIP["rows"], users=FLAGSHIP["users"],
+        partitions=n_parts, kept=len(rows),
+        wall_s=wall_s, rows_per_s=FLAGSHIP["rows"] / wall_s,
+        host_encode_s=timings["host_encode_s"],
+        device_s=timings["device_s"],
+        host_decode_s=timings["host_decode_s"],
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        segment_sum_lanes_launches=launches)
+    return launches
+
+
+def phase_breakdown(columns, out_dir):
+    """``--profile`` only: where the flagship's time goes. The device
+    path runs stage by stage with CUDA events around each stage, then the
+    whole aggregation runs once under ``torch.profiler``: the summed
+    device time of its kernels and copies over the wall gives the busy
+    share, and its full operator table goes to ``out_dir`` (if any)."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    from pipelinedp_tpu_torch.ops import prng
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    params = pdt.AggregateParams(**flagship_params(pdt))
+    config = te.FusedConfig.from_params(params, public=False)
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        stages[name] = start.elapsed_time(end)
+        return out
+
+    t0 = time.perf_counter()
+    enc = te.encode(pdt.ArrayDataset(*columns), None, None)
+    stages["host_encode"] = (time.perf_counter() - t0) * 1e3
+    pid, pk, values = timed("h2d", lambda: te.put_on_device(enc, dev))
+    n_parts = len(enc.pk_vocab)
+    P = te._pad_pow2(n_parts)
+    fx_bits = te._fx_plan(enc.n_rows)[0]
+    # The flagship's naive split gives the selection eps 0.5 (two
+    # mechanisms of weight 1) and all of delta.
+    table, thr, scale, min_count = te.selection_inputs(config, 0.5, 1e-6,
+                                                       None)
+    k_bound, k_sel, _ = prng.split(prng.PRNGKey(FLAGSHIP["seed"]), 3)
+    part, nseg = timed("partials", lambda: te._partials(
+        config, P, pid, pk, values, k_bound, fx_bits))
+    keep, raw = timed("selection", lambda: te._selection_and_metrics(
+        config, P, part, nseg, table, thr, scale, min_count, 1.0, k_sel))
+    cols = [raw[k] for k in sorted(raw)]
+    timed("compact_fetch", lambda: te._compact_fetch(
+        keep, cols, n_parts, min(n_parts, te._COMPACT_FETCH_CAP)).cpu())
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _aggregate(pdt, columns, flagship_params(pdt), "cuda",
+                   FLAGSHIP["seed"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    # Device rows only (kernels, copies, sets): an operator's row repeats
+    # the device time of the kernels it launched.
+    device_rows = [e for e in averages
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("Activity Buffer")]
+    busy_ms = sum(e.self_device_time_total for e in device_rows) / 1e3
+    top = sorted(device_rows, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    if out_dir:
+        with open(os.path.join(out_dir, "flagship_profile.txt"), "w") as f:
+            f.write(averages.table(sort_by="self_device_time_total",
+                                   row_limit=40))
+    log("breakdown", stage_ms=stages, profiled_wall_ms=wall_ms,
+        device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
+        top_device_ms={e.key[:90]: e.self_device_time_total / 1e3
+                       for e in top})
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="add the flagship's stage breakdown")
+    parser.add_argument("--out", default=None,
+                        help="directory for the phase records")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    import pipelinedp_tpu_torch  # noqa: F401  (fails outside the repo)
+    t_start = time.perf_counter()
+    smi = phase_card()
+    t0 = time.perf_counter()
+    columns = zipf_columns(FLAGSHIP["rows"], FLAGSHIP["users"],
+                           FLAGSHIP["partitions"], FLAGSHIP["seed"])
+    RECORD["flagship_data_gen_s"] = time.perf_counter() - t0
+    kernel = phase_kernel(columns)
+    phase_gpu_vs_cpu()
+    launches = phase_flagship(columns)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    if args.profile:
+        phase_breakdown(columns, args.out)
+    kernels = [{
+        "name": "segment_sum_lanes", "route": "cuda",
+        "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
+        "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:64",
+        "parity": "bit-equal", "launches": launches,
+        "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
+        "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
+        "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]}]
+    RECORD["kernels"] = kernels
+    RECORD["total_s"] = time.perf_counter() - t_start
+    if args.out:
+        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+            json.dump(RECORD, f, indent=1, default=float)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

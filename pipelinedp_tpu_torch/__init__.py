@@ -1,0 +1,32 @@
+"""pipelinedp_tpu_torch — the PyTorch/CUDA port of ``pipelinedp_tpu``.
+
+A second package beside the JAX one, held against it bit for bit. This
+slice runs the fused scalar ``DPEngine.aggregate`` path (COUNT,
+PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE; public or private partitions; one
+device, one batch) and ``select_partitions`` on a CUDA device, with a
+hand-written CUDA kernel for the per-partition lane segment sum. The
+package imports torch, numpy and scipy, never JAX.
+
+    import pipelinedp_tpu_torch as pdt
+    accountant = pdt.NaiveBudgetAccountant(total_epsilon=1, total_delta=1e-6)
+    engine = pdt.DPEngine(accountant, pdt.TorchBackend(rng_seed=0))
+    result = engine.aggregate(pdt.ArrayDataset(pids, pks, values), params,
+                              pdt.DataExtractors())
+    accountant.compute_budgets()
+    rows = list(result)
+"""
+
+from pipelinedp_tpu_torch.aggregate_params import (AggregateParams, Metrics,
+                                                   NoiseKind,
+                                                   PartitionSelectionStrategy,
+                                                   SelectPartitionsParams)
+from pipelinedp_tpu_torch.backends import TorchBackend
+from pipelinedp_tpu_torch.budget_accounting import NaiveBudgetAccountant
+from pipelinedp_tpu_torch.dp_engine import DataExtractors, DPEngine
+from pipelinedp_tpu_torch.torch_engine import ArrayDataset
+
+__all__ = [
+    "AggregateParams", "ArrayDataset", "DataExtractors", "DPEngine",
+    "Metrics", "NaiveBudgetAccountant", "NoiseKind",
+    "PartitionSelectionStrategy", "SelectPartitionsParams", "TorchBackend",
+]

@@ -1,0 +1,45 @@
+"""TorchBackend — the execution plane of the port on a CUDA device.
+
+Modelled on ``pipelinedp_tpu/backends/jax_backend.py``: a marker that
+tells ``DPEngine`` to lower fusable aggregations to the fused device path
+(``torch_engine``), plus the options that path reads. It has no mesh, no
+checkpoint, no health probe and no compile cache (later slices).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+class TorchBackend:
+    """Runs the fused aggregation path on ``device``.
+
+    Attributes:
+      device: the torch device of the device path: ``"cuda"`` (the
+        default, the current CUDA device) or ``"cuda:<i>"``, or ``"cpu"``
+        when the caller asks for the CPU, as the tests do.
+      rng_seed: optional fixed seed for reproducible runs. The same seed
+        gives the same result as ``JaxBackend(rng_seed=...)`` of the JAX
+        package.
+    """
+
+    supports_fused_aggregation = True
+
+    def __init__(self, device="cuda", rng_seed: Optional[int] = None):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchBackend(device='cuda') needs a CUDA device and "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run the device path on the CPU")
+        if device.type not in ("cuda", "cpu"):
+            raise ValueError(f"TorchBackend runs on cuda or cpu, not "
+                             f"{device}")
+        self.device = device
+        self.rng_seed = rng_seed
+
+    def annotate(self, col, stage_name: str = None, **kwargs):
+        """No annotators in this slice: returns ``col`` unchanged."""
+        return col

@@ -1,0 +1,59 @@
+"""Carries the state of a computation across from the JAX package.
+
+The system has no weights: the state of a DP aggregation is its params,
+its dataset and its random key. These helpers build the port's objects
+from the JAX package's (or any object with the same attribute names)
+without importing it, so both packages can compute from the same inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pipelinedp_tpu_torch import aggregate_params as ap
+from pipelinedp_tpu_torch import torch_engine
+
+_ENUM_FIELDS = {
+    "noise_kind": ap.NoiseKind,
+    "vector_norm_kind": ap.NormKind,
+    "partition_selection_strategy": ap.PartitionSelectionStrategy,
+}
+
+
+def _field_value(name: str, value):
+    if name in _ENUM_FIELDS and value is not None:
+        return _ENUM_FIELDS[name][value.name]
+    if name == "metrics":
+        return [ap.Metric(m.name, m.parameter) for m in value]
+    return value
+
+
+def params_from_reference(p):
+    """The port's ``AggregateParams`` (or ``SelectPartitionsParams``) with
+    the field values of ``p``, read by attribute name; enums are matched
+    by ``.name`` and metrics by (name, parameter)."""
+    cls = (ap.AggregateParams if hasattr(p, "metrics") else
+           ap.SelectPartitionsParams)
+    kwargs = {f.name: _field_value(f.name, getattr(p, f.name))
+              for f in dataclasses.fields(cls) if hasattr(p, f.name)}
+    return cls(**kwargs)
+
+
+def dataset_from_arrays(privacy_ids, partition_keys,
+                        values=None) -> torch_engine.ArrayDataset:
+    """An ``ArrayDataset`` over NumPy copies of the columns."""
+    return torch_engine.ArrayDataset(
+        privacy_ids=(None if privacy_ids is None else
+                     np.asarray(privacy_ids)),
+        partition_keys=np.asarray(partition_keys),
+        values=None if values is None else np.asarray(values))
+
+
+def key_from_jax(key) -> torch.Tensor:
+    """A raw JAX PRNG key (``uint32[2]``, as ``np.asarray`` gives it) as
+    the port's key: an int64 tensor ``[2]`` of the same words."""
+    words = np.asarray(key, dtype=np.uint32).reshape(2)
+    return torch.tensor(words.astype(np.int64), dtype=torch.int64)

@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version. A wrapper launches its kernel for CUDA tensors and takes the
+plain version for CPU tensors; sources live in ``csrc/`` and build at
+first use (``_build.py``)."""
+
+from pipelinedp_tpu_torch.ops.kernels.segsum import (segment_sum_lanes,
+                                                     segment_sum_lanes_plain)
+
+__all__ = ["segment_sum_lanes", "segment_sum_lanes_plain"]

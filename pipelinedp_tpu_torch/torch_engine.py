@@ -1,0 +1,1166 @@
+"""The fused aggregation path in PyTorch: the counterpart of
+``pipelinedp_tpu/jax_engine.py``.
+
+The module keeps ``jax_engine``'s structure and names, so each function
+here has its twin there, and its output is held bit for bit against that
+twin in ``tests/test_torch_engine.py``::
+
+    host:   extract + integer-encode (pid, pk, value); calibrate selection
+    device: sort by (pid, hash(pid, pk, salt), tie-break)
+            → Linf / L0 (or total-cap) bounding in row space
+            → fixed-point int32 lanes → one [N, C] segment sum per pk
+              (the hand-written CUDA kernel ``ops/kernels/segsum.py``)
+            → batched partition selection over the pk axis
+            → compaction of the kept partitions
+    host:   float64 scalar release through ``dp_computations`` (the same
+            mechanisms and the same ``np.random.default_rng(rng_seed)``
+            draws as the JAX package), decode, MetricsTuple rows
+
+The random streams are JAX's threefry streams, reproduced in
+``ops/prng.py``: the same ``rng_seed`` gives the same bounding samples and
+the same keep decisions as ``JaxBackend(rng_seed=...)``.
+
+This slice runs COUNT, PRIVACY_ID_COUNT, SUM, MEAN and VARIANCE with
+per-value bounds, in (l0, linf), total-cap or bounds-already-enforced
+mode, with public or private partitions, on one device and in one batch.
+Everything runs on ``device``: a CUDA device (the default of
+``TorchBackend``) or the CPU when the caller asks for it, as the tests do.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import operator
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pipelinedp_tpu_torch import dp_computations
+from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
+                                                   MechanismType, NoiseKind,
+                                                   PartitionSelectionStrategy)
+from pipelinedp_tpu_torch.combiners import _create_named_tuple_instance
+from pipelinedp_tpu_torch.ops import counter_rng
+from pipelinedp_tpu_torch.ops import noise as noise_ops
+from pipelinedp_tpu_torch.ops import partition_selection as ps_ops
+from pipelinedp_tpu_torch.ops import prng
+from pipelinedp_tpu_torch.ops import segment as seg_ops
+from pipelinedp_tpu_torch.ops.kernels import segsum
+
+
+def _pad_pow2(n: int, minimum: int = 8) -> int:
+    return max(minimum, 1 << (n - 1).bit_length())
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to float32, as JAX's weak typing rounds a Python
+    float that meets a float32 array."""
+    return float(np.float32(v))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedConfig:
+    """Static configuration derived from AggregateParams."""
+    metrics: Tuple[str, ...]  # subset of the fused metric names, in order
+    noise_kind: NoiseKind
+    linf: Optional[int]
+    l0: int
+    per_partition_bounds: bool  # SUM clips the per-(pid,pk) sum, not rows
+    min_value: Optional[float]
+    max_value: Optional[float]
+    min_sum_per_partition: Optional[float]
+    max_sum_per_partition: Optional[float]
+    selection: Optional[PartitionSelectionStrategy]  # None = public
+    bounds_already_enforced: bool
+    # Total-cap bounding: M rows per privacy unit across ALL partitions
+    # (l0/linf are None in this mode).
+    max_contributions: Optional[int] = None
+
+    @property
+    def selection_l0(self) -> int:
+        """L0 for partition selection: a unit touches at most this many
+        partitions in either bounding mode."""
+        return (self.max_contributions if self.max_contributions is not None
+                else self.l0)
+
+    @property
+    def needs_values(self) -> bool:
+        return bool(set(self.metrics) & _VALUE_METRICS
+                    ) or self.per_partition_bounds
+
+    @staticmethod
+    def from_params(params: AggregateParams, public: bool) -> "FusedConfig":
+        return FusedConfig(
+            metrics=tuple(m.name for m in params.metrics),
+            noise_kind=params.noise_kind,
+            linf=params.max_contributions_per_partition,
+            l0=params.max_partitions_contributed,
+            max_contributions=params.max_contributions,
+            per_partition_bounds=params.bounds_per_partition_are_set,
+            min_value=params.min_value,
+            max_value=params.max_value,
+            min_sum_per_partition=params.min_sum_per_partition,
+            max_sum_per_partition=params.max_sum_per_partition,
+            selection=(None if public else
+                       params.partition_selection_strategy),
+            bounds_already_enforced=(
+                params.contribution_bounds_already_enforced),
+        )
+
+
+FUSABLE_METRICS = {"COUNT", "PRIVACY_ID_COUNT", "SUM", "MEAN", "VARIANCE",
+                   "VECTOR_SUM", "PERCENTILE"}
+_VALUE_METRICS = {"SUM", "MEAN", "VARIANCE", "VECTOR_SUM", "PERCENTILE"}
+# The quantile tree's leaf count (branching 16, height 4), for the float32
+# range check of percentile params.
+_N_LEAVES = 16**4
+
+
+def params_are_fusable(params: AggregateParams) -> bool:
+    """``jax_engine.params_are_fusable``: whether the JAX package runs
+    these params on its fused plane."""
+    if params.custom_combiners:
+        return False
+    for m in params.metrics:
+        if m.is_percentile:
+            if (params.min_value is None or
+                    not params.min_value < params.max_value):
+                return False
+            inv = _N_LEAVES / (float(params.max_value) -
+                               float(params.min_value))
+            if inv > float(np.finfo(np.float32).max):
+                return False
+        elif m.name not in FUSABLE_METRICS:
+            return False
+    return True
+
+
+def unported_reason(params: AggregateParams) -> Optional[str]:
+    """Why these fusable params are outside this slice (None when the
+    slice runs them)."""
+    names = {m.name for m in params.metrics}
+    if "PERCENTILE" in names:
+        return "PERCENTILE (ROADMAP step 5: single-batch percentiles)"
+    if "VECTOR_SUM" in names:
+        return "VECTOR_SUM (ROADMAP step 6)"
+    if params.bounds_per_partition_are_set:
+        return ("min_sum_per_partition / max_sum_per_partition bounds "
+                "(ROADMAP §1: the per-partition-sum-bounds SUM)")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Host-side encoding
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ArrayDataset:
+    """Columnar input: NumPy columns ``privacy_ids`` [N] (or None when
+    contribution bounds are already enforced), ``partition_keys`` [N] and
+    ``values`` [N]. The integer encoding and the device copies are cached
+    on the dataset, so the columns are treated as immutable once the
+    first aggregation runs — call ``invalidate_cache()`` after mutating
+    them in place."""
+    privacy_ids: Optional[np.ndarray]
+    partition_keys: np.ndarray
+    values: Optional[np.ndarray] = None
+
+    def __len__(self):
+        return len(self.partition_keys)
+
+    def invalidate_cache(self) -> None:
+        """Drops cached encodings/device buffers (after in-place edits)."""
+        self.__dict__.pop("_encode_cache", None)
+
+    def _cached_encode(self, key, build):
+        cache = self.__dict__.setdefault("_encode_cache", {})
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
+
+@dataclasses.dataclass
+class EncodedData:
+    """Integer-encoded rows + the pk vocabulary for decoding."""
+    pid: np.ndarray  # int32 [N]
+    pk: np.ndarray  # int32 [N]
+    values: np.ndarray  # f32 [N]
+    pk_vocab: List[Any]  # dense pk index -> original key
+    n_rows: int
+
+
+def _int_factorize(arr: np.ndarray):
+    """Sort-free factorization for integer keys with a manageable range:
+    O(n + range) via a presence table. Returns (uniq values ascending,
+    int32 inverse) or None when the range is too wide for a table."""
+    if arr.dtype.kind not in "iu" or arr.size == 0:
+        return None
+    mn = int(arr.min())
+    mx = int(arr.max())
+    span = mx - mn + 1
+    if span > max(4 * arr.size, 1 << 22):
+        return None
+    # Unsigned subtraction is exact (arr >= mn), signed fits int64.
+    if arr.dtype.kind == "u":
+        offs = (arr - np.asarray(mn, arr.dtype)).astype(np.int64)
+    else:
+        offs = arr.astype(np.int64) - mn
+    present = np.zeros(span, dtype=bool)
+    present[offs] = True
+    uniq_off = np.flatnonzero(present)
+    lookup = np.empty(span, dtype=np.int32)
+    lookup[uniq_off] = np.arange(len(uniq_off), dtype=np.int32)
+    uniq = uniq_off.astype(arr.dtype) + np.asarray(mn, arr.dtype)
+    return uniq, lookup[offs]
+
+
+def _unique_inverse(arr: np.ndarray):
+    """``np.unique(arr, return_inverse=True)`` with an int32 inverse (the
+    JAX package's native hash factorizer gives the same sorted result)."""
+    uniq, inv = np.unique(arr, return_inverse=True)
+    return uniq, inv.astype(np.int32)
+
+
+def _pid_ids(pid_arr: np.ndarray) -> np.ndarray:
+    """int32 ids for privacy units: any injective mapping works, so
+    in-range integer ids pass through. PAD_ID (int32 max) stays reserved,
+    as in the JAX package."""
+    if (pid_arr.dtype.kind in "iu" and pid_arr.size and
+            pid_arr.min() >= 0 and pid_arr.max() < np.iinfo(np.int32).max):
+        return pid_arr.astype(np.int32)
+    fac = _int_factorize(pid_arr)
+    if fac is not None:
+        return fac[1]
+    return _unique_inverse(pid_arr)[1]
+
+
+def _encode_arrays(ds: ArrayDataset, public_partitions: Optional[Sequence],
+                   require_pid: bool = True) -> EncodedData:
+    """Vectorized encode of columnar input (no per-row Python)."""
+    pk_arr = np.asarray(ds.partition_keys)
+    n = pk_arr.shape[0]
+    if ds.privacy_ids is None and require_pid:
+        raise ValueError(
+            "ArrayDataset.privacy_ids must be set unless "
+            "contribution_bounds_already_enforced is True — without them "
+            "all rows would be attributed to one privacy unit and almost "
+            "all data silently dropped by contribution bounding.")
+    pid_arr = (np.asarray(ds.privacy_ids) if ds.privacy_ids is not None
+               else np.zeros(n, np.int64))
+    values = (np.asarray(ds.values, dtype=np.float32)
+              if ds.values is not None else np.zeros(n, np.float32))
+    if public_partitions is not None:
+        vocab = np.asarray(list(public_partitions))
+        sorter = np.argsort(vocab, kind="stable")
+        pos = np.searchsorted(vocab, pk_arr, sorter=sorter)
+        pos = np.clip(pos, 0, len(vocab) - 1)
+        candidate = sorter[pos]
+        mask = vocab[candidate] == pk_arr
+        pk_idx = candidate[mask].astype(np.int32)
+        pid_arr = pid_arr[mask]
+        values = values[mask]
+        pk_vocab = list(vocab.tolist())
+    else:
+        fac = _int_factorize(pk_arr)
+        if fac is not None:
+            uniq, pk_idx = fac
+        else:
+            uniq, pk_idx = _unique_inverse(pk_arr)
+        pk_vocab = list(uniq.tolist())
+    return EncodedData(pid=_pid_ids(pid_arr), pk=pk_idx, values=values,
+                       pk_vocab=pk_vocab, n_rows=len(pk_idx))
+
+
+def _itemgetter_index(fn) -> Optional[int]:
+    """The index a plain single-item ``operator.itemgetter`` selects, or
+    None for any other callable."""
+    if type(fn) is not operator.itemgetter:
+        return None
+
+    class _Probe:
+        def __init__(self):
+            self.indices = []
+
+        def __getitem__(self, i):
+            self.indices.append(i)
+            return i
+
+    probe = _Probe()
+    try:
+        result = fn(probe)
+    except Exception:
+        return None
+    if len(probe.indices) == 1 and result == probe.indices[0]:
+        return probe.indices[0]
+    return None
+
+
+def _rows_to_arrays(rows, data_extractors,
+                    require_pid: bool) -> Optional[ArrayDataset]:
+    """Numeric tuple rows with ``operator.itemgetter`` extractors become
+    columns and take the vectorized encode, as in the JAX package (the
+    two encodes order the pk vocabulary differently, and the order decides
+    which partition draws which host noise). Returns None when the rows
+    or extractors do not qualify."""
+    if not isinstance(rows, (list, tuple)) or not rows:
+        return None
+    if not isinstance(rows[0], (tuple, list)):
+        return None
+    i_pid = _itemgetter_index(data_extractors.privacy_id_extractor)
+    i_pk = _itemgetter_index(data_extractors.partition_extractor)
+    i_val = _itemgetter_index(data_extractors.value_extractor)
+    if i_pk is None or (require_pid and i_pid is None):
+        return None
+    if data_extractors.value_extractor is not None and i_val is None:
+        return None
+
+    def col(i, sample):
+        try:
+            arr = np.asarray([r[i] for r in sample])
+        except (IndexError, ValueError, TypeError):
+            return None
+        if arr.dtype == object or arr.dtype.kind not in "iuf":
+            return None
+        return arr
+
+    for i in (i_pk, i_pid, i_val):
+        if i is not None and col(i, rows[:256]) is None:
+            return None
+    cols = {}
+    for name, i in (("pk", i_pk), ("pid", i_pid), ("val", i_val)):
+        if i is None:
+            cols[name] = None
+            continue
+        cols[name] = col(i, rows)
+        if cols[name] is None or (name != "val" and cols[name].ndim != 1):
+            return None
+    return ArrayDataset(privacy_ids=cols["pid"], partition_keys=cols["pk"],
+                        values=cols["val"])
+
+
+def encode(rows, data_extractors, public_partitions: Optional[Sequence] = None,
+           require_pid: bool = True) -> EncodedData:
+    """Extract + integer-encode on host. With public partitions the pk
+    vocabulary IS the public list — non-public rows are dropped and missing
+    public partitions appear as all-zero accumulator rows."""
+    if isinstance(rows, ArrayDataset):
+        if public_partitions is None:
+            return rows._cached_encode(
+                ("encode", require_pid),
+                lambda: _encode_arrays(rows, None, require_pid))
+        return _encode_arrays(rows, public_partitions, require_pid)
+    bridged = _rows_to_arrays(rows, data_extractors, require_pid)
+    if bridged is not None:
+        return _encode_arrays(bridged, public_partitions, require_pid)
+    pid_ex = data_extractors.privacy_id_extractor
+    pk_ex = data_extractors.partition_extractor
+    val_ex = data_extractors.value_extractor
+    if pid_ex is None and require_pid:
+        raise ValueError(
+            "privacy_id_extractor must be set unless "
+            "contribution_bounds_already_enforced is True.")
+    pids, pks, vals = [], [], []
+    for row in rows:
+        pids.append(pid_ex(row) if pid_ex else 0)
+        pks.append(pk_ex(row))
+        vals.append(val_ex(row) if val_ex else 0.0)
+    if public_partitions is not None:
+        pk_vocab = list(public_partitions)
+        pk_index = {k: i for i, k in enumerate(pk_vocab)}
+        keep = [i for i, k in enumerate(pks) if k in pk_index]
+        pids = [pids[i] for i in keep]
+        vals = [vals[i] for i in keep]
+        pk_idx = np.fromiter((pk_index[pks[i]] for i in keep),
+                             dtype=np.int32, count=len(keep))
+    else:
+        pk_vocab = sorted(set(pks), key=repr)
+        pk_index = {k: i for i, k in enumerate(pk_vocab)}
+        pk_idx = np.fromiter((pk_index[k] for k in pks), dtype=np.int32,
+                             count=len(pks))
+    uniq_pids = {p: i for i, p in enumerate(dict.fromkeys(pids))}
+    pid_idx = np.fromiter((uniq_pids[p] for p in pids), dtype=np.int32,
+                          count=len(pids))
+    return EncodedData(pid=pid_idx, pk=pk_idx,
+                       values=np.asarray(vals, dtype=np.float32),
+                       pk_vocab=pk_vocab, n_rows=len(pid_idx))
+
+
+def put_on_device(encoded: EncodedData, device: torch.device,
+                  with_values: bool = True):
+    """The encoded columns on ``device``: (pid, pk) int32 and, when asked,
+    values float32, each [N]. The copies are cached on the EncodedData per
+    device, so repeated aggregations of one dataset move the columns once.
+
+    Unlike the JAX package's ``pad_and_put``, the row axis is not padded:
+    PyTorch compiles nothing per shape, and every row-space quantity of
+    the bounding is a function of the real rows alone (the tie-break bits
+    are keyed by row position, padding rows sort last), so the padding
+    could not change a result."""
+    cache = encoded.__dict__.setdefault("_device_cache", {})
+    key = str(device)
+    if ("ids", key) not in cache:
+        cache[("ids", key)] = (
+            torch.from_numpy(np.ascontiguousarray(encoded.pid)).to(device),
+            torch.from_numpy(np.ascontiguousarray(encoded.pk)).to(device))
+    pid, pk = cache[("ids", key)]
+    values = None
+    if with_values:
+        if ("values", key) not in cache:
+            cache[("values", key)] = torch.from_numpy(
+                np.ascontiguousarray(encoded.values)).to(device)
+        values = cache[("values", key)]
+    return pid, pk, values
+
+
+# ---------------------------------------------------------------------------
+# The device path
+# ---------------------------------------------------------------------------
+
+
+def _fused_body(config: FusedConfig, num_partitions: int, pid, pk, values,
+                keep_table, sel_threshold, sel_scale, sel_min_count,
+                sel_rows_per_uid, key, fx_bits: int):
+    """``jax_engine._fused_kernel_body``: the one root split into the
+    bounding, selection and noise streams, then bounding, reduction and
+    selection."""
+    k_bound, k_sel, k_noise = prng.split(key, 3)
+    part, part_nseg = _partials(config, num_partitions, pid, pk, values,
+                                k_bound, fx_bits)
+    return _selection_and_metrics(config, num_partitions, part, part_nseg,
+                                  keep_table, sel_threshold, sel_scale,
+                                  sel_min_count, sel_rows_per_uid, k_sel)
+
+
+def _lexsort_pid_hpk_tie(pid: torch.Tensor, hpk: torch.Tensor,
+                         tie: torch.Tensor) -> torch.Tensor:
+    """``jnp.lexsort((tie, hpk, pid))``: the permutation that orders rows
+    by pid, then hpk, then tie, ties by position. Two stable sorts, last
+    key first: (hpk, tie) packed into one int64 — hpk shifted into the
+    signed range, since unsigned order must survive in int64 — then pid."""
+    inner = ((hpk - 2**31) << 32) | tie
+    order = torch.sort(inner, stable=True).indices
+    by_pid = torch.sort(pid[order], stable=True).indices
+    return order[by_pid]
+
+
+def _partials(config: FusedConfig, num_partitions: int, pid, pk, values,
+              key, fx_bits: int = 7):
+    """Contribution bounding + per-pk accumulator partials
+    (``jax_engine._partials``). ``pid``/``pk`` int32 [N], ``values``
+    float32 [N] (or None when no metric reads values), all on one device.
+    Returns (columns dict of int32 [P], privacy-id-count column)."""
+    spk, masked, keep_row, seg_marker = _bound_rows(config, pid, pk, values,
+                                                    key)
+    part, nseg = _reduce_per_pk(config, spk, masked, keep_row,
+                                num_partitions, seg_marker=seg_marker,
+                                fx_bits=fx_bits)
+    if config.bounds_already_enforced:
+        # Without pids every row counts as its own privacy unit.
+        nseg = part["count"]
+    return part, nseg
+
+
+def _bound_rows(config: FusedConfig, pid, pk, values, key):
+    """Contribution bounding in row space: returns (pk, clipped values
+    zeroed outside the kept rows or None, kept-row mask, kept-segment
+    marker or None), all [N] in the bounding's sorted row order."""
+    if config.per_partition_bounds:
+        raise NotImplementedError(
+            "the per-partition-sum-bounds SUM is not ported yet (ROADMAP "
+            "§1): its per-segment float32 sum needs a deterministic order")
+    n = pid.shape[0]
+    device = pid.device
+
+    if config.bounds_already_enforced:
+        # No privacy ids: every row is its own "segment"; no sampling.
+        row_keep = torch.ones(n, dtype=torch.bool, device=device)
+        masked = (_clip_values(config, values) if config.needs_values
+                  else None)
+        return pk, masked, row_keep, None
+
+    # Bounding streams: tie-breaks keyed by row position, the per-run
+    # salt, and the total-cap sample bits.
+    k_tie, k_salt, k_m = prng.split(key, 3)
+    salt = int(prng.bits(k_salt, ()))
+    tiebreak = counter_rng.row_bits(k_tie, n, device)
+    big_pid = pid.to(torch.int64)
+    big_pk = pk.to(torch.int64)
+    # Sampling priority of segment (pid, pk): an independent uniform
+    # permutation of each pid's partitions. For fixed (pid, salt),
+    # pk -> hpk is injective, so (pid, hpk) identifies the segment.
+    hpk = seg_ops.fmix32(seg_ops.fmix32(big_pid ^ salt) ^ big_pk)
+    sort_idx = _lexsort_pid_hpk_tie(big_pid, hpk, tiebreak)
+    del hpk, tiebreak
+    spid = big_pid[sort_idx]
+    spk = pk[sort_idx]
+    svalues = values[sort_idx] if config.needs_values else None
+    idx = torch.arange(n, device=device)
+
+    new_pid = (idx == 0) | (spid != torch.roll(spid, 1))
+    new_seg = new_pid | (spk != torch.roll(spk, 1))
+    if config.max_contributions is not None:
+        # Total-cap mode: a uniform without-replacement sample of M rows
+        # per privacy unit, ranked by an independent random key
+        # (``lexsort((tie_m, pid))``: pid < 2^31, so pid << 32 | tie_m is
+        # one int64 key), carried back through the permutations.
+        tie_m = counter_rng.row_bits(k_m, n, device)
+        order_m = torch.sort((big_pid << 32) | tie_m, stable=True).indices
+        mpid = big_pid[order_m]
+        new_pid_m = (idx == 0) | (mpid != torch.roll(mpid, 1))
+        keep_sorted = (seg_ops.rank_in_run(new_pid_m) <
+                       config.max_contributions)
+        keep_m = torch.zeros(n, dtype=torch.bool, device=device)
+        keep_m[order_m] = keep_sorted
+        keep_row = keep_m[sort_idx]
+        # The first KEPT row of each segment marks the (pid, pk) pair.
+        wk = torch.cumsum(keep_row.to(torch.int64), dim=0)
+        seg_start = seg_ops.run_starts(new_seg)
+        kept_before_seg = wk[seg_start] - keep_row[seg_start].to(torch.int64)
+        seg_marker = keep_row & (wk == kept_before_seg + 1)
+    else:
+        # Linf: the first linf (randomly ordered) rows per segment.
+        linf_cap = config.linf if config.linf is not None else n
+        row_keep = seg_ops.rank_in_run(new_seg) < linf_cap
+        # L0: the segment's ordinal within its pid must be < l0.
+        keep_l0 = seg_ops.run_ordinal_in_group(new_seg, new_pid) < config.l0
+        keep_row = row_keep & keep_l0
+        seg_marker = new_seg & keep_l0
+
+    masked = None
+    if config.needs_values:
+        masked = torch.where(keep_row, _clip_values(config, svalues), 0.0)
+    return spk, masked, keep_row, seg_marker
+
+
+# Fixed-point value accumulation: quantization grid (2^23 steps over the
+# clip bound) split into integer lanes whose int32 segment sums stay
+# exact. The lane width adapts to the row count: a lane of ``bits`` bits
+# accumulates up to 2^31 / (2^bits - 1) rows exactly.
+_FX_STEPS = 1 << 23
+_FX_OFFSET = 1 << 23
+_FX_PAYLOAD_BITS = 24  # offset-shifted u fits 24 bits (u <= 2^24 - 1)
+_LANE_SUM_CAP = 1 << 31
+
+
+def _fx_max_rows() -> int:
+    """Largest row count the narrowest (4-bit) lane plan sums exactly."""
+    return (_LANE_SUM_CAP - 1) // 15
+
+
+def _fx_plan(n_rows_total: int) -> Tuple[int, int]:
+    """(lane_bits, n_lanes) for a pipeline with ``n_rows_total`` rows."""
+    bits = 12
+    while bits > 4 and n_rows_total * ((1 << bits) - 1) >= _LANE_SUM_CAP:
+        bits -= 1
+    if n_rows_total * ((1 << bits) - 1) >= _LANE_SUM_CAP:
+        raise NotImplementedError(
+            f"fixed-point value lanes support up to 2^27 rows per batch "
+            f"(got {n_rows_total}); streaming is ROADMAP step 7")
+    return bits, -(-_FX_PAYLOAD_BITS // bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class _FxSpec:
+    """One fixed-point accumulated value column."""
+    name: str
+    bound: float  # |y| <= bound
+    signed: bool  # signed columns ship offset by _FX_OFFSET
+    count_col: str  # column holding the number of contributing entries
+
+    @property
+    def scale(self) -> float:
+        return (_FX_STEPS - 1) / self.bound if self.bound > 0 else 1.0
+
+
+def _fixedpoint_layout(config: FusedConfig) -> List[_FxSpec]:
+    """The value columns accumulated in fixed point; static in the config,
+    so device and host release agree on the encoding."""
+    names = set(config.metrics)
+    if "VECTOR_SUM" in names or not (names & {"SUM", "MEAN", "VARIANCE"}):
+        return []
+    if config.per_partition_bounds:
+        bound = max(abs(config.min_sum_per_partition),
+                    abs(config.max_sum_per_partition))
+        return [_FxSpec("sum", bound, True, "privacy_id_count_raw")]
+    r = (config.max_value - config.min_value) / 2.0
+    specs = [_FxSpec("nsum", r, True, "count")]
+    if "VARIANCE" in names:
+        specs.append(_FxSpec("nsumsq", r * r, False, "count"))
+    return specs
+
+
+def _clip_values(config: FusedConfig, values):
+    if config.per_partition_bounds or config.min_value is None:
+        return values
+    return torch.clamp(values, _f32(config.min_value),
+                       _f32(config.max_value))
+
+
+def _lane_stack(config: FusedConfig, masked, keep_row, seg_marker=None,
+                fx_bits: int = 7):
+    """The int32 [N, C] stack that ``_reduce_per_pk`` reduces, and the
+    names of its value lanes: the kept-row count, the segment marker (when
+    given) and the fixed-point lanes of each value column. The value
+    arithmetic is float32, as in the JAX package: ``y * scale`` rounds
+    ``scale`` to float32 first (JAX's weak typing), and ``torch.round``
+    rounds half to even like ``jnp.round``."""
+    int_cols = [keep_row.to(torch.int32)]
+    lane_names: List[str] = []
+    if seg_marker is not None:
+        int_cols.append(seg_marker.to(torch.int32))
+    n_lanes = -(-_FX_PAYLOAD_BITS // fx_bits)
+    layout = _fixedpoint_layout(config)
+    if layout and max(keep_row.shape[0], 1) * ((1 << fx_bits) - 1) >= (
+            _LANE_SUM_CAP):
+        raise NotImplementedError(
+            f"{keep_row.shape[0]} rows overflow {fx_bits}-bit fixed-point "
+            "lanes; pass a smaller fx_bits (see _fx_plan)")
+    if layout:
+        middle = _f32(dp_computations.compute_middle(config.min_value,
+                                                     config.max_value))
+        centred = masked - middle
+    for spec in layout:
+        if spec.name == "nsum":
+            y = centred
+        else:  # nsumsq. A product with no add after it: no FMA to match.
+            y = centred * centred
+        # Clamp after rounding: float32 rounding of y * scale at the clip
+        # boundary can land one step past +-(2^23 - 1).
+        q = torch.clamp(torch.round(y * _f32(spec.scale)),
+                        -(_FX_STEPS - 1), _FX_STEPS - 1).to(torch.int32)
+        u = torch.where(keep_row, q + (_FX_OFFSET if spec.signed else 0), 0)
+        for k in range(n_lanes):
+            int_cols.append((u >> (k * fx_bits)) & ((1 << fx_bits) - 1))
+            lane_names.append(f"{spec.name}_fx{k}")
+    return torch.stack(int_cols, dim=1).contiguous(), lane_names
+
+
+def _reduce_per_pk(config: FusedConfig, pk_safe, masked, keep_row, P,
+                   seg_marker=None, fx_bits: int = 7):
+    """Per-pk accumulator columns straight from row space, as (columns
+    dict, privacy-id-count column or None), all int32 [P]: the lane stack
+    reduced by ONE ``segment_sum_lanes`` call (the CUDA kernel on the
+    card)."""
+    stack, lane_names = _lane_stack(config, masked, keep_row, seg_marker,
+                                    fx_bits)
+    stacked = segsum.segment_sum_lanes(
+        stack, pk_safe.to(torch.int32).contiguous(), P)
+    part = {"count": stacked[:, 0]}
+    col = 1
+    nseg = None
+    if seg_marker is not None:
+        nseg = stacked[:, col]
+        col += 1
+    for i, name in enumerate(lane_names):
+        part[name] = stacked[:, col + i]
+    return part, nseg
+
+
+def _fold_fx_steps(config: FusedConfig, part64, fx_bits: int) -> None:
+    """Reassembles the lane columns into exact float64 step totals
+    (mutates ``part64``): steps = sum of lanes * 2^(bits*k) - entries *
+    offset. Every term is an integer below 2^53, so the result is exact."""
+    n_lanes = -(-_FX_PAYLOAD_BITS // fx_bits)
+    for spec in _fixedpoint_layout(config):
+        total = np.zeros_like(part64[spec.count_col], dtype=np.float64)
+        for k in range(n_lanes):
+            total += part64.pop(f"{spec.name}_fx{k}").astype(
+                np.float64) * float(1 << (k * fx_bits))
+        if spec.signed:
+            total -= part64[spec.count_col].astype(np.float64) * _FX_OFFSET
+        part64[spec.name] = total
+
+
+def _fold_fixedpoint(config: FusedConfig, part64, fx_bits: int) -> None:
+    """Reassembles the lane columns into float64 values (mutates
+    ``part64``): value = steps / scale."""
+    _fold_fx_steps(config, part64, fx_bits)
+    for spec in _fixedpoint_layout(config):
+        part64[spec.name] = part64[spec.name] / spec.scale
+
+
+def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
+                           part_nseg, keep_table, sel_threshold, sel_scale,
+                           sel_min_count, sel_rows_per_uid, k_sel):
+    """Batched partition selection over the whole [P] axis
+    (``jax_engine._selection_and_metrics`` without percentiles). Returns
+    (keep_pk bool [P], accumulator columns). The thresholds arrive as
+    float32 values, as the JAX package passes them."""
+    P = num_partitions
+    device = part["count"].device
+    if config.selection is None:
+        keep_pk = torch.ones(P, dtype=torch.bool, device=device)
+    else:
+        # Without privacy ids one row is not one user: the conservative
+        # user-count estimate is ceil(rows / max_rows_per_privacy_id).
+        est_users = torch.ceil(part_nseg.to(torch.float32) /
+                               _f32(sel_rows_per_uid))
+        if config.selection == (
+                PartitionSelectionStrategy.TRUNCATED_GEOMETRIC):
+            table = torch.as_tensor(np.asarray(keep_table, np.float32),
+                                    device=device)
+            idx = torch.clamp(est_users.to(torch.int64), 0,
+                              table.shape[0] - 1)
+            keep_pk = prng.uniform(k_sel, (P,), device=device) < table[idx]
+        else:
+            if config.selection == (
+                    PartitionSelectionStrategy.LAPLACE_THRESHOLDING):
+                noise = prng.laplace(k_sel, (P,), device=device)
+            else:
+                noise = prng.normal(k_sel, (P,), device=device)
+            # XLA contracts est + noise * scale into one FMA; fma32 keeps
+            # that single rounding, so a draw at the threshold decides the
+            # same way.
+            noisy = prng.fma32(noise, _f32(sel_scale), est_users)
+            keep_pk = (noisy >= _f32(sel_threshold)) & (
+                est_users >= _f32(sel_min_count))  # pre-threshold floor
+        keep_pk = keep_pk & (part_nseg > 0)
+    out = dict(part)
+    out["privacy_id_count_raw"] = part_nseg
+    return keep_pk, out
+
+
+def _compact_fetch(keep_pk, cols, num_partitions: int, cap: int):
+    """Output compaction on the device: a stable sort puts the kept
+    partitions first (ascending pk index); the first ``cap`` of every
+    column are packed into one int32 block [2 + len(cols), cap] = [meta;
+    kept indices; columns...]. The sort must stay stable on the card, or
+    the kept indices would lose their ascending order."""
+    keep = keep_pk[:num_partitions].to(torch.int32)
+    order = torch.argsort(1 - keep, stable=True)
+    sel = order[:cap]
+    meta = torch.zeros(sel.shape[0], dtype=torch.int32, device=keep.device)
+    meta[0] = keep.sum()
+    gathered = [c[:num_partitions][sel] for c in cols]
+    return torch.stack([meta, sel.to(torch.int32)] + gathered)
+
+
+# ---------------------------------------------------------------------------
+# Host release
+# ---------------------------------------------------------------------------
+
+
+def _release_noise_params(config: FusedConfig,
+                          spec) -> dp_computations.ScalarNoiseParams:
+    return dp_computations.ScalarNoiseParams(
+        eps=spec.eps, delta=spec.delta,
+        min_value=config.min_value, max_value=config.max_value,
+        min_sum_per_partition=config.min_sum_per_partition,
+        max_sum_per_partition=config.max_sum_per_partition,
+        max_partitions_contributed=config.l0,
+        max_contributions_per_partition=config.linf,
+        noise_kind=config.noise_kind,
+        max_contributions=config.max_contributions)
+
+
+def _host_release(config: FusedConfig, specs, part, nseg,
+                  rng: Optional[np.random.Generator]):
+    """The scalar DP release, on the host in float64: the
+    ``dp_computations.compute_dp_*`` mechanisms, vectorized over the
+    released partitions, in the JAX package's order of draws."""
+    names = set(config.metrics)
+    out = {}
+    if "VARIANCE" in names or "MEAN" in names:
+        snp = _release_noise_params(config, specs["mean_var"])
+        nsum = part["nsum"]
+        if "VARIANCE" in names:
+            dp_count, dp_sum, dp_mean, dp_var = (
+                dp_computations.compute_dp_var(part["count"], nsum,
+                                               part["nsumsq"], snp, rng))
+            out["variance"] = dp_var
+        else:
+            dp_count, dp_sum, dp_mean = dp_computations.compute_dp_mean(
+                part["count"], nsum, snp, rng)
+        if "MEAN" in names:
+            out["mean"] = dp_mean
+        if "COUNT" in names:
+            out["count"] = dp_count
+        if "SUM" in names:
+            out["sum"] = dp_sum
+    else:
+        if "COUNT" in names:
+            out["count"] = dp_computations.compute_dp_count(
+                part["count"], _release_noise_params(config,
+                                                     specs["count"]), rng)
+        if "SUM" in names:
+            # sum(x) = sum(x - mid) + count * mid, exactly, in float64.
+            middle = dp_computations.compute_middle(config.min_value,
+                                                    config.max_value)
+            raw_sum = part["nsum"] + part["count"].astype(np.float64) * middle
+            out["sum"] = dp_computations.compute_dp_sum(
+                raw_sum, _release_noise_params(config, specs["sum"]), rng)
+    if "PRIVACY_ID_COUNT" in names:
+        out["privacy_id_count"] = dp_computations.compute_dp_privacy_id_count(
+            nseg, _release_noise_params(config, specs["privacy_id_count"]),
+            rng)
+    return out
+
+
+def selection_inputs(config: FusedConfig, eps: float, delta: float,
+                     pre_threshold: Optional[int]):
+    """(keep_table, threshold, scale, min_count) for the selection stage."""
+    if config.selection is None:
+        return np.zeros(2, np.float32), 0.0, 1.0, 0.0
+    strategy = ps_ops.create_partition_selection_strategy(
+        config.selection, eps, delta, config.selection_l0, pre_threshold)
+    if isinstance(strategy, ps_ops.TruncatedGeometricPartitionStrategy):
+        # probabilities() folds in pre-thresholding; materialize the
+        # effective table over [0, saturation + pre_threshold].
+        size = strategy.keep_table.size + (pre_threshold or 0)
+        table = strategy.probabilities(np.arange(size)).astype(np.float32)
+        return table, 0.0, 1.0, 0.0
+    thr = strategy.threshold
+    min_count = 0.0
+    if pre_threshold is not None:
+        # noisy(n - pre + 1) >= T  <=>  noisy(n) >= T + pre - 1.
+        thr = thr + pre_threshold - 1
+        min_count = float(pre_threshold)
+    if isinstance(strategy, ps_ops.LaplaceThresholdingPartitionStrategy):
+        return np.zeros(2, np.float32), thr, strategy.noise_scale, min_count
+    return np.zeros(2, np.float32), thr, strategy.noise_stddev, min_count
+
+
+def _metric_field_order(config: FusedConfig) -> List[str]:
+    """MetricsTuple field order of the JAX package (VARIANCE > MEAN fold
+    count/sum; then privacy_id_count)."""
+    names = set(config.metrics)
+    fields = []
+    if "VARIANCE" in names:
+        fields.append("variance")
+        fields += [f for f in ("count", "sum", "mean")
+                   if f.upper() in names]
+    elif "MEAN" in names:
+        fields.append("mean")
+        fields += [f for f in ("count", "sum") if f.upper() in names]
+    else:
+        fields += [f for f in ("count", "sum") if f.upper() in names]
+    if "PRIVACY_ID_COUNT" in names:
+        fields.append("privacy_id_count")
+    return fields
+
+
+def request_budgets(config: FusedConfig, params: AggregateParams,
+                    budget_accountant) -> Dict[str, Any]:
+    """Requests exactly the budgets the JAX package's fused plane requests:
+    one mechanism per metric group, with the aggregation's weight."""
+    mechanism_type = params.noise_kind.convert_to_mechanism_type()
+    names = set(config.metrics)
+    specs: Dict[str, Any] = {}
+
+    def request(metric: str, internal_splits: int = 1):
+        return budget_accountant.request_budget(
+            mechanism_type, weight=params.budget_weight,
+            internal_splits=internal_splits, metric=metric)
+
+    if "VARIANCE" in names:
+        specs["mean_var"] = request("variance", internal_splits=3)
+    elif "MEAN" in names:
+        specs["mean_var"] = request("mean", internal_splits=2)
+    else:
+        if "COUNT" in names:
+            specs["count"] = request("count")
+        if "SUM" in names:
+            specs["sum"] = request("sum")
+    if "PRIVACY_ID_COUNT" in names:
+        specs["privacy_id_count"] = request("privacy_id_count")
+    return specs
+
+
+# Kept partitions fetched through the packed compact block; beyond this
+# the full fetch runs instead (as in the JAX package: the choice decides
+# which rows draw host noise, so it is part of the bit-identity contract).
+_COMPACT_FETCH_CAP = 8192
+# The JAX package streams above this many rows per batch
+# (``streaming.chunk_target_rows`` at the default ``stream_chunk_rows``).
+_STREAM_CHUNK_ROWS = 1 << 26
+
+
+def chunk_target_rows(config: FusedConfig) -> int:
+    chunk = _STREAM_CHUNK_ROWS
+    if _fixedpoint_layout(config):
+        chunk = min(chunk, _fx_max_rows())
+    return chunk
+
+
+def _assemble_output(config: FusedConfig, vocab, metric_arrays, rel_sel,
+                     vocab_idx):
+    """Released metric columns -> [(partition_key, MetricsTuple)]."""
+    fields = tuple(_metric_field_order(config))
+    columns = [metric_arrays[f][rel_sel].tolist() for f in fields]
+    return [
+        (vocab[i], _create_named_tuple_instance("MetricsTuple", fields,
+                                                vals))
+        for i, vals in zip(np.asarray(vocab_idx).tolist(), zip(*columns))
+    ]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _run_fused(config: FusedConfig, encoded: EncodedData, keep_table, thr,
+               s_scale, min_count, rows_per_uid, rng_seed, device):
+    """The seed protocol and the device path: returns (keep_pk [P_pad],
+    accumulator columns, fx_bits)."""
+    P_pad = _pad_pow2(len(encoded.pk_vocab))
+    seed = (rng_seed if rng_seed is not None else
+            int(noise_ops._host_rng.integers(0, 2**31 - 1)))
+    key = prng.PRNGKey(seed)
+    if _fixedpoint_layout(config):
+        fx_bits, _ = _fx_plan(max(encoded.n_rows, 1))
+    else:
+        fx_bits = 12
+    pid, pk, values = put_on_device(encoded, device,
+                                    with_values=config.needs_values)
+    keep_pk, raw = _fused_body(config, P_pad, pid, pk, values, keep_table,
+                               thr, s_scale, min_count, rows_per_uid, key,
+                               fx_bits)
+    return keep_pk, raw, fx_bits
+
+
+class LazyFusedResult:
+    """Iterable of (partition_key, MetricsTuple); runs the device path on
+    first iteration — after ``compute_budgets()``, honoring the two-phase
+    protocol. Iterating again reuses the cached result.
+
+    ``timings`` holds ``host_encode_s``, ``device_s`` (ends with a
+    synchronise on the card) and ``host_decode_s`` of the last run."""
+
+    def __init__(self, rows, params: AggregateParams, config: FusedConfig,
+                 data_extractors, public_partitions, specs,
+                 selection_spec, rng_seed: Optional[int], device):
+        self._rows = rows
+        self._params = params
+        self._config = config
+        self._extractors = data_extractors
+        self._public = public_partitions
+        self._specs = specs
+        self._selection_spec = selection_spec
+        self._rng_seed = rng_seed
+        self._device = torch.device(device)
+        self._cache = None
+        self.timings: Optional[Dict[str, float]] = None
+
+    def __iter__(self):
+        # Deferred to the first next(): iter() at graph-construction time
+        # must not run the device path before compute_budgets().
+        if self._cache is None:
+            self._cache = self._execute()
+        yield from self._cache
+
+    def _execute(self):
+        config = self._config
+        params = self._params
+        t0 = time.perf_counter()
+        encoded = encode(self._rows, self._extractors, self._public,
+                         require_pid=not config.bounds_already_enforced)
+        self.timings = {"host_encode_s": time.perf_counter() - t0,
+                        "device_s": 0.0, "host_decode_s": 0.0}
+        P = len(encoded.pk_vocab)
+        if P == 0:
+            return []
+        if encoded.n_rows > chunk_target_rows(config):
+            raise NotImplementedError(
+                f"{encoded.n_rows} rows exceed one batch "
+                f"({chunk_target_rows(config)} rows): streaming is ROADMAP "
+                "step 7")
+        # Without privacy ids the selection user-count estimate divides by
+        # the max rows one user may own.
+        if config.bounds_already_enforced:
+            rows_per_uid = float(params.max_contributions or
+                                 params.max_contributions_per_partition)
+        else:
+            rows_per_uid = 1.0
+        if self._selection_spec is not None:
+            keep_table, thr, s_scale, min_count = selection_inputs(
+                config, self._selection_spec.eps,
+                self._selection_spec.delta, params.pre_threshold)
+        else:
+            keep_table, thr, s_scale, min_count = selection_inputs(
+                config, 1.0, 1e-9, None)
+
+        t0 = time.perf_counter()
+        keep_pk, raw, fx_bits = _run_fused(
+            config, encoded, keep_table, thr, s_scale, min_count,
+            rows_per_uid, self._rng_seed, self._device)
+        flat = sorted(raw)  # every column is int32 [P_pad]
+        cols = [raw[name] for name in flat]
+        compact = self._public is None
+        if compact:
+            cap = min(P, _COMPACT_FETCH_CAP)
+            packed = _compact_fetch(keep_pk, cols, P, cap).cpu().numpy()
+            n_keep = int(packed[0, 0])
+            if n_keep > cap:  # too many kept: fetch everything
+                stacked = torch.stack(
+                    [keep_pk.to(torch.int32)] + cols)[:, :P].cpu().numpy()
+                kept_idx = np.flatnonzero(stacked[0] > 0)
+                compact = False
+            else:
+                stacked = packed[1:, :n_keep]
+                kept_idx = stacked[0]
+        else:
+            stacked = torch.stack(
+                [keep_pk.to(torch.int32)] + cols)[:, :P].cpu().numpy()
+            kept_idx = np.flatnonzero(stacked[0] > 0)
+        _sync(self._device)
+        self.timings["device_s"] = time.perf_counter() - t0
+        fetched = {name: stacked[1 + i] for i, name in enumerate(flat)}
+
+        # Only materialize kept partitions. In compact mode the released
+        # arrays already hold only kept rows.
+        if self._public is not None:
+            rel_sel = vocab_idx = np.arange(P)
+        elif compact:
+            rel_sel = np.arange(len(kept_idx))
+            vocab_idx = kept_idx
+        else:
+            rel_sel = vocab_idx = kept_idx
+        return self._finish_release(encoded, fetched, fx_bits, rel_sel,
+                                    vocab_idx)
+
+    def _finish_release(self, encoded: EncodedData, fetched, fx_bits: int,
+                        rel_sel, vocab_idx):
+        """The float64 release tail: integer columns stay integral (the
+        release dispatches on dtype, as the host combiners do)."""
+        config = self._config
+        t0 = time.perf_counter()
+        part64 = {k: v.astype(np.int64) for k, v in fetched.items()}
+        _fold_fixedpoint(config, part64, fx_bits)
+        rng = (np.random.default_rng(self._rng_seed)
+               if self._rng_seed is not None else None)
+        metric_arrays = _host_release(config, self._specs, part64,
+                                      part64["privacy_id_count_raw"], rng)
+        out = _assemble_output(config, encoded.pk_vocab, metric_arrays,
+                               rel_sel, vocab_idx)
+        self.timings["host_decode_s"] = time.perf_counter() - t0
+        return out
+
+
+class LazySelectResult:
+    """Iterable of kept partition keys; runs the device path with an empty
+    metric set — only bounding + selection — on first iteration."""
+
+    def __init__(self, rows, params, data_extractors, spec, rng_seed,
+                 device):
+        self._rows = rows
+        self._params = params
+        self._extractors = data_extractors
+        self._spec = spec
+        self._rng_seed = rng_seed
+        self._device = torch.device(device)
+        self._cache = None
+
+    def __iter__(self):
+        if self._cache is None:
+            self._cache = self._execute()
+        yield from self._cache
+
+    def _execute(self):
+        params = self._params
+        config = FusedConfig(
+            metrics=(), noise_kind=NoiseKind.LAPLACE, linf=None,
+            l0=params.max_partitions_contributed,
+            per_partition_bounds=False, min_value=None, max_value=None,
+            min_sum_per_partition=None, max_sum_per_partition=None,
+            selection=params.partition_selection_strategy,
+            bounds_already_enforced=False)
+        encoded = encode(self._rows, self._extractors, None)
+        P = len(encoded.pk_vocab)
+        if P == 0:
+            return []
+        if encoded.n_rows > chunk_target_rows(config):
+            raise NotImplementedError(
+                f"{encoded.n_rows} rows exceed one batch: streaming is "
+                "ROADMAP step 7")
+        keep_table, thr, s_scale, min_count = selection_inputs(
+            config, self._spec.eps, self._spec.delta, params.pre_threshold)
+        keep_pk, _, _ = _run_fused(config, encoded, keep_table, thr,
+                                   s_scale, min_count, 1.0, self._rng_seed,
+                                   self._device)
+        vocab = encoded.pk_vocab
+        cap = min(P, _COMPACT_FETCH_CAP)
+        packed = _compact_fetch(keep_pk, (), P, cap).cpu().numpy()
+        n_keep = int(packed[0, 0])
+        if n_keep > cap:
+            keep_np = keep_pk[:P].cpu().numpy()
+            return [vocab[i] for i in np.flatnonzero(keep_np)]
+        return [vocab[i] for i in packed[1, :n_keep].tolist()]
+
+
+def build_fused_select_partitions(col, params, data_extractors,
+                                  budget_accountant, report_gen,
+                                  rng_seed=None,
+                                  device="cuda") -> LazySelectResult:
+    """Fused ``select_partitions``: the L0 bound over distinct (pid, pk)
+    pairs and the batched selection are the aggregation path with no
+    metrics requested."""
+    spec = budget_accountant.request_budget(
+        mechanism_type=MechanismType.GENERIC, metric="partition_selection")
+    strategy = params.partition_selection_strategy
+    report_gen.add_stage(
+        f"Cross-partition contribution bounding: for each privacy_id "
+        f"randomly select max(actual_partition_contributed, "
+        f"{params.max_partitions_contributed}) partitions (fused on "
+        "device).")
+    report_gen.add_stage(
+        lambda: f"Private Partition selection: using {strategy.value} "
+        f"method with (eps={spec.eps}, delta={spec.delta}) — batched over "
+        "all partitions")
+    return LazySelectResult(col, params, data_extractors, spec, rng_seed,
+                            device)
+
+
+def build_fused_aggregation(col, params: AggregateParams, data_extractors,
+                            public_partitions, budget_accountant,
+                            report_gen, rng_seed=None,
+                            device="cuda") -> LazyFusedResult:
+    """Engine entry point of the fused path: requests budgets (the same
+    requests, in the same order, as the JAX package), registers report
+    stages, returns the lazy result."""
+    public = public_partitions is not None
+    config = FusedConfig.from_params(params, public)
+    specs = request_budgets(config, params, budget_accountant)
+    selection_spec = None
+    if not public:
+        selection_spec = budget_accountant.request_budget(
+            mechanism_type=MechanismType.GENERIC,
+            metric="partition_selection")
+
+    if not config.bounds_already_enforced:
+        if config.max_contributions is not None:
+            report_gen.add_stage(
+                f"User contribution bounding: randomly selected not more "
+                f"than {config.max_contributions} contributions (fused on "
+                "device).")
+        else:
+            report_gen.add_stage(
+                f"Per-partition contribution bounding: for each privacy_id "
+                f"and each partition, randomly select "
+                f"max(actual_contributions_per_partition, {config.linf}) "
+                f"contributions (fused on device).")
+            report_gen.add_stage(
+                f"Cross-partition contribution bounding: for each "
+                f"privacy_id randomly select "
+                f"max(actual_partition_contributed, {config.l0}) "
+                "partitions (fused on device).")
+    if public:
+        report_gen.add_stage(
+            "Public partition selection: dropped non public partitions; "
+            "missing public partitions added as empty (dense pk axis).")
+    else:
+        strategy = params.partition_selection_strategy
+        report_gen.add_stage(
+            lambda: f"Private Partition selection: using {strategy.value} "
+            f"method with (eps={selection_spec.eps}, "
+            f"delta={selection_spec.delta}) — batched over all partitions")
+    report_gen.add_stage(
+        lambda: "Computed metrics "
+        f"{sorted(set(m.lower() for m in config.metrics))} in one fused "
+        "device pass")
+    return LazyFusedResult(col, params, config, data_extractors,
+                           public_partitions, specs, selection_spec,
+                           rng_seed, device)
