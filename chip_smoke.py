@@ -4,9 +4,9 @@
 
 Phases, one line each; any failure raises and exits non-zero:
 
-1. card: name and power limit (``nvidia-smi``); build the kernel library
-   from ``pipelinedp_tpu_torch/csrc/segsum_lanes.cu`` and print the build
-   seconds;
+1. card: name and power limit (``nvidia-smi``); build the kernel
+   libraries from ``pipelinedp_tpu_torch/csrc/*.cu``, one ``nvcc`` each,
+   all started together, and print the build seconds;
 2. kernel vs plain: ``segment_sum_lanes`` on the card against its plain
    PyTorch version, bit for bit, at the shapes of the tests and on the
    flagship aggregation's own lane stack (P = 65536, C = 6, N = 25M),
@@ -22,7 +22,23 @@ Phases, one line each; any failure raises and exits non-zero:
    162k users, 59k partitions, COUNT+SUM+MEAN, Laplace, L0=4, Linf=2,
    eps=1, delta=1e-6, private selection) with the launch counts zeroed
    just before and read just after;
-5. a ``kernels`` JSON line per ported kernel, then the card line, then
+5. K2 vs plain: ``segment_sum_wide`` on the card against its plain
+   version, bit for bit, at the shapes of the tests (widths that are no
+   multiple of the kernel's column tile, P = 1, P = 65536, lane-maximum
+   columns) and on the lane stacks of the three VECTOR_SUM widths below,
+   where the kernel, the plain version, one ``index_add_`` (the library
+   yardstick) and K1 on the same stack are timed; the ``kernels`` line
+   reports the D = 64 stack;
+6. VECTOR_SUM, GPU vs CPU: 200k rows at D = 64 under the ``fx``
+   accumulator with private selection, Laplace and Gaussian: the same
+   kept keys and bit-identical float64 vectors, and K2 launched on the
+   card and not on the CPU;
+7. VECTOR_SUM at full width: the JAX package's ``bench_dp_vector_sum``
+   data and params (D = 64, 256, 1024 at 2M, 500k, 125k rows; 2048
+   public partitions; Gaussian, L0 = 4, Linf = 2, L2 norm 4.0) under
+   ``fx``, with the launch counts zeroed just before each aggregation and
+   read just after;
+8. a ``kernels`` JSON line per ported kernel, then the card line, then
    the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
@@ -53,6 +69,11 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 FLAGSHIP = dict(rows=25_000_000, users=162_000, partitions=59_000, seed=6)
+# ``bench.py``'s ``bench_dp_vector_sum`` at its full size.
+VECTOR_WIDTHS = (64, 256, 1024)
+VECTOR_ROWS_AT_64 = 2_000_000
+VECTOR_PARTITIONS = 2048
+KERNEL_SOURCES = ("segsum_lanes", "segsum_wide")
 RECORD = {"phases": {}}
 
 
@@ -95,12 +116,15 @@ def phase_card():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    from concurrent.futures import ThreadPoolExecutor
     from pipelinedp_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
-    _build.load("segsum_lanes")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.load, KERNEL_SOURCES))
     log("card", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+        cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
+        kernels_built=list(KERNEL_SOURCES))
     return smi
 
 
@@ -187,10 +211,12 @@ def flagship_stack(columns):
         len(enc.pk_vocab))
 
 
-def time_kernel(cols, pk, P):
-    """Median ms of the kernel, its plain version and one ``index_add_``
+def time_kernel(cols, pk, P, kernel="segment_sum_lanes"):
+    """Median ms of ``kernel``, its plain version and one ``index_add_``
     (the library yardstick), and the bound for these inputs."""
     from pipelinedp_tpu_torch.ops.kernels import segsum
+    launch = getattr(segsum, kernel)
+    plain = getattr(segsum, kernel + "_plain")
     n, C = cols.shape
     pk_long = pk.long()
 
@@ -198,7 +224,7 @@ def time_kernel(cols, pk, P):
         return torch.zeros(P, C, dtype=torch.int32,
                            device=cols.device).index_add_(0, pk_long, cols)
 
-    assert torch.equal(library(), segsum.segment_sum_lanes_plain(cols, pk, P))
+    assert torch.equal(library(), plain(cols, pk, P))
     # Least work for these inputs. Every element of cols must be read to
     # know it is zero, but the answer needs pk only at rows with a nonzero
     # lane: count the 32-byte sectors of pk those rows touch (the least
@@ -212,8 +238,8 @@ def time_kernel(cols, pk, P):
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = adds / SCALAR_OPS_PER_S * 1e3
     return dict(
-        ms=cuda_ms(lambda: segsum.segment_sum_lanes(cols, pk, P)),
-        plain_ms=cuda_ms(lambda: segsum.segment_sum_lanes_plain(cols, pk, P)),
+        ms=cuda_ms(lambda: launch(cols, pk, P)),
+        plain_ms=cuda_ms(lambda: plain(cols, pk, P)),
         library_ms=cuda_ms(library),
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -221,7 +247,7 @@ def time_kernel(cols, pk, P):
         nonzero_elements=adds)
 
 
-def _aggregate(pdt, columns, params_kw, device, seed):
+def _aggregate(pdt, columns, params_kw, device, seed, public=None):
     pids, pks, values = columns
     acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
     engine = pdt.DPEngine(acc, pdt.TorchBackend(device=device,
@@ -229,7 +255,8 @@ def _aggregate(pdt, columns, params_kw, device, seed):
     result = engine.aggregate(
         pdt.ArrayDataset(privacy_ids=pids, partition_keys=pks,
                          values=values),
-        pdt.AggregateParams(**params_kw), pdt.DataExtractors())
+        pdt.AggregateParams(**params_kw), pdt.DataExtractors(),
+        public_partitions=public)
     acc.compute_budgets()
     rows = list(result)
     return rows, result.timings
@@ -253,9 +280,10 @@ def phase_gpu_vs_cpu():
     params = flagship_params(pdt)
     segsum.reset_launches()
     gpu_rows, gpu_t = _aggregate(pdt, columns, params, "cuda", 7)
-    gpu_launches = segsum.LAUNCHES
+    gpu_launches = segsum.LAUNCHES["segment_sum_lanes"]
     cpu_rows, cpu_t = _aggregate(pdt, columns, params, "cpu", 7)
-    assert segsum.LAUNCHES == gpu_launches, "the CPU run launched a kernel"
+    assert segsum.LAUNCHES["segment_sum_lanes"] == gpu_launches, (
+        "the CPU run launched a kernel")
     assert gpu_launches >= 1, "the CUDA run never launched the kernel"
     assert [k for k, _ in gpu_rows] == [k for k, _ in cpu_rows], (
         "kept partition keys differ between the card and the CPU")
@@ -279,7 +307,7 @@ def phase_flagship(columns):
     rows, timings = _aggregate(pdt, columns, flagship_params(pdt), "cuda",
                                FLAGSHIP["seed"])
     wall_s = time.perf_counter() - t0
-    launches = segsum.LAUNCHES
+    launches = segsum.LAUNCHES["segment_sum_lanes"]
     assert launches >= 1, "the flagship run never launched the kernel"
     assert len(rows) > 0, "the flagship kept no partition"
     released = np.asarray([tuple(m) for _, m in rows], np.float64)
@@ -372,6 +400,196 @@ def phase_breakdown(columns, out_dir):
                        for e in top})
 
 
+def vector_columns(rng, d):
+    """One width of ``bench.py``'s ``bench_dp_vector_sum``: rows scale as
+    1/D from 2M at D = 64; zipf(1.3) keys over 2048 partitions; n / 8
+    users; uniform [-1, 1) float32 coordinates; drawn from ``rng`` in the
+    bench's order."""
+    n = max(VECTOR_ROWS_AT_64 * VECTOR_WIDTHS[0] // d, 2_000)
+    pids = rng.integers(0, max(n // 8, 500), n)
+    pks = (rng.zipf(1.3, n) % VECTOR_PARTITIONS).astype(np.int32)
+    values = rng.uniform(-1.0, 1.0, (n, d)).astype(np.float32)
+    return pids, pks, values
+
+
+def vector_params(pdt, d, noise="GAUSSIAN"):
+    """``bench_dp_vector_sum``'s params at width ``d``."""
+    return dict(metrics=[pdt.Metrics.VECTOR_SUM],
+                noise_kind=pdt.NoiseKind[noise],
+                max_partitions_contributed=4,
+                max_contributions_per_partition=2, vector_size=d,
+                vector_max_norm=4.0, vector_norm_kind=pdt.NormKind.L2)
+
+
+def vector_stack(columns, d, public):
+    """The [N, n_lanes * D] lanes and sorted keys that ``_reduce_per_pk``
+    hands K2 in the full-width aggregation at width ``d`` (its data,
+    params and seed)."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    from pipelinedp_tpu_torch.ops import prng
+    params = pdt.AggregateParams(**vector_params(pdt, d))
+    config = te.FusedConfig.from_params(params, public=public is not None)
+    assert config.vector_accumulator == "fx"
+    enc = te.encode(pdt.ArrayDataset(*columns), None, public,
+                    vector_size=d)
+    pid, pk, values = te.put_on_device(enc, torch.device("cuda"))
+    fx_bits = te._fx_plan(enc.n_rows)[0]
+    k_bound = prng.split(prng.PRNGKey(0), 3)[0]
+    spk, masked, keep_row, _ = te._bound_rows(config, pid, pk, values,
+                                              k_bound)
+    lanes = te._vector_lanes(config, masked, keep_row, fx_bits)
+    return (lanes, spk.to(torch.int32).contiguous(),
+            te._pad_pow2(len(enc.pk_vocab)), fx_bits)
+
+
+def phase_wide_kernel(vector_data):
+    """K2 against its plain version, bit for bit, then timed on each
+    width's lane stack with K1 on the same stack beside it."""
+    import ctypes
+    from pipelinedp_tpu_torch.ops.kernels import _build, segsum
+    tile = _build.load("segsum_wide").segsum_wide_tile
+    tile.argtypes = [ctypes.c_int, ctypes.c_int]
+    tile.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    checked = []
+    # (P, W, n): one per column tile the kernel picks (32 down to 1) and
+    # the global-atomic design of P = 65536; no W a multiple of its tile.
+    shapes = [(1, 7, 500), (8, 192, 3000), (64, 99, 2000), (700, 70, 5000),
+              (1024, 40, 5000), (2048, 512, 2500), (8192, 130, 1000),
+              (24576, 3, 5000), (65536, 24, 20_000)]
+    for P, W, n in shapes:
+        pk = torch.randint(0, P, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        cols = torch.randint(0, 4096, (n, W), generator=gen, device=dev,
+                             dtype=torch.int32)
+        got = segsum.segment_sum_wide(cols, pk, P)
+        torch.cuda.synchronize()
+        assert torch.equal(got, segsum.segment_sum_wide_plain(cols, pk, P)), (
+            f"K2 mismatch at P={P} W={W} n={n}")
+        checked.append([P, W, n, f"tile {tile(W, P)}"])
+    n, P, W = 8192, 1, 96
+    cols = torch.full((n, W), (1 << 12) - 1, dtype=torch.int32, device=dev)
+    pk = torch.zeros(n, dtype=torch.int32, device=dev)
+    got = segsum.segment_sum_wide(cols, pk, P)
+    assert (got == n * ((1 << 12) - 1)).all()
+    assert torch.equal(got, segsum.segment_sum_wide_plain(cols, pk, P))
+    checked.append([P, W, n, "lane_max_12bit"])
+    pk[::5] = -1
+    pk[1::7] = P
+    assert torch.equal(segsum.segment_sum_wide(cols, pk, P),
+                       segsum.segment_sum_wide_plain(cols, pk, P))
+    checked.append([P, W, n, "keys outside [0, P) dropped"])
+
+    stacks = {}
+    max_abs_err = 0
+    for d in VECTOR_WIDTHS:
+        lanes, spk, P, fx_bits = vector_stack(vector_data[d], d,
+                                              list(range(VECTOR_PARTITIONS)))
+        got = segsum.segment_sum_wide(lanes, spk, P)
+        want = segsum.segment_sum_wide_plain(lanes, spk, P)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_abs_err = max(max_abs_err, err)
+        assert err == 0, f"K2 mismatch on the D={d} stack: {err}"
+        n, W = lanes.shape
+        rec = dict(shape=[P, W, n], fx_bits=fx_bits, tile=tile(W, P),
+                   nonzero_row_share=float(
+                       (lanes != 0).any(dim=1).float().mean()),
+                   **time_kernel(lanes, spk, P, "segment_sum_wide"))
+        rec["k1_same_stack_ms"] = cuda_ms(
+            lambda: segsum.segment_sum_lanes(lanes, spk, P))
+        stacks[f"D={d}"] = rec
+        del lanes, spk, got, want
+    log("wide_kernel", kernel="segment_sum_wide", bit_equal_shapes=checked,
+        stacks=stacks)
+    first = stacks[f"D={VECTOR_WIDTHS[0]}"]
+    return dict(max_abs_err=max_abs_err,
+                **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")})
+
+
+def phase_vector_gpu_vs_cpu():
+    """VECTOR_SUM under fx, private selection, GPU against CPU."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    n, d = 200_000, 64
+    rng = np.random.default_rng(31)
+    columns = (rng.integers(0, n // 8, n),
+               (rng.zipf(1.3, n) % VECTOR_PARTITIONS).astype(np.int32),
+               rng.uniform(-1.0, 1.0, (n, d)).astype(np.float32))
+    out = {}
+    for noise in ("LAPLACE", "GAUSSIAN"):
+        params = vector_params(pdt, d, noise)
+        segsum.reset_launches()
+        gpu_rows, gpu_t = _aggregate(pdt, columns, params, "cuda", 11)
+        gpu_launches = dict(segsum.LAUNCHES)
+        cpu_rows, _ = _aggregate(pdt, columns, params, "cpu", 11)
+        assert segsum.LAUNCHES == gpu_launches, "the CPU run launched a kernel"
+        assert gpu_launches["segment_sum_wide"] >= 1, (
+            "the CUDA run never launched K2")
+        assert gpu_launches["segment_sum_lanes"] >= 1, (
+            "the CUDA run never launched K1")
+        assert len(gpu_rows) > 0
+        assert [k for k, _ in gpu_rows] == [k for k, _ in cpu_rows], (
+            f"{noise}: kept keys differ between the card and the CPU")
+        a = np.stack([np.asarray(m.vector_sum, np.float64)
+                      for _, m in gpu_rows])
+        b = np.stack([np.asarray(m.vector_sum, np.float64)
+                      for _, m in cpu_rows])
+        assert a.shape == (len(gpu_rows), d)
+        assert a.tobytes() == b.tobytes(), f"{noise}: vectors differ"
+        out[noise] = dict(kept=len(gpu_rows), launches=gpu_launches,
+                          gpu_device_s=gpu_t["device_s"])
+    log("vector_gpu_vs_cpu", rows=n, d=d, partitions=VECTOR_PARTITIONS,
+        identical=True, **out)
+
+
+def phase_vector_full(vector_data):
+    """VECTOR_SUM at the JAX bench's full widths, one aggregation each,
+    with the launch counts zeroed just before and read just after."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    public = list(range(VECTOR_PARTITIONS))
+    widths = {}
+    totals = {"segment_sum_lanes": 0, "segment_sum_wide": 0}
+    for d in VECTOR_WIDTHS:
+        columns = vector_data[d]
+        n = len(columns[1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        segsum.reset_launches()
+        t0 = time.perf_counter()
+        rows, timings = _aggregate(pdt, columns, vector_params(pdt, d),
+                                   "cuda", 0, public)
+        wall_s = time.perf_counter() - t0
+        launches = dict(segsum.LAUNCHES)
+        assert launches["segment_sum_wide"] >= 1, f"D={d}: K2 never launched"
+        assert launches["segment_sum_lanes"] >= 1, f"D={d}: K1 never launched"
+        for k in totals:
+            totals[k] += launches[k]
+        assert [k for k, _ in rows] == public
+        vec = np.stack([np.asarray(m.vector_sum, np.float64) for _, m in rows])
+        assert vec.shape == (VECTOR_PARTITIONS, d)
+        assert not np.isnan(vec).any()
+        widths[f"D={d}"] = dict(
+            rows=n, wall_s=wall_s, rows_per_s=n / wall_s,
+            coord_bytes_per_s=n * d * 4 / wall_s,
+            host_encode_s=timings["host_encode_s"],
+            device_s=timings["device_s"],
+            host_decode_s=timings["host_decode_s"],
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            # The JAX package's counter Gaussian is +inf on the top point
+            # of its 2^24-point grid; the port draws the same.
+            infinite_coordinates=int(np.isinf(vec).sum()),
+            launches=launches)
+    log("vector_full", partitions=VECTOR_PARTITIONS, accumulator="fx",
+        noise="GAUSSIAN", **widths)
+    return totals
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -397,6 +615,17 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
         phase_breakdown(columns, args.out)
+    del columns
+    # VECTOR_SUM under the fixed-point accumulator, set as the JAX bench
+    # sets it.
+    os.environ["PIPELINEDP_TPU_VECTOR_ACCUMULATOR"] = "fx"
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(29)
+    vector_data = {d: vector_columns(rng, d) for d in VECTOR_WIDTHS}
+    RECORD["vector_data_gen_s"] = time.perf_counter() - t0
+    wide = phase_wide_kernel(vector_data)
+    phase_vector_gpu_vs_cpu()
+    vector_launches = phase_vector_full(vector_data)
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
@@ -404,7 +633,15 @@ def main() -> int:
         "parity": "bit-equal", "launches": launches,
         "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]}]
+        "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]}, {
+        "name": "segment_sum_wide", "route": "cuda",
+        "source": "pipelinedp_tpu_torch/csrc/segsum_wide.cu",
+        "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:116",
+        "parity": "bit-equal",
+        "launches": vector_launches["segment_sum_wide"],
+        "max_abs_err": wide["max_abs_err"], "ms": wide["ms"],
+        "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"]}]
     RECORD["kernels"] = kernels
     RECORD["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -1,10 +1,11 @@
 """pipelinedp_tpu_torch — the PyTorch/CUDA port of ``pipelinedp_tpu``.
 
 A second package beside the JAX one, held against it bit for bit. This
-slice runs the fused scalar ``DPEngine.aggregate`` path (COUNT,
-PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE; public or private partitions; one
-device, one batch) and ``select_partitions`` on a CUDA device, with a
-hand-written CUDA kernel for the per-partition lane segment sum. The
+package runs the fused ``DPEngine.aggregate`` path (COUNT,
+PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE, or VECTOR_SUM; public or private
+partitions; one device, one batch) and ``select_partitions`` on a CUDA
+device, with hand-written CUDA kernels for the per-partition segment sums
+of the scalar lanes and of VECTOR_SUM's coordinate lanes. The
 package imports torch, numpy and scipy, never JAX.
 
     import pipelinedp_tpu_torch as pdt
@@ -17,7 +18,7 @@ package imports torch, numpy and scipy, never JAX.
 """
 
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams, Metrics,
-                                                   NoiseKind,
+                                                   NoiseKind, NormKind,
                                                    PartitionSelectionStrategy,
                                                    SelectPartitionsParams)
 from pipelinedp_tpu_torch.backends import TorchBackend
@@ -27,6 +28,6 @@ from pipelinedp_tpu_torch.torch_engine import ArrayDataset
 
 __all__ = [
     "AggregateParams", "ArrayDataset", "DataExtractors", "DPEngine",
-    "Metrics", "NaiveBudgetAccountant", "NoiseKind",
+    "Metrics", "NaiveBudgetAccountant", "NoiseKind", "NormKind",
     "PartitionSelectionStrategy", "SelectPartitionsParams", "TorchBackend",
 ]

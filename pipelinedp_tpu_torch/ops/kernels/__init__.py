@@ -4,6 +4,9 @@ plain version for CPU tensors; sources live in ``csrc/`` and build at
 first use (``_build.py``)."""
 
 from pipelinedp_tpu_torch.ops.kernels.segsum import (segment_sum_lanes,
-                                                     segment_sum_lanes_plain)
+                                                     segment_sum_lanes_plain,
+                                                     segment_sum_wide,
+                                                     segment_sum_wide_plain)
 
-__all__ = ["segment_sum_lanes", "segment_sum_lanes_plain"]
+__all__ = ["segment_sum_lanes", "segment_sum_lanes_plain",
+           "segment_sum_wide", "segment_sum_wide_plain"]

@@ -14,6 +14,8 @@ numbers, so this module rebuilds those calls under JAX's default
   block per child over the counters ``(hi, lo)`` of a 64-bit iota;
 * ``bits(key, shape)`` is ``_threefry_random_bits_partitionable``:
   ``bits1 ^ bits2`` of the same block over the same iota counters;
+* ``fold_in(key, data)`` is ``threefry_fold_in``: one block over the
+  counter ``(0, data)``;
 * ``uniform`` / ``laplace`` / ``normal`` follow ``jax/_src/random.py``'s
   ``_uniform`` (mantissa fill of ``[1, 2)``, minus one, affine map, clamp
   at ``minval``), ``_laplace`` and ``_normal_real``.
@@ -32,8 +34,10 @@ of XLA's CPU emitter and the Giles ``erf_inv`` of its CHLO lowering. XLA's
 CPU code generator contracts each ``a * b + c`` of those polynomials into
 one fused multiply-add; ``fma32`` reproduces that single rounding through
 an exact float64 product (a float32 product has at most 48 significant
-bits). Every op is elementwise IEEE arithmetic, so the draws are the same
-on the CPU and on the card.
+bits). The one square root, in the tail of ``erf_inv``, is taken in
+float64 and rounded once, so it is correctly rounded as XLA's is. Every op
+is elementwise IEEE arithmetic, so the draws are the same on the CPU and
+on the card.
 """
 
 from __future__ import annotations
@@ -107,6 +111,17 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     hi, lo = _iota_2x32((num,), "cpu")
     b1, b2 = threefry2x32(k0, k1, hi, lo)
     return torch.stack([b1, b2], dim=1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: one Threefry-2x32 block over the
+    counter ``(0, data)`` (``threefry_seed`` of a uint32 datum), whose two
+    output words are the new key. The partitionable flag does not touch
+    it."""
+    k0, k1 = key_words(key)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros(1, dtype=torch.int64),
+                          torch.tensor([int(data) & MASK32]))
+    return torch.cat([y0, y1])
 
 
 def bits(key: torch.Tensor, shape: Sequence[int] = (),
@@ -219,16 +234,23 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 
 def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 ``erf_inv`` (Giles' approximation), for ``|x| < 1``."""
+    """XLA's float32 ``erf_inv`` (Giles' approximation), for ``|x| <= 1``.
+
+    The tail branch's ``sqrt`` is taken in float64 and rounded to
+    float32: that is the correctly rounded float32 square root (53 >= 2 *
+    24 + 2 bits), which XLA's ``sqrt`` gives and torch's CPU float32
+    ``sqrt`` does not always."""
     w = -xla_log1p(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     lt5 = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
     ge5 = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
     p = torch.where(lt, lt5[0], ge5[0])
     for i in range(1, len(_ERFINV_LT5)):
         p = fma32(p, w, torch.where(lt, lt5[i], ge5[i]))
-    return p * x
+    # XLA returns +-inf at |x| == 1, which the counter-keyed uniform
+    # reaches on its top grid point.
+    return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
 
 
 def laplace(key: torch.Tensor, shape: Sequence[int],

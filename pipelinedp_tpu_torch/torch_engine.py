@@ -9,21 +9,31 @@ twin in ``tests/test_torch_engine.py``::
     device: sort by (pid, hash(pid, pk, salt), tie-break)
             → Linf / L0 (or total-cap) bounding in row space
             → fixed-point int32 lanes → one [N, C] segment sum per pk
-              (the hand-written CUDA kernel ``ops/kernels/segsum.py``)
+              (the hand-written CUDA kernel K1, ``ops/kernels/segsum.py``)
+            → VECTOR_SUM: fixed-point coordinate lanes → one
+              [N, n_lanes * D] segment sum per pk (kernel K2, same module)
             → batched partition selection over the pk axis
             → compaction of the kept partitions
     host:   float64 scalar release through ``dp_computations`` (the same
             mechanisms and the same ``np.random.default_rng(rng_seed)``
-            draws as the JAX package), decode, MetricsTuple rows
+            draws as the JAX package), vector noise drawn on ``device``
+            (``ops/vector_noise.py``), decode, MetricsTuple rows
 
 The random streams are JAX's threefry streams, reproduced in
-``ops/prng.py``: the same ``rng_seed`` gives the same bounding samples and
-the same keep decisions as ``JaxBackend(rng_seed=...)``.
+``ops/prng.py``: the same ``rng_seed`` gives the same bounding samples,
+the same keep decisions and the same vector noise as
+``JaxBackend(rng_seed=...)``.
 
 This slice runs COUNT, PRIVACY_ID_COUNT, SUM, MEAN and VARIANCE with
-per-value bounds, in (l0, linf), total-cap or bounds-already-enforced
-mode, with public or private partitions, on one device and in one batch.
-Everything runs on ``device``: a CUDA device (the default of
+per-value bounds, and VECTOR_SUM, in (l0, linf), total-cap (scalars only)
+or bounds-already-enforced mode, with public or private partitions, on one
+device and in one batch. VECTOR_SUM accumulates under the JAX package's
+``vector_accumulator`` switch: ``fx`` (fixed-point lanes, bit-identical to
+the JAX package) or ``f32`` (a float32 ``index_add_``, the default, equal
+to the JAX package's float32 ``segment_sum`` up to the order of the
+additions). The JAX package's ``segsum_wide_d_block`` knob, a VMEM tile
+hint of its TPU kernel, is not ported: the CUDA kernel picks its own
+tiling. Everything runs on ``device``: a CUDA device (the default of
 ``TorchBackend``) or the CPU when the caller asks for it, as the tests do.
 """
 
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import operator
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -40,6 +51,7 @@ import torch
 from pipelinedp_tpu_torch import dp_computations
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
                                                    MechanismType, NoiseKind,
+                                                   NormKind,
                                                    PartitionSelectionStrategy)
 from pipelinedp_tpu_torch.combiners import _create_named_tuple_instance
 from pipelinedp_tpu_torch.ops import counter_rng
@@ -47,7 +59,24 @@ from pipelinedp_tpu_torch.ops import noise as noise_ops
 from pipelinedp_tpu_torch.ops import partition_selection as ps_ops
 from pipelinedp_tpu_torch.ops import prng
 from pipelinedp_tpu_torch.ops import segment as seg_ops
+from pipelinedp_tpu_torch.ops import vector_noise
 from pipelinedp_tpu_torch.ops.kernels import segsum
+
+#: VECTOR_SUM's accumulator when ``PIPELINEDP_TPU_VECTOR_ACCUMULATOR`` is
+#: unset: the module seam of the JAX package's ``vector_accumulator`` knob
+#: ("f32" or "fx"). The knob is not dp-safe (the two release different
+#: floats), so nothing but the environment and this seam sets it.
+_VECTOR_ACCUMULATOR = "f32"
+_VECTOR_ACCUMULATOR_ENV = "PIPELINEDP_TPU_VECTOR_ACCUMULATOR"
+_VECTOR_ACCUMULATORS = ("f32", "fx")
+
+
+def _vector_accumulator() -> str:
+    """The knob's resolution in the JAX package: the environment, then the
+    seam, then "f32"; an unknown value resolves to "f32"."""
+    raw = os.environ.get(_VECTOR_ACCUMULATOR_ENV) or _VECTOR_ACCUMULATOR
+    value = str(raw).strip().lower()
+    return value if value in _VECTOR_ACCUMULATORS else "f32"
 
 
 def _pad_pow2(n: int, minimum: int = 8) -> int:
@@ -77,6 +106,12 @@ class FusedConfig:
     # Total-cap bounding: M rows per privacy unit across ALL partitions
     # (l0/linf are None in this mode).
     max_contributions: Optional[int] = None
+    vector_size: Optional[int] = None
+    vector_norm_kind: Optional[NormKind] = None
+    vector_max_norm: Optional[float] = None
+    # VECTOR_SUM's accumulator, "f32" or "fx" (see _vector_accumulator);
+    # resolved in from_params only when params.vector_size is set.
+    vector_accumulator: str = "f32"
 
     @property
     def selection_l0(self) -> int:
@@ -107,6 +142,11 @@ class FusedConfig:
                        params.partition_selection_strategy),
             bounds_already_enforced=(
                 params.contribution_bounds_already_enforced),
+            vector_size=params.vector_size,
+            vector_norm_kind=params.vector_norm_kind,
+            vector_max_norm=params.vector_max_norm,
+            vector_accumulator=(_vector_accumulator() if params.vector_size
+                                else "f32"),
         )
 
 
@@ -143,8 +183,6 @@ def unported_reason(params: AggregateParams) -> Optional[str]:
     names = {m.name for m in params.metrics}
     if "PERCENTILE" in names:
         return "PERCENTILE (ROADMAP step 5: single-batch percentiles)"
-    if "VECTOR_SUM" in names:
-        return "VECTOR_SUM (ROADMAP step 6)"
     if params.bounds_per_partition_are_set:
         return ("min_sum_per_partition / max_sum_per_partition bounds "
                 "(ROADMAP §1: the per-partition-sum-bounds SUM)")
@@ -160,10 +198,10 @@ def unported_reason(params: AggregateParams) -> Optional[str]:
 class ArrayDataset:
     """Columnar input: NumPy columns ``privacy_ids`` [N] (or None when
     contribution bounds are already enforced), ``partition_keys`` [N] and
-    ``values`` [N]. The integer encoding and the device copies are cached
-    on the dataset, so the columns are treated as immutable once the
-    first aggregation runs — call ``invalidate_cache()`` after mutating
-    them in place."""
+    ``values`` [N] (or [N, D] for VECTOR_SUM). The integer encoding and
+    the device copies are cached on the dataset, so the columns are
+    treated as immutable once the first aggregation runs — call
+    ``invalidate_cache()`` after mutating them in place."""
     privacy_ids: Optional[np.ndarray]
     partition_keys: np.ndarray
     values: Optional[np.ndarray] = None
@@ -187,7 +225,7 @@ class EncodedData:
     """Integer-encoded rows + the pk vocabulary for decoding."""
     pid: np.ndarray  # int32 [N]
     pk: np.ndarray  # int32 [N]
-    values: np.ndarray  # f32 [N]
+    values: np.ndarray  # f32 [N], or [N, D] for VECTOR_SUM
     pk_vocab: List[Any]  # dense pk index -> original key
     n_rows: int
 
@@ -238,8 +276,10 @@ def _pid_ids(pid_arr: np.ndarray) -> np.ndarray:
 
 
 def _encode_arrays(ds: ArrayDataset, public_partitions: Optional[Sequence],
-                   require_pid: bool = True) -> EncodedData:
-    """Vectorized encode of columnar input (no per-row Python)."""
+                   require_pid: bool = True,
+                   vector_size: Optional[int] = None) -> EncodedData:
+    """Vectorized encode of columnar input (no per-row Python); values
+    come out [N, vector_size] when ``vector_size`` is set."""
     pk_arr = np.asarray(ds.partition_keys)
     n = pk_arr.shape[0]
     if ds.privacy_ids is None and require_pid:
@@ -270,6 +310,8 @@ def _encode_arrays(ds: ArrayDataset, public_partitions: Optional[Sequence],
         else:
             uniq, pk_idx = _unique_inverse(pk_arr)
         pk_vocab = list(uniq.tolist())
+    if vector_size:
+        values = values.reshape(len(values), vector_size)
     return EncodedData(pid=_pid_ids(pid_arr), pk=pk_idx, values=values,
                        pk_vocab=pk_vocab, n_rows=len(pk_idx))
 
@@ -342,19 +384,23 @@ def _rows_to_arrays(rows, data_extractors,
 
 
 def encode(rows, data_extractors, public_partitions: Optional[Sequence] = None,
-           require_pid: bool = True) -> EncodedData:
+           require_pid: bool = True,
+           vector_size: Optional[int] = None) -> EncodedData:
     """Extract + integer-encode on host. With public partitions the pk
     vocabulary IS the public list — non-public rows are dropped and missing
-    public partitions appear as all-zero accumulator rows."""
+    public partitions appear as all-zero accumulator rows. With
+    ``vector_size`` the values are float32 [N, vector_size]."""
     if isinstance(rows, ArrayDataset):
         if public_partitions is None:
             return rows._cached_encode(
-                ("encode", require_pid),
-                lambda: _encode_arrays(rows, None, require_pid))
-        return _encode_arrays(rows, public_partitions, require_pid)
+                ("encode", vector_size, require_pid),
+                lambda: _encode_arrays(rows, None, require_pid, vector_size))
+        return _encode_arrays(rows, public_partitions, require_pid,
+                              vector_size)
     bridged = _rows_to_arrays(rows, data_extractors, require_pid)
     if bridged is not None:
-        return _encode_arrays(bridged, public_partitions, require_pid)
+        return _encode_arrays(bridged, public_partitions, require_pid,
+                              vector_size)
     pid_ex = data_extractors.privacy_id_extractor
     pk_ex = data_extractors.partition_extractor
     val_ex = data_extractors.value_extractor
@@ -383,16 +429,19 @@ def encode(rows, data_extractors, public_partitions: Optional[Sequence] = None,
     uniq_pids = {p: i for i, p in enumerate(dict.fromkeys(pids))}
     pid_idx = np.fromiter((uniq_pids[p] for p in pids), dtype=np.int32,
                           count=len(pids))
-    return EncodedData(pid=pid_idx, pk=pk_idx,
-                       values=np.asarray(vals, dtype=np.float32),
+    values = np.asarray(vals, dtype=np.float32)
+    if vector_size:
+        values = values.reshape(len(vals), vector_size)
+    return EncodedData(pid=pid_idx, pk=pk_idx, values=values,
                        pk_vocab=pk_vocab, n_rows=len(pid_idx))
 
 
 def put_on_device(encoded: EncodedData, device: torch.device,
                   with_values: bool = True):
-    """The encoded columns on ``device``: (pid, pk) int32 and, when asked,
-    values float32, each [N]. The copies are cached on the EncodedData per
-    device, so repeated aggregations of one dataset move the columns once.
+    """The encoded columns on ``device``: (pid, pk) int32 [N] and, when
+    asked, values float32 [N] or [N, D]. The copies are cached on the
+    EncodedData per device, so repeated aggregations of one dataset move
+    the columns once.
 
     Unlike the JAX package's ``pad_and_put``, the row axis is not padded:
     PyTorch compiles nothing per shape, and every row-space quantity of
@@ -450,8 +499,9 @@ def _partials(config: FusedConfig, num_partitions: int, pid, pk, values,
               key, fx_bits: int = 7):
     """Contribution bounding + per-pk accumulator partials
     (``jax_engine._partials``). ``pid``/``pk`` int32 [N], ``values``
-    float32 [N] (or None when no metric reads values), all on one device.
-    Returns (columns dict of int32 [P], privacy-id-count column)."""
+    float32 [N] or [N, D] (or None when no metric reads values), all on
+    one device. Returns (columns dict of int32 [P], plus VECTOR_SUM's
+    [P, W] column, and the privacy-id-count column)."""
     spk, masked, keep_row, seg_marker = _bound_rows(config, pid, pk, values,
                                                     key)
     part, nseg = _reduce_per_pk(config, spk, masked, keep_row,
@@ -466,7 +516,8 @@ def _partials(config: FusedConfig, num_partitions: int, pid, pk, values,
 def _bound_rows(config: FusedConfig, pid, pk, values, key):
     """Contribution bounding in row space: returns (pk, clipped values
     zeroed outside the kept rows or None, kept-row mask, kept-segment
-    marker or None), all [N] in the bounding's sorted row order."""
+    marker or None), each [N] (values [N] or [N, D]) in the bounding's
+    sorted row order."""
     if config.per_partition_bounds:
         raise NotImplementedError(
             "the per-partition-sum-bounds SUM is not ported yet (ROADMAP "
@@ -531,7 +582,8 @@ def _bound_rows(config: FusedConfig, pid, pk, values, key):
 
     masked = None
     if config.needs_values:
-        masked = torch.where(keep_row, _clip_values(config, svalues), 0.0)
+        clipped = _clip_values(config, svalues)
+        masked = torch.where(_expand(keep_row, clipped), clipped, 0.0)
     return spk, masked, keep_row, seg_marker
 
 
@@ -592,8 +644,31 @@ def _fixedpoint_layout(config: FusedConfig) -> List[_FxSpec]:
     return specs
 
 
+def _vector_fx(config: FusedConfig) -> bool:
+    """Whether VECTOR_SUM accumulates in fixed-point coordinate lanes."""
+    return ("VECTOR_SUM" in config.metrics
+            and config.vector_accumulator == "fx")
+
+
+def _vector_fx_scale(config: FusedConfig) -> float:
+    """Quantization scale of the vector coordinate grid: 2^23 - 1 steps
+    over the norm clip bound. The quantizer's clamp is also a per-row
+    coordinate clamp at +-vector_max_norm, before aggregation; the release
+    still norm-clips the per-partition sum at the same bound."""
+    bound = float(config.vector_max_norm or 0.0)
+    return (_FX_STEPS - 1) / bound if bound > 0 else 1.0
+
+
+def _expand(mask, like):
+    """Broadcasts a [N] mask against [N] or [N, D] data."""
+    return mask[:, None] if like.dim() == 2 else mask
+
+
 def _clip_values(config: FusedConfig, values):
-    if config.per_partition_bounds or config.min_value is None:
+    # Vectors are norm-clipped on the per-partition sum at release; only
+    # per-value bounds clip row-wise here.
+    if (config.vector_size or config.per_partition_bounds or
+            config.min_value is None):
         return values
     return torch.clamp(values, _f32(config.min_value),
                        _f32(config.max_value))
@@ -613,8 +688,8 @@ def _lane_stack(config: FusedConfig, masked, keep_row, seg_marker=None,
         int_cols.append(seg_marker.to(torch.int32))
     n_lanes = -(-_FX_PAYLOAD_BITS // fx_bits)
     layout = _fixedpoint_layout(config)
-    if layout and max(keep_row.shape[0], 1) * ((1 << fx_bits) - 1) >= (
-            _LANE_SUM_CAP):
+    if (layout or _vector_fx(config)) and max(keep_row.shape[0], 1) * (
+            (1 << fx_bits) - 1) >= _LANE_SUM_CAP:
         raise NotImplementedError(
             f"{keep_row.shape[0]} rows overflow {fx_bits}-bit fixed-point "
             "lanes; pass a smaller fx_bits (see _fx_plan)")
@@ -638,16 +713,35 @@ def _lane_stack(config: FusedConfig, masked, keep_row, seg_marker=None,
     return torch.stack(int_cols, dim=1).contiguous(), lane_names
 
 
+def _vector_lanes(config: FusedConfig, masked, keep_row, fx_bits: int):
+    """VECTOR_SUM's fixed-point coordinate lanes, int32 [N, n_lanes * D]
+    lane-major: each coordinate quantized to the 2^23-step grid over the
+    norm clip bound (float32 ``masked * scale`` with ``scale`` rounded to
+    float32, half-to-even ``torch.round``, as in the JAX package), clamped,
+    offset into 24 bits and split into ``n_lanes`` planes of ``fx_bits``
+    bits, concatenated plane by plane."""
+    n_lanes = -(-_FX_PAYLOAD_BITS // fx_bits)
+    q = torch.clamp(torch.round(masked * _f32(_vector_fx_scale(config))),
+                    -(_FX_STEPS - 1), _FX_STEPS - 1).to(torch.int32)
+    u = torch.where(keep_row[:, None], q + _FX_OFFSET, 0)
+    return torch.cat([(u >> (k * fx_bits)) & ((1 << fx_bits) - 1)
+                      for k in range(n_lanes)], dim=1).contiguous()
+
+
 def _reduce_per_pk(config: FusedConfig, pk_safe, masked, keep_row, P,
                    seg_marker=None, fx_bits: int = 7):
     """Per-pk accumulator columns straight from row space, as (columns
     dict, privacy-id-count column or None), all int32 [P]: the lane stack
-    reduced by ONE ``segment_sum_lanes`` call (the CUDA kernel on the
-    card)."""
+    reduced by ONE ``segment_sum_lanes`` call (kernel K1 on the card).
+    VECTOR_SUM adds its [P, W] column: under ``fx`` the coordinate lanes
+    reduced by ONE ``segment_sum_wide`` call (kernel K2), exact int32;
+    under ``f32`` a float32 ``index_add_``, the counterpart of the JAX
+    package's float32 ``jax.ops.segment_sum``, which adds in another
+    order."""
     stack, lane_names = _lane_stack(config, masked, keep_row, seg_marker,
                                     fx_bits)
-    stacked = segsum.segment_sum_lanes(
-        stack, pk_safe.to(torch.int32).contiguous(), P)
+    pk32 = pk_safe.to(torch.int32).contiguous()
+    stacked = segsum.segment_sum_lanes(stack, pk32, P)
     part = {"count": stacked[:, 0]}
     col = 1
     nseg = None
@@ -656,6 +750,14 @@ def _reduce_per_pk(config: FusedConfig, pk_safe, masked, keep_row, P,
         col += 1
     for i, name in enumerate(lane_names):
         part[name] = stacked[:, col + i]
+    if "VECTOR_SUM" in config.metrics:
+        if _vector_fx(config):
+            part["vector_sum"] = segsum.segment_sum_wide(
+                _vector_lanes(config, masked, keep_row, fx_bits), pk32, P)
+        else:
+            part["vector_sum"] = torch.zeros(
+                P, masked.shape[1], dtype=torch.float32,
+                device=masked.device).index_add_(0, pk32.long(), masked)
     return part, nseg
 
 
@@ -674,12 +776,33 @@ def _fold_fx_steps(config: FusedConfig, part64, fx_bits: int) -> None:
         part64[spec.name] = total
 
 
+def _fold_vector_fx_steps(config: FusedConfig, lanes, count,
+                          fx_bits: int) -> np.ndarray:
+    """Reassembles the [n, n_lanes * D] vector lane sums into exact
+    float64 step totals [n, D]: the sum of the lane planes * 2^(bits * k)
+    minus count * offset; every term is an integer below 2^53."""
+    n_lanes = -(-_FX_PAYLOAD_BITS // fx_bits)
+    D = int(config.vector_size)
+    lanes = np.asarray(lanes)
+    total = np.zeros((lanes.shape[0], D), dtype=np.float64)
+    for k in range(n_lanes):
+        total += lanes[:, k * D:(k + 1) * D].astype(
+            np.float64) * float(1 << (k * fx_bits))
+    total -= np.asarray(count).astype(np.float64)[:, None] * _FX_OFFSET
+    return total
+
+
 def _fold_fixedpoint(config: FusedConfig, part64, fx_bits: int) -> None:
     """Reassembles the lane columns into float64 values (mutates
-    ``part64``): value = steps / scale."""
+    ``part64``): value = steps / scale, for the scalar columns and for
+    VECTOR_SUM's coordinates."""
     _fold_fx_steps(config, part64, fx_bits)
     for spec in _fixedpoint_layout(config):
         part64[spec.name] = part64[spec.name] / spec.scale
+    if _vector_fx(config) and "vector_sum" in part64:
+        part64["vector_sum"] = _fold_vector_fx_steps(
+            config, part64["vector_sum"], part64["count"],
+            fx_bits) / _vector_fx_scale(config)
 
 
 def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
@@ -757,10 +880,17 @@ def _release_noise_params(config: FusedConfig,
 
 
 def _host_release(config: FusedConfig, specs, part, nseg,
-                  rng: Optional[np.random.Generator]):
+                  rng: Optional[np.random.Generator],
+                  rng_seed: Optional[int] = None, pk_index=None,
+                  device="cpu"):
     """The scalar DP release, on the host in float64: the
     ``dp_computations.compute_dp_*`` mechanisms, vectorized over the
-    released partitions, in the JAX package's order of draws."""
+    released partitions, in the JAX package's order of draws.
+
+    VECTOR_SUM is norm-clipped here in float64; its per-coordinate noise
+    is drawn on ``device`` by ``ops/vector_noise.py``, keyed by the engine
+    seed ``rng_seed`` and by ``pk_index``, the global vocab index of each
+    released row, so a partition draws the same noise in every layout."""
     names = set(config.metrics)
     out = {}
     if "VARIANCE" in names or "MEAN" in names:
@@ -796,6 +926,21 @@ def _host_release(config: FusedConfig, specs, part, nseg,
         out["privacy_id_count"] = dp_computations.compute_dp_privacy_id_count(
             nseg, _release_noise_params(config, specs["privacy_id_count"]),
             rng)
+    if "VECTOR_SUM" in names:
+        spec = specs["vector_sum"]
+        noise_params = dp_computations.AdditiveVectorNoiseParams(
+            eps_per_coordinate=spec.eps / config.vector_size,
+            delta_per_coordinate=spec.delta / config.vector_size,
+            max_norm=config.vector_max_norm,
+            l0_sensitivity=config.l0,
+            linf_sensitivity=config.linf,
+            norm_kind=config.vector_norm_kind,
+            noise_kind=config.noise_kind)
+        clipped = dp_computations._clip_vector(
+            np.asarray(part["vector_sum"], dtype=np.float64),
+            config.vector_max_norm, config.vector_norm_kind)
+        out["vector_sum"] = vector_noise.add_vector_noise(
+            clipped, noise_params, rng_seed, pk_index, device)
     return out
 
 
@@ -839,6 +984,8 @@ def _metric_field_order(config: FusedConfig) -> List[str]:
         fields += [f for f in ("count", "sum") if f.upper() in names]
     if "PRIVACY_ID_COUNT" in names:
         fields.append("privacy_id_count")
+    if "VECTOR_SUM" in names:
+        fields.append("vector_sum")
     return fields
 
 
@@ -866,6 +1013,9 @@ def request_budgets(config: FusedConfig, params: AggregateParams,
             specs["sum"] = request("sum")
     if "PRIVACY_ID_COUNT" in names:
         specs["privacy_id_count"] = request("privacy_id_count")
+    if "VECTOR_SUM" in names:
+        specs["vector_sum"] = request(
+            "vector_sum", internal_splits=int(config.vector_size))
     return specs
 
 
@@ -880,16 +1030,21 @@ _STREAM_CHUNK_ROWS = 1 << 26
 
 def chunk_target_rows(config: FusedConfig) -> int:
     chunk = _STREAM_CHUNK_ROWS
-    if _fixedpoint_layout(config):
+    if _fixedpoint_layout(config) or _vector_fx(config):
         chunk = min(chunk, _fx_max_rows())
     return chunk
 
 
 def _assemble_output(config: FusedConfig, vocab, metric_arrays, rel_sel,
                      vocab_idx):
-    """Released metric columns -> [(partition_key, MetricsTuple)]."""
+    """Released metric columns -> [(partition_key, MetricsTuple)]; a
+    rank-2 column (VECTOR_SUM) gives each tuple a float64 [D] array."""
     fields = tuple(_metric_field_order(config))
-    columns = [metric_arrays[f][rel_sel].tolist() for f in fields]
+    columns = []
+    for f in fields:
+        arr = metric_arrays[f]
+        columns.append(arr[rel_sel].tolist() if arr.ndim == 1 else
+                       list(arr[rel_sel, :]))
     return [
         (vocab[i], _create_named_tuple_instance("MetricsTuple", fields,
                                                 vals))
@@ -910,7 +1065,7 @@ def _run_fused(config: FusedConfig, encoded: EncodedData, keep_table, thr,
     seed = (rng_seed if rng_seed is not None else
             int(noise_ops._host_rng.integers(0, 2**31 - 1)))
     key = prng.PRNGKey(seed)
-    if _fixedpoint_layout(config):
+    if _fixedpoint_layout(config) or _vector_fx(config):
         fx_bits, _ = _fx_plan(max(encoded.n_rows, 1))
     else:
         fx_bits = 12
@@ -957,7 +1112,8 @@ class LazyFusedResult:
         params = self._params
         t0 = time.perf_counter()
         encoded = encode(self._rows, self._extractors, self._public,
-                         require_pid=not config.bounds_already_enforced)
+                         require_pid=not config.bounds_already_enforced,
+                         vector_size=config.vector_size)
         self.timings = {"host_encode_s": time.perf_counter() - t0,
                         "device_s": 0.0, "host_decode_s": 0.0}
         P = len(encoded.pk_vocab)
@@ -987,7 +1143,9 @@ class LazyFusedResult:
         keep_pk, raw, fx_bits = _run_fused(
             config, encoded, keep_table, thr, s_scale, min_count,
             rows_per_uid, self._rng_seed, self._device)
-        flat = sorted(raw)  # every column is int32 [P_pad]
+        # The rank-1 columns are int32 [P_pad] and ride one packed block;
+        # the rank-2 VECTOR_SUM column is gathered by the kept indices.
+        flat = sorted(k for k, v in raw.items() if v.dim() == 1)
         cols = [raw[name] for name in flat]
         compact = self._public is None
         if compact:
@@ -1006,9 +1164,16 @@ class LazyFusedResult:
             stacked = torch.stack(
                 [keep_pk.to(torch.int32)] + cols)[:, :P].cpu().numpy()
             kept_idx = np.flatnonzero(stacked[0] > 0)
+        fetched = {name: stacked[1 + i] for i, name in enumerate(flat)}
+        for name, arr in raw.items():
+            if arr.dim() != 1:
+                if compact:
+                    rows = torch.from_numpy(kept_idx.astype(np.int64))
+                    fetched[name] = arr[rows.to(arr.device)].cpu().numpy()
+                else:
+                    fetched[name] = arr[:P].cpu().numpy()
         _sync(self._device)
         self.timings["device_s"] = time.perf_counter() - t0
-        fetched = {name: stacked[1 + i] for i, name in enumerate(flat)}
 
         # Only materialize kept partitions. In compact mode the released
         # arrays already hold only kept rows.
@@ -1028,12 +1193,23 @@ class LazyFusedResult:
         release dispatches on dtype, as the host combiners do)."""
         config = self._config
         t0 = time.perf_counter()
-        part64 = {k: v.astype(np.int64) for k, v in fetched.items()}
+        part64 = {k: (v.astype(np.int64) if v.dtype.kind in "iu" else
+                      v.astype(np.float64)) for k, v in fetched.items()}
         _fold_fixedpoint(config, part64, fx_bits)
         rng = (np.random.default_rng(self._rng_seed)
                if self._rng_seed is not None else None)
+        # The vector noise is keyed by the global vocab index of each
+        # released row: ``vocab_idx`` when the released rows are the kept
+        # set (compact or public), arange in the full fetch, which
+        # releases every vocab row in order.
+        n_rel_rows = len(part64["count"])
+        row_vocab = (np.asarray(vocab_idx) if len(vocab_idx) == n_rel_rows
+                     else np.arange(n_rel_rows))
         metric_arrays = _host_release(config, self._specs, part64,
-                                      part64["privacy_id_count_raw"], rng)
+                                      part64["privacy_id_count_raw"], rng,
+                                      rng_seed=self._rng_seed,
+                                      pk_index=row_vocab,
+                                      device=self._device)
         out = _assemble_output(config, encoded.pk_vocab, metric_arrays,
                                rel_sel, vocab_idx)
         self.timings["host_decode_s"] = time.perf_counter() - t0

@@ -303,14 +303,22 @@ def test_torch_backend_without_cuda_raises():
                         min_sum_per_partition=0.0,
                         max_sum_per_partition=5.0),
 ], ids=["percentile", "vector_sum", "sum_per_partition_bounds"])
-def test_unported_params_raise(params):
+def test_unported_params_raise(params, monkeypatch):
+    """Params of later slices raise. VECTOR_SUM itself is ported; what
+    stays unported of it is a table larger than one batch (streaming,
+    ROADMAP step 7), shown here with the batch cut to 50 rows."""
     pid, pk, values = _data(0, n=100)
+    if params.vector_size:
+        values = np.zeros((100, params.vector_size), np.float32)
+        monkeypatch.setattr(te, "_STREAM_CHUNK_ROWS", 50)
     acc = pdt.NaiveBudgetAccountant(total_epsilon=EPS, total_delta=DELTA)
     engine = pdt.DPEngine(acc, pdt.TorchBackend("cpu", rng_seed=0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.aggregate(convert.dataset_from_arrays(pid, pk, values),
-                         convert.params_from_reference(params),
-                         pdt.DataExtractors())
+        result = engine.aggregate(
+            convert.dataset_from_arrays(pid, pk, values),
+            convert.params_from_reference(params), pdt.DataExtractors())
+        acc.compute_budgets()
+        list(result)
 
 
 def test_pld_accountant_raises():

@@ -1,11 +1,9 @@
 """The port's threefry PRNG (``pipelinedp_tpu_torch/ops/prng.py``) against
 JAX's own, on the CPU.
 
-Keys, splits, bits, uniforms and Laplace draws are bit-equal. Gaussian
-draws are bit-equal except in the tail branch of XLA's ``erf_inv``
-(``|u| > ~0.9973``, where its float32 ``sqrt`` is not correctly rounded):
-there they may sit up to 2 ULP apart, and the test counts and bounds
-those cases.
+Keys, splits, ``fold_in``, bits, uniforms, Laplace and Gaussian draws,
+and the counter-keyed draws of ``ops/counter_rng.py``, are bit-equal over
+their whole range.
 """
 
 import numpy as np
@@ -100,13 +98,14 @@ def test_laplace_bit_equal(n):
         np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
 
 
-def test_normal_bit_equal_outside_the_tail_branch():
-    """Bit-equal for ``|u|`` below the tail branch of XLA's ``erf_inv``;
-    in the tail (w = -log1p(-u^2) >= 5) XLA's float32 sqrt is off by one
-    ULP, which moves the draw by at most 2 ULP. The count of such cases
-    is printed and bounded."""
+def test_normal_bit_equal():
+    """Bit-equal over the whole range, the tail branch of XLA's
+    ``erf_inv`` (w = -log1p(-u^2) >= 5) included: the tail's ``sqrt`` is
+    taken in float64 and rounded once, which is the correctly rounded
+    float32 square root that XLA computes (torch's CPU float32 ``sqrt`` is
+    not always)."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    total = tail = off = 0
+    total = tail = 0
     for seed in SEEDS:
         for n in (1001, 65536):
             kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
@@ -114,16 +113,60 @@ def test_normal_bit_equal_outside_the_tail_branch():
             b = prng.normal(kt, (n,)).numpy()
             u = prng.uniform(kt, (n,), lo, 1.0)
             w = -prng.xla_log1p(u * -u).numpy()
-            in_tail = w >= 5.0
-            d = _ulps(a, b)
-            np.testing.assert_array_equal(d[~in_tail], 0)
-            assert d[in_tail].max(initial=0) <= 2
+            np.testing.assert_array_equal(_ulps(a, b), 0)
             total += n
-            tail += int(in_tail.sum())
-            off += int((d > 0).sum())
-    print(f"normal: {off} of {total} draws differ (all in the tail "
-          f"branch, which held {tail} draws), by at most 2 ULP")
-    assert off <= tail < total // 100
+            tail += int((w >= 5.0).sum())
+    assert 0 < tail < total // 100  # the tail branch was exercised
+
+
+def test_fold_in_matches_jax():
+    for seed in SEEDS:
+        for data in (0, 1, 7, 0x7EC, 0x7EE, 2**31, 2**32 - 1):
+            np.testing.assert_array_equal(
+                prng.fold_in(prng.PRNGKey(seed), data).numpy(),
+                _as_u32(jax.random.fold_in(jax.random.PRNGKey(seed), data)))
+
+
+@pytest.mark.parametrize("kind", ["laplace", "normal"])
+def test_counter_draws_bit_equal(kind):
+    """``counter_rng.laplace`` / ``normal`` over 2^18 random counters."""
+    rng = np.random.default_rng(3)
+    x0 = rng.integers(0, 2**32, 1 << 18, dtype=np.uint32)
+    x1 = rng.integers(0, 2**32, 1 << 18, dtype=np.uint32)
+    for seed in SEEDS[:3]:
+        kj = jax.random.PRNGKey(seed)
+        a = np.asarray(jax.jit(getattr(jax_counter_rng, kind))(
+            kj, jnp.asarray(x0), jnp.asarray(x1)))
+        b = getattr(counter_rng, kind)(
+            prng.PRNGKey(seed), torch.from_numpy(x0.astype(np.int64)),
+            torch.from_numpy(x1.astype(np.int64))).numpy()
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", ["laplace", "normal"])
+def test_counter_transform_bit_equal_on_every_grid_point(kind):
+    """The draws depend on the bits only through their top 24, so feeding
+    every one of the 2^24 grid points through both transforms covers the
+    whole range: the tails, u = 0.5 +- 2^-25 and the top point, where the
+    Gaussian is +inf in both packages."""
+    bits = np.arange(1 << 24, dtype=np.uint32) << np.uint32(8)
+
+    # The JAX package's transforms after its threefry, as written in
+    # ``counter_rng.laplace`` / ``normal``.
+    def jax_transform(bits):
+        u = jax_counter_rng._uniform_open01(bits)
+        if kind == "laplace":
+            c = u - np.float32(0.5)
+            return -jnp.sign(c) * jnp.log1p(-2.0 * jnp.abs(c))
+        return np.float32(np.sqrt(2.0)) * jax.scipy.special.erfinv(
+            u * np.float32(2.0) - np.float32(1.0))
+
+    a = np.asarray(jax.jit(jax_transform)(jnp.asarray(bits)))
+    b = getattr(counter_rng, f"{kind}_from_bits")(
+        torch.from_numpy(bits.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    if kind == "normal":
+        assert np.isposinf(b[-1]) and np.isfinite(b[:-1]).all()
 
 
 @pytest.mark.parametrize("lo,hi", [(1e-30, 1e-3), (1e-3, 0.6), (0.6, 2.0),
