@@ -38,14 +38,39 @@ Phases, one line each; any failure raises and exits non-zero:
    public partitions; Gaussian, L0 = 4, Linf = 2, L2 norm 4.0) under
    ``fx``, with the launch counts zeroed just before each aggregation and
    read just after;
-8. a ``kernels`` JSON line per ported kernel, then the card line, then
-   the result line ``{"ok": true, "device": {...}}`` last.
+8. K3 vs plain: ``subtree_counts_multi`` on the card against its plain
+   version, bit for bit, at the shapes of the tests (T = 1, 3, 5;
+   unaligned starts; rows outside every block; ``kept`` mostly false;
+   span 16, 64 and 256; adding into a sweep's buffer) and on the config-4
+   stack (the bounded rows and top-walk starts of the aggregation in
+   phase 10: T = 1, P = 131072, Q = 3, span = 256, N = 10M), where K3,
+   the plain version, one ``bincount`` per (t, q) (the library
+   yardstick) and the [P, 256] mid histogram on K1 are timed;
+9. PERCENTILE, GPU vs CPU: 1M rows of the config-4 generator over 10k
+   partitions, Laplace with private selection and Gaussian with public
+   partitions, each single-batch and streamed at a chunk of n // 6 rows
+   (seven batches): the same
+   kept keys, bit-identical float32 percentiles and float64 variances,
+   and K3 launched on the card (batches x sweeps when streamed) and never
+   on the CPU;
+10. BASELINE config 4 at full size (``zipf_dataset(10M, 200k, 100k,
+    seed=4)``, P50/90/99 + VARIANCE, Laplace, L0 = 4, Linf = 2, private
+    selection): single-batch, then streamed in six batches, with the
+    launch counts of K1 and K3 zeroed just before each aggregation and
+    read just after;
+11. the JAX bench's ``bench_streamed_percentile`` shape (2M rows, 3000
+    public partitions, seed 13, a chunk of n // 6 rows: seven batches)
+    at the default byte cap and at a cap that makes pass B tile: the same
+    percentiles;
+12. a ``kernels`` JSON line per ported kernel, then the card line, then
+    the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
-after phase 4: CUDA-event times of each device stage, and the device
-busy share and top operators from ``torch.profiler``. ``--out DIR``
-writes the phase records (``chip_smoke.json``) and the profiler table
-(``flagship_profile.txt``) into DIR.
+after phase 4 and of config 4 after phase 10: CUDA-event times of each
+device stage, and the device busy share and top operators from
+``torch.profiler``. ``--out DIR`` writes the phase records
+(``chip_smoke.json``) and the profiler tables (``flagship_profile.txt``,
+``config4_profile.txt``, ``config4_streamed_profile.txt``) into DIR.
 
 It exits non-zero, and prints no result, without a CUDA device.
 """
@@ -73,7 +98,12 @@ FLAGSHIP = dict(rows=25_000_000, users=162_000, partitions=59_000, seed=6)
 VECTOR_WIDTHS = (64, 256, 1024)
 VECTOR_ROWS_AT_64 = 2_000_000
 VECTOR_PARTITIONS = 2048
-KERNEL_SOURCES = ("segsum_lanes", "segsum_wide")
+# BASELINE config 4: ``bench.py``'s ``zipf_dataset(10_000_000, 200_000,
+# 100_000, seed=4)``.
+CONFIG4 = dict(rows=10_000_000, users=200_000, partitions=100_000, seed=4)
+CHUNK_ENV = "PIPELINEDP_TPU_STREAM_CHUNK"
+CAP_ENV = "PIPELINEDP_TPU_SUBHIST_CAP"
+KERNEL_SOURCES = ("segsum_lanes", "segsum_wide", "hist_bin")
 RECORD = {"phases": {}}
 
 
@@ -204,8 +234,8 @@ def flagship_stack(columns):
     pid, pk, values = te.put_on_device(enc, torch.device("cuda"))
     fx_bits = te._fx_plan(enc.n_rows)[0]
     k_bound = prng.split(prng.PRNGKey(FLAGSHIP["seed"]), 3)[0]
-    spk, masked, keep_row, seg_marker = te._bound_rows(config, pid, pk,
-                                                       values, k_bound)
+    spk, masked, keep_row, seg_marker, _ = te._bound_rows(
+        config, pid, pk, values, k_bound)
     stack, _ = te._lane_stack(config, masked, keep_row, seg_marker, fx_bits)
     return stack, spk.to(torch.int32).contiguous(), te._pad_pow2(
         len(enc.pk_vocab))
@@ -326,22 +356,9 @@ def phase_flagship(columns):
     return launches
 
 
-def phase_breakdown(columns, out_dir):
-    """``--profile`` only: where the flagship's time goes. The device
-    path runs stage by stage with CUDA events around each stage, then the
-    whole aggregation runs once under ``torch.profiler``: the summed
-    device time of its kernels and copies over the wall gives the busy
-    share, and its full operator table goes to ``out_dir`` (if any)."""
-    import pipelinedp_tpu_torch as pdt
-    from pipelinedp_tpu_torch import torch_engine as te
-    from pipelinedp_tpu_torch.ops import prng
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    dev = torch.device("cuda")
-    params = pdt.AggregateParams(**flagship_params(pdt))
-    config = te.FusedConfig.from_params(params, public=False)
-    stages = {}
+def _stage_timer(stages):
+    """``timed(name, fn)``: runs ``fn`` between two CUDA events after a
+    synchronise and records its milliseconds under ``name``."""
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -354,6 +371,53 @@ def phase_breakdown(columns, out_dir):
         stages[name] = start.elapsed_time(end)
         return out
 
+    return timed
+
+
+def _profiled(run, out_path):
+    """Runs ``run()`` once under ``torch.profiler``: the summed device
+    time of its kernels and copies over the wall gives the busy share;
+    the full operator table goes to ``out_path`` (if any)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    # Device rows only (kernels, copies, sets): an operator's row repeats
+    # the device time of the kernels it launched.
+    device_rows = [e for e in averages
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("Activity Buffer")]
+    busy_ms = sum(e.self_device_time_total for e in device_rows) / 1e3
+    top = sorted(device_rows, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    if out_path:
+        with open(out_path, "w") as f:
+            f.write(averages.table(sort_by="self_device_time_total",
+                                   row_limit=40))
+    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                top_device_ms={e.key[:90]: e.self_device_time_total / 1e3
+                               for e in top})
+
+
+def phase_breakdown(columns, out_dir):
+    """``--profile`` only: where the flagship's time goes. The device
+    path runs stage by stage with CUDA events around each stage, then the
+    whole aggregation runs once under ``torch.profiler``."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    from pipelinedp_tpu_torch.ops import prng
+
+    dev = torch.device("cuda")
+    params = pdt.AggregateParams(**flagship_params(pdt))
+    config = te.FusedConfig.from_params(params, public=False)
+    stages = {}
+    timed = _stage_timer(stages)
     t0 = time.perf_counter()
     enc = te.encode(pdt.ArrayDataset(*columns), None, None)
     stages["host_encode"] = (time.perf_counter() - t0) * 1e3
@@ -366,38 +430,18 @@ def phase_breakdown(columns, out_dir):
     table, thr, scale, min_count = te.selection_inputs(config, 0.5, 1e-6,
                                                        None)
     k_bound, k_sel, _ = prng.split(prng.PRNGKey(FLAGSHIP["seed"]), 3)
-    part, nseg = timed("partials", lambda: te._partials(
+    part, nseg, _ = timed("partials", lambda: te._partials(
         config, P, pid, pk, values, k_bound, fx_bits))
     keep, raw = timed("selection", lambda: te._selection_and_metrics(
         config, P, part, nseg, table, thr, scale, min_count, 1.0, k_sel))
     cols = [raw[k] for k in sorted(raw)]
     timed("compact_fetch", lambda: te._compact_fetch(
         keep, cols, n_parts, min(n_parts, te._COMPACT_FETCH_CAP)).cpu())
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _aggregate(pdt, columns, flagship_params(pdt), "cuda",
-                   FLAGSHIP["seed"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    # Device rows only (kernels, copies, sets): an operator's row repeats
-    # the device time of the kernels it launched.
-    device_rows = [e for e in averages
-                   if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith("Activity Buffer")]
-    busy_ms = sum(e.self_device_time_total for e in device_rows) / 1e3
-    top = sorted(device_rows, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
-    if out_dir:
-        with open(os.path.join(out_dir, "flagship_profile.txt"), "w") as f:
-            f.write(averages.table(sort_by="self_device_time_total",
-                                   row_limit=40))
-    log("breakdown", stage_ms=stages, profiled_wall_ms=wall_ms,
-        device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
-        top_device_ms={e.key[:90]: e.self_device_time_total / 1e3
-                       for e in top})
+    prof = _profiled(lambda: _aggregate(pdt, columns, flagship_params(pdt),
+                                        "cuda", FLAGSHIP["seed"]),
+                     out_dir and os.path.join(out_dir,
+                                              "flagship_profile.txt"))
+    log("breakdown", stage_ms=stages, **prof)
 
 
 def vector_columns(rng, d):
@@ -436,8 +480,8 @@ def vector_stack(columns, d, public):
     pid, pk, values = te.put_on_device(enc, torch.device("cuda"))
     fx_bits = te._fx_plan(enc.n_rows)[0]
     k_bound = prng.split(prng.PRNGKey(0), 3)[0]
-    spk, masked, keep_row, _ = te._bound_rows(config, pid, pk, values,
-                                              k_bound)
+    spk, masked, keep_row, _, _ = te._bound_rows(config, pid, pk, values,
+                                                 k_bound)
     lanes = te._vector_lanes(config, masked, keep_row, fx_bits)
     return (lanes, spk.to(torch.int32).contiguous(),
             te._pad_pow2(len(enc.pk_vocab)), fx_bits)
@@ -590,6 +634,410 @@ def phase_vector_full(vector_data):
     return totals
 
 
+def config4_params(pdt, noise="LAPLACE"):
+    """BASELINE config 4 (``bench.py``'s quantile record): P50/90/99 +
+    VARIANCE, L0 = 4, Linf = 2, values in [0, 10]."""
+    return dict(metrics=[pdt.Metrics.PERCENTILE(50),
+                         pdt.Metrics.PERCENTILE(90),
+                         pdt.Metrics.PERCENTILE(99), pdt.Metrics.VARIANCE],
+                noise_kind=pdt.NoiseKind[noise],
+                max_partitions_contributed=4,
+                max_contributions_per_partition=2, min_value=0.0,
+                max_value=10.0)
+
+
+def hist_case(T, Pb, Qc, span, n, kept_share, gen):
+    """K3 test inputs on the card: rows over partitions [-3, T * Pb + 40),
+    past both ends of every tile's block; tiles at scattered offsets;
+    starts not span-aligned."""
+    dev = torch.device("cuda")
+    offsets = torch.sort(torch.randperm(T * Pb + 30, generator=gen,
+                                        device=dev)[:T]).values
+    qpk = torch.randint(-3, T * Pb + 40, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    leaf = torch.randint(0, 4 * span, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    kept = torch.rand(n, generator=gen, device=dev) < kept_share
+    starts = torch.randint(0, 3 * span, (T, Pb, Qc), generator=gen,
+                           device=dev, dtype=torch.int32)
+    return qpk, leaf, kept, starts, offsets.to(torch.int32)
+
+
+def config4_stack(columns):
+    """The inputs the single-batch walk hands K3 in the config-4
+    aggregation (same data, params and seed): the percentile row view of
+    the bounded rows, the [P, 256] mid histogram (K1) and the T = 1
+    subtree starts of the top walk, at full size."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    from pipelinedp_tpu_torch.aggregate_params import MechanismType
+    from pipelinedp_tpu_torch.ops import prng
+    params = pdt.AggregateParams(**config4_params(pdt))
+    config = te.FusedConfig.from_params(params, public=False)
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    specs = te.request_budgets(config, params, acc)
+    acc.request_budget(MechanismType.GENERIC, metric="partition_selection")
+    acc.compute_budgets()
+    scale = float(te._noise_scales(config, specs)[-1])
+    enc = te.encode(pdt.ArrayDataset(*columns), None, None)
+    pid, pk, values = te.put_on_device(enc, torch.device("cuda"))
+    P = te._pad_pow2(len(enc.pk_vocab))
+    k_bound, _, k_noise = prng.split(prng.PRNGKey(CONFIG4["seed"]), 3)
+    spk, _, keep_row, _, svalues = te._bound_rows(config, pid, pk, values,
+                                                  k_bound)
+    qrows = te._qrows(config, spk, svalues, keep_row)
+    mid = te._mid_histogram(P, qrows)
+    k_tree = prng.fold_in(k_noise, 0x7ee)
+    leaf_lo = te._walk_top(config, P, mid, k_tree, scale)[3]
+    qpk, leaf, kept = (x.contiguous() for x in qrows)
+    starts = leaf_lo[None].to(torch.int32).contiguous()
+    return qpk, leaf, kept, starts, P
+
+
+def time_hist(qpk, leaf, kept, starts, offsets, Pb, span):
+    """Median ms of K3 (its wrapper: the output's memset and the launch),
+    its plain version and the library yardstick, one ``torch.bincount``
+    per (t, q) over the flat bin index of the rows in range (the XLA
+    scatter's work; the indices are computed outside the timing), and
+    the bound for these inputs."""
+    from pipelinedp_tpu_torch.ops.kernels import hist
+    T, _, Qc = starts.shape
+    flat = []
+    for t in range(T):
+        rel_pk = qpk - offsets[t]
+        in_blk = kept & (rel_pk >= 0) & (rel_pk < Pb)
+        pk_b = torch.clamp(rel_pk, 0, Pb - 1).long()
+        for q in range(Qc):
+            rel = leaf - starts[t, :, q][pk_b]
+            ok = in_blk & (rel >= 0) & (rel < span)
+            flat.append((pk_b * span + rel.long())[ok])
+
+    def library():
+        return [torch.bincount(f, minlength=Pb * span) for f in flat]
+
+    want = hist.subtree_counts_multi_plain(qpk, leaf, kept, starts, offsets,
+                                           Pb, span)
+    lib = torch.stack(library()).view(T, Qc, Pb, span).permute(0, 2, 1, 3)
+    assert torch.equal(lib.to(torch.int32), want)
+    # Least work for these inputs: every kept flag is read, qpk and leaf
+    # only at kept rows (the 32-byte sectors those rows touch, in each),
+    # the starts and offsets once, and the output written once.
+    # Operations: one int32 add per in-range (row, tile, quantile).
+    n = qpk.shape[0]
+    kept_rows = kept.nonzero().squeeze(1)
+    sectors = int(torch.unique(kept_rows // 8).numel())
+    out_bytes = T * Pb * Qc * span * 4
+    bytes_moved = n + 2 * 32 * sectors + starts.numel() * 4 + T * 4 + \
+        out_bytes
+    adds = sum(int(f.numel()) for f in flat)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = adds / SCALAR_OPS_PER_S * 1e3
+    return dict(
+        ms=cuda_ms(lambda: hist.subtree_counts_multi(
+            qpk, leaf, kept, starts, offsets, Pb, span)),
+        plain_ms=cuda_ms(lambda: hist.subtree_counts_multi_plain(
+            qpk, leaf, kept, starts, offsets, Pb, span), reps=5),
+        library_ms=cuda_ms(library),
+        memset_ms=cuda_ms(lambda: torch.zeros(T, Pb, Qc, span,
+                                              dtype=torch.int32,
+                                              device=qpk.device)),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_bytes=bytes_moved, kept_rows=int(kept_rows.numel()),
+        row_sectors_needed=sectors, in_range_adds=adds,
+        out_bytes=out_bytes)
+
+
+def phase_hist_kernel(columns):
+    """K3 against its plain version, bit for bit, at the test shapes and
+    on the config-4 stack, where it is timed beside its plain version,
+    the ``bincount`` yardstick and the mid histogram on K1."""
+    from pipelinedp_tpu_torch.ops.kernels import hist, segsum
+    from pipelinedp_tpu_torch import torch_engine as te
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    checked = []
+    for T, Pb, Qc, span, n, share in [
+            (1, 8, 1, 16, 9000, 0.8), (3, 8, 2, 16, 9000, 0.8),
+            (5, 16, 4, 16, 9000, 0.8), (1, 4, 3, 256, 9000, 0.05),
+            (3, 64, 3, 256, 50_000, 0.05), (5, 1, 5, 256, 20_000, 0.5),
+            (4, 1024, 3, 64, 200_000, 0.3)]:
+        args = hist_case(T, Pb, Qc, span, n, share, gen)
+        got = hist.subtree_counts_multi(*args, Pb, span)
+        torch.cuda.synchronize()
+        want = hist.subtree_counts_multi_plain(*args, Pb, span)
+        assert torch.equal(got, want), (
+            f"K3 mismatch at T={T} Pb={Pb} Qc={Qc} span={span}")
+        # Accumulation into a sweep's buffer.
+        acc = want.clone()
+        hist.subtree_counts_multi(*args, Pb, span, out=acc)
+        assert torch.equal(acc, 2 * want)
+        assert int(want.sum()) > 0
+        checked.append([T, Pb, Qc, span, n, share])
+
+    qpk, leaf, kept, starts, P = config4_stack(columns)
+    offsets = torch.zeros(1, dtype=torch.int32, device="cuda")
+    Q, span = starts.shape[2], 256
+    got = hist.subtree_counts_multi(qpk, leaf, kept, starts, offsets, P,
+                                    span)
+    want = hist.subtree_counts_multi_plain(qpk, leaf, kept, starts, offsets,
+                                           P, span)
+    torch.cuda.synchronize()
+    max_abs_err = int((got.long() - want.long()).abs().max())
+    assert max_abs_err == 0, f"K3 mismatch on the config-4 stack"
+    checked.append([1, P, Q, span, int(qpk.shape[0]), "config-4 stack"])
+    del got, want
+    timings = time_hist(qpk, leaf, kept, starts, offsets, P, span)
+    qrows = (qpk, leaf, kept)
+    mid_ms = cuda_ms(lambda: te._mid_histogram(P, qrows))
+    n_mid = 256
+    mkey = (qpk * n_mid + torch.clamp_max(leaf // 256, n_mid - 1)).to(
+        torch.int32).contiguous()
+    mcol = kept.to(torch.int32)[:, None].contiguous()
+    mid_k1_ms = cuda_ms(lambda: segsum.segment_sum_lanes(mcol, mkey,
+                                                         P * n_mid))
+    del qpk, leaf, kept, starts, mkey, mcol
+    log("hist_kernel", kernel="subtree_counts_multi",
+        bit_equal_shapes=checked,
+        config4=dict(shape=[1, P, Q, span], **timings),
+        mid_histogram=dict(segments=P * n_mid, ms=mid_ms,
+                           k1_launch_ms=mid_k1_ms))
+    return dict(max_abs_err=max_abs_err, mid_ms=mid_ms, **timings)
+
+
+def _percentile_rows_identical(a_rows, b_rows, what):
+    assert len(a_rows) > 0, f"{what}: no partition released"
+    assert [k for k, _ in a_rows] == [k for k, _ in b_rows], (
+        f"{what}: kept keys differ")
+    for (k, a), (_, b) in zip(a_rows, b_rows):
+        assert a._fields == b._fields
+        assert (np.asarray(a, np.float64).tobytes() ==
+                np.asarray(b, np.float64).tobytes()), f"{what}: differs at {k}"
+
+
+def phase_percentile_gpu_vs_cpu():
+    """PERCENTILE through ``DPEngine.aggregate`` on the card and on the
+    CPU, single-batch and streamed: the same kept keys and bit-identical
+    float32 percentiles and float64 scalars; K3 launched on the card
+    (once per block single-batch, batches x sweeps streamed) and never
+    on the CPU."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.ops.kernels import hist
+    n, parts = 1_000_000, 10_000
+    columns = zipf_columns(n, n // 50, parts, seed=41)
+    out = {}
+    for noise, public in (("LAPLACE", None), ("GAUSSIAN",
+                                              list(range(parts)))):
+        for mode in ("single", "streamed"):
+            if mode == "streamed":
+                os.environ[CHUNK_ENV] = str(n // 6)
+            hist.reset_launches()
+            gpu_rows, gpu_t = _aggregate(pdt, columns,
+                                         config4_params(pdt, noise), "cuda",
+                                         17, public)
+            k3 = hist.LAUNCHES["subtree_counts_multi"]
+            cpu_rows, cpu_t = _aggregate(pdt, columns,
+                                         config4_params(pdt, noise), "cpu",
+                                         17, public)
+            os.environ.pop(CHUNK_ENV, None)
+            assert hist.LAUNCHES["subtree_counts_multi"] == k3, (
+                "the CPU run launched K3")
+            what = f"{noise} {mode}"
+            _percentile_rows_identical(gpu_rows, cpu_rows, what)
+            assert gpu_rows[0][1]._fields[-3:] == (
+                "percentile_50", "percentile_90", "percentile_99")
+            if mode == "streamed":
+                assert gpu_t["stream_batches"] == cpu_t["stream_batches"] > 1
+                assert k3 == (gpu_t["stream_batches"] *
+                              gpu_t["stream_pass_b_sweeps"]), what
+            else:
+                assert k3 >= 1, f"{what}: K3 never launched"
+            out[f"{noise.lower()}_{mode}"] = dict(
+                kept=len(gpu_rows), k3_launches=k3,
+                gpu_device_s=gpu_t["device_s"],
+                cpu_device_s=cpu_t["device_s"],
+                batches=gpu_t.get("stream_batches"))
+    log("percentile_gpu_vs_cpu", rows=n, partitions=parts, identical=True,
+        **out)
+
+
+def _timed_aggregate(pdt, columns, params, seed, public=None):
+    """One aggregation on the card with K1's and K3's counts zeroed just
+    before it and read just after."""
+    from pipelinedp_tpu_torch.ops.kernels import hist, segsum
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.reset_launches()
+    hist.reset_launches()
+    t0 = time.perf_counter()
+    rows, timings = _aggregate(pdt, columns, params, "cuda", seed, public)
+    wall_s = time.perf_counter() - t0
+    launches = dict(segsum.LAUNCHES, **hist.LAUNCHES)
+    assert launches["segment_sum_lanes"] >= 1, "K1 never launched"
+    assert launches["subtree_counts_multi"] >= 1, "K3 never launched"
+    assert len(rows) > 0, "no partition released"
+    released = np.asarray([tuple(m) for _, m in rows], np.float64)
+    assert released.shape == (len(rows), len(rows[0][1]))
+    assert np.isfinite(released).all()
+    rec = dict(rows=len(columns[1]), kept=len(rows), wall_s=wall_s,
+               rows_per_s=len(columns[1]) / wall_s,
+               host_encode_s=timings["host_encode_s"],
+               device_s=timings["device_s"],
+               host_decode_s=timings["host_decode_s"],
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    for k in ("stream_batches", "stream_pass_b", "stream_pass_b_sweeps",
+              "stream_pass_b_tiles"):
+        if k in timings:
+            rec[k] = timings[k]
+    return rows, rec
+
+
+def phase_config4(columns):
+    """BASELINE config 4 at full size: single-batch, then streamed in the
+    JAX bench's six batches (K3 launched batches x sweeps times)."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    params = config4_params(pdt)
+    single, rec_single = _timed_aggregate(pdt, columns, params,
+                                          CONFIG4["seed"])
+    assert single[0][1]._fields == ("variance", "percentile_50",
+                                    "percentile_90", "percentile_99")
+    P = te._pad_pow2(CONFIG4["partitions"])
+    blk = te._walk_blocks(P, 3, 256)
+    rec_single["walk_blocks"] = -(-P // blk)
+    assert rec_single["launches"]["subtree_counts_multi"] == \
+        rec_single["walk_blocks"]
+    os.environ[CHUNK_ENV] = str(-(-CONFIG4["rows"] // 6))
+    try:
+        streamed, rec_streamed = _timed_aggregate(pdt, columns, params,
+                                                  CONFIG4["seed"])
+    finally:
+        os.environ.pop(CHUNK_ENV, None)
+    assert rec_streamed["launches"]["subtree_counts_multi"] == (
+        rec_streamed["stream_batches"] * rec_streamed["stream_pass_b_sweeps"])
+    assert rec_streamed["stream_batches"] == 6
+    log("config4", data=CONFIG4, single=rec_single, streamed=rec_streamed)
+    return rec_single, rec_streamed
+
+
+def phase_config4_breakdown(columns, out_dir):
+    """``--profile`` only: where config 4's single-batch time goes, stage
+    by stage with CUDA events (the walk split into the mid histogram on
+    K1, the top levels, the subtree histogram on K3 and the bottom
+    levels), then the whole aggregation once under ``torch.profiler``."""
+    import dataclasses
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    from pipelinedp_tpu_torch.aggregate_params import MechanismType
+    from pipelinedp_tpu_torch.ops import prng
+
+    dev = torch.device("cuda")
+    params = pdt.AggregateParams(**config4_params(pdt))
+    config = te.FusedConfig.from_params(params, public=False)
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    specs = te.request_budgets(config, params, acc)
+    sel = acc.request_budget(MechanismType.GENERIC,
+                             metric="partition_selection")
+    acc.compute_budgets()
+    scale = float(te._noise_scales(config, specs)[-1])
+    stages = {}
+    timed = _stage_timer(stages)
+    t0 = time.perf_counter()
+    enc = te.encode(pdt.ArrayDataset(*columns), None, None)
+    stages["host_encode"] = (time.perf_counter() - t0) * 1e3
+    pid, pk, values = timed("h2d", lambda: te.put_on_device(enc, dev))
+    n_parts = len(enc.pk_vocab)
+    P = te._pad_pow2(n_parts)
+    fx_bits = te._fx_plan(enc.n_rows)[0]
+    table, thr, s_scale, min_count = te.selection_inputs(config, sel.eps,
+                                                         sel.delta, None)
+    k_bound, k_sel, k_noise = prng.split(prng.PRNGKey(CONFIG4["seed"]), 3)
+    k_tree = prng.fold_in(k_noise, 0x7ee)
+    part, nseg, qrows = timed("partials", lambda: te._partials(
+        config, P, pid, pk, values, k_bound, fx_bits))
+    keep, raw = timed("selection", lambda: te._selection_and_metrics(
+        dataclasses.replace(config, percentiles=()), P, part, nseg, table,
+        thr, s_scale, min_count, 1.0, k_sel))
+    mid = timed("mid_histogram_k1", lambda: te._mid_histogram(P, qrows))
+    lo, hi, target, leaf_lo, done = timed(
+        "walk_top", lambda: te._walk_top(config, P, mid, k_tree, scale))
+    offset = torch.zeros(1, dtype=torch.int32, device=dev)
+    sub = timed("subtree_histogram_k3", lambda: te._subtree_counts_multi(
+        *qrows, leaf_lo[None], offset, P, 256)[0])
+    vals = timed("walk_bottom", lambda: te._walk_bottom(
+        config, P, sub, leaf_lo, lo, hi, target, leaf_lo, done, k_tree,
+        scale, 0))
+    del sub, mid
+    quantiles = np.asarray([p / 100.0 for p in config.percentiles],
+                           np.float32)
+    vals = timed("monotone", lambda: te._monotone_in_q(vals, quantiles))
+    cols = [raw[k] for k in sorted(raw)] + [vals[:, i] for i in range(3)]
+    timed("compact_fetch", lambda: te._compact_fetch(
+        keep, [c.contiguous().view(torch.int32) if c.dtype != torch.int32
+               else c for c in cols], n_parts,
+        min(n_parts, te._COMPACT_FETCH_CAP)).cpu())
+    prof = _profiled(lambda: _aggregate(pdt, columns, config4_params(pdt),
+                                        "cuda", CONFIG4["seed"]),
+                     out_dir and os.path.join(out_dir,
+                                              "config4_profile.txt"))
+    # The streamed run: its host batch assignment alone, then the whole
+    # aggregation under the profiler.
+    from pipelinedp_tpu_torch import streaming
+    t0 = time.perf_counter()
+    streaming._batch_assignment(config, enc, 6, CONFIG4["seed"])
+    assign_ms = (time.perf_counter() - t0) * 1e3
+    os.environ[CHUNK_ENV] = str(-(-CONFIG4["rows"] // 6))
+    try:
+        streamed = _profiled(
+            lambda: _aggregate(pdt, columns, config4_params(pdt), "cuda",
+                               CONFIG4["seed"]),
+            out_dir and os.path.join(out_dir, "config4_streamed_profile.txt"))
+    finally:
+        os.environ.pop(CHUNK_ENV, None)
+    log("config4_breakdown", stage_ms=stages, **prof,
+        streamed=dict(batch_assignment_ms=assign_ms, **streamed))
+
+
+def phase_streamed_percentile():
+    """``bench.py``'s ``bench_streamed_percentile`` shape (2M rows, 3000
+    public partitions, seed 13, a chunk of n // 6 rows) at the default
+    byte cap and at the cap that makes pass B tile: the same
+    percentiles."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    n, parts = 2_000_000, 3_000
+    rng = np.random.default_rng(13)
+    columns = (rng.integers(0, 1 << 20, n).astype(np.int32),
+               (rng.zipf(1.3, n) % parts).astype(np.int32),
+               rng.uniform(0.0, 10.0, n).astype(np.float32))
+    public = list(range(parts))
+    P_pad = te._pad_pow2(parts)
+    cap = max(4, (5 * P_pad) // 8) * 256 * 4
+    os.environ[CHUNK_ENV] = str(max(n // 6, 1000))
+    try:
+        default, rec_default = _timed_aggregate(
+            pdt, columns, config4_params(pdt), 0, public)
+        os.environ[CAP_ENV] = str(cap)
+        capped, rec_capped = _timed_aggregate(
+            pdt, columns, config4_params(pdt), 0, public)
+    finally:
+        os.environ.pop(CHUNK_ENV, None)
+        os.environ.pop(CAP_ENV, None)
+    assert rec_default["stream_pass_b_tiles"] == 1
+    assert rec_capped["stream_pass_b_tiles"] > 1, "the capped run did not tile"
+    for rec in (rec_default, rec_capped):
+        assert rec["launches"]["subtree_counts_multi"] == (
+            rec["stream_batches"] * rec["stream_pass_b_sweeps"])
+    fields = ("percentile_50", "percentile_90", "percentile_99")
+    assert [k for k, _ in default] == [k for k, _ in capped] == public
+    for (k, a), (_, b) in zip(default, capped):
+        assert all(getattr(a, f) == getattr(b, f) for f in fields), (
+            f"capped percentiles differ at {k}")
+    log("streamed_percentile", rows=n, partitions=parts, capped_cap=cap,
+        capped_identical=True, default=rec_default, capped=rec_capped)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -626,6 +1074,19 @@ def main() -> int:
     wide = phase_wide_kernel(vector_data)
     phase_vector_gpu_vs_cpu()
     vector_launches = phase_vector_full(vector_data)
+    del vector_data
+    os.environ.pop("PIPELINEDP_TPU_VECTOR_ACCUMULATOR")
+    t0 = time.perf_counter()
+    columns = zipf_columns(CONFIG4["rows"], CONFIG4["users"],
+                           CONFIG4["partitions"], CONFIG4["seed"])
+    RECORD["config4_data_gen_s"] = time.perf_counter() - t0
+    k3 = phase_hist_kernel(columns)
+    phase_percentile_gpu_vs_cpu()
+    c4_single, c4_streamed = phase_config4(columns)
+    if args.profile:
+        phase_config4_breakdown(columns, args.out)
+    del columns
+    phase_streamed_percentile()
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
@@ -641,7 +1102,17 @@ def main() -> int:
         "launches": vector_launches["segment_sum_wide"],
         "max_abs_err": wide["max_abs_err"], "ms": wide["ms"],
         "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
-        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"]}]
+        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"]}, {
+        "name": "subtree_counts_multi", "route": "cuda",
+        "source": "pipelinedp_tpu_torch/csrc/hist_bin.cu",
+        "replaces": "pipelinedp_tpu/ops/kernels/hist.py:111",
+        "parity": "bit-equal",
+        "launches": c4_single["launches"]["subtree_counts_multi"],
+        "launches_streamed": c4_streamed["launches"][
+            "subtree_counts_multi"],
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}]
     RECORD["kernels"] = kernels
     RECORD["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -2,11 +2,13 @@
 
 A second package beside the JAX one, held against it bit for bit. This
 package runs the fused ``DPEngine.aggregate`` path (COUNT,
-PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE, or VECTOR_SUM; public or private
-partitions; one device, one batch) and ``select_partitions`` on a CUDA
-device, with hand-written CUDA kernels for the per-partition segment sums
-of the scalar lanes and of VECTOR_SUM's coordinate lanes. The
-package imports torch, numpy and scipy, never JAX.
+PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE, PERCENTILE, or VECTOR_SUM; public
+or private partitions; one device, in one batch or, past
+``PIPELINEDP_TPU_STREAM_CHUNK`` rows and for all but VECTOR_SUM, streamed
+in batches) and ``select_partitions`` on a CUDA device, with hand-written
+CUDA kernels for the per-partition segment sums of the scalar lanes and
+of VECTOR_SUM's coordinate lanes, and for the quantile walk's subtree
+histograms. The package imports torch, numpy and scipy, never JAX.
 
     import pipelinedp_tpu_torch as pdt
     accountant = pdt.NaiveBudgetAccountant(total_epsilon=1, total_delta=1e-6)

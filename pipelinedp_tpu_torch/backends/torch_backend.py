@@ -3,7 +3,8 @@
 Modelled on ``pipelinedp_tpu/backends/jax_backend.py``: a marker that
 tells ``DPEngine`` to lower fusable aggregations to the fused device path
 (``torch_engine``), plus the options that path reads. It has no mesh, no
-checkpoint, no health probe and no compile cache (later slices).
+checkpoint, no ingest executor, no pass-B cache, no health probe and no
+compile cache (later slices).
 """
 
 from __future__ import annotations
@@ -27,7 +28,26 @@ class TorchBackend:
 
     supports_fused_aggregation = True
 
-    def __init__(self, device="cuda", rng_seed: Optional[int] = None):
+    def __init__(self, device="cuda", rng_seed: Optional[int] = None,
+                 mesh=None, checkpoint=None,
+                 ingest_executor: Optional[bool] = None,
+                 stream_cache: Optional[int] = None):
+        # The JAX backend's streaming options that this port does not have
+        # yet. Asking for one raises; leaving them unset runs the serial
+        # stream, which releases the same values (the executor and the
+        # pass-B cache select bit-identical paths in the JAX package).
+        for asked, what in (
+                (mesh is not None, "a mesh (multi-GPU is ROADMAP step 8; "
+                 "streaming on a mesh, ROADMAP step 7)"),
+                (checkpoint is not None,
+                 "checkpoint and resume of a stream (ROADMAP step 7)"),
+                (bool(ingest_executor),
+                 "the overlapped ingest executor (ROADMAP step 7)"),
+                (bool(stream_cache),
+                 "the pass-B device prefix cache (ROADMAP step 7)")):
+            if asked:
+                raise NotImplementedError(
+                    f"{what} is not ported to pipelinedp_tpu_torch yet")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

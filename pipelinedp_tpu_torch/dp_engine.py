@@ -6,9 +6,8 @@ slice runs: fusable params on a ``TorchBackend`` go to
 ``torch_engine.build_fused_aggregation`` (``dp_engine.py:294-306`` of the
 JAX package) and ``build_fused_select_partitions``. Everything else —
 non-fusable params, custom combiners, a backend without the fused path,
-and the fusable metrics of later slices (PERCENTILE, per-partition sum
-bounds) — raises ``NotImplementedError``: the generic host path is
-ROADMAP step 11.
+and the per-partition sum bounds of a later slice — raises
+``NotImplementedError``: the generic host path is ROADMAP step 11.
 """
 
 from __future__ import annotations

@@ -52,12 +52,21 @@ def laplace_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return -torch.sign(c) * xla_log1p(-2.0 * torch.abs(c))
 
 
+#: ``sqrt(2)`` in float32, the factor of every Gaussian draw.
+SQRT2_F32 = float(np.float32(math.sqrt(2.0)))
+
+
+def erfinv_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``erf_inv`` of the open-interval uniform of uint32 bits (in int64),
+    mapped to (-1, 1]: the top grid point rounds to 1.0, where XLA's
+    ``erf_inv`` is +inf. A Gaussian draw is ``SQRT2_F32`` times it."""
+    return xla_erfinv(_uniform_open01(bits) * 2.0 - 1.0)
+
+
 def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """``sqrt(2) * erf_inv`` of the open-interval uniform of uint32 bits
-    (in int64), mapped to (-1, 1]: the top grid point rounds to 1.0, where
-    XLA's ``erf_inv`` (and so the draw) is +inf."""
-    u = _uniform_open01(bits) * 2.0 - 1.0
-    return float(np.float32(math.sqrt(2.0))) * xla_erfinv(u)
+    (in int64)."""
+    return SQRT2_F32 * erfinv_from_bits(bits)
 
 
 def laplace(key: torch.Tensor, x0: torch.Tensor,
@@ -75,3 +84,13 @@ def normal(key: torch.Tensor, x0: torch.Tensor,
     k0, k1 = key_words(key)
     bits, _ = threefry2x32(k0, k1, x0, x1)
     return normal_from_bits(bits)
+
+
+def normal_erfinv(key: torch.Tensor, x0: torch.Tensor,
+                  x1: torch.Tensor) -> torch.Tensor:
+    """``normal(key, x0, x1)`` before its factor ``SQRT2_F32``: for a
+    caller that scales the draw, as XLA folds ``(sqrt(2) * e) * s`` into
+    ``e * (sqrt(2) * s)``."""
+    k0, k1 = key_words(key)
+    bits, _ = threefry2x32(k0, k1, x0, x1)
+    return erfinv_from_bits(bits)

@@ -3,10 +3,13 @@ version. A wrapper launches its kernel for CUDA tensors and takes the
 plain version for CPU tensors; sources live in ``csrc/`` and build at
 first use (``_build.py``)."""
 
+from pipelinedp_tpu_torch.ops.kernels.hist import (subtree_counts_multi,
+                                                   subtree_counts_multi_plain)
 from pipelinedp_tpu_torch.ops.kernels.segsum import (segment_sum_lanes,
                                                      segment_sum_lanes_plain,
                                                      segment_sum_wide,
                                                      segment_sum_wide_plain)
 
 __all__ = ["segment_sum_lanes", "segment_sum_lanes_plain",
-           "segment_sum_wide", "segment_sum_wide_plain"]
+           "segment_sum_wide", "segment_sum_wide_plain",
+           "subtree_counts_multi", "subtree_counts_multi_plain"]

@@ -13,6 +13,11 @@ twin in ``tests/test_torch_engine.py``::
             → VECTOR_SUM: fixed-point coordinate lanes → one
               [N, n_lanes * D] segment sum per pk (kernel K2, same module)
             → batched partition selection over the pk axis
+            → PERCENTILE: the quantile-tree walk over every partition at
+              once (``_percentile_values``): a [P, 256] mid histogram
+              (K1) serves the top two levels, [Pb, Q, 256] subtree-leaf
+              histograms (kernel K3, ``ops/kernels/hist.py``) the bottom
+              two
             → compaction of the kept partitions
     host:   float64 scalar release through ``dp_computations`` (the same
             mechanisms and the same ``np.random.default_rng(rng_seed)``
@@ -21,13 +26,32 @@ twin in ``tests/test_torch_engine.py``::
 
 The random streams are JAX's threefry streams, reproduced in
 ``ops/prng.py``: the same ``rng_seed`` gives the same bounding samples,
-the same keep decisions and the same vector noise as
-``JaxBackend(rng_seed=...)``.
+the same keep decisions, the same vector noise and the same quantile-tree
+node noise as ``JaxBackend(rng_seed=...)``. The float32 arithmetic of the
+walk follows XLA's CPU code op for op: sums and scans over the 16
+children are sequential float32 adds, and the three multiply-adds XLA
+contracts into one FMA go through ``prng.fma32``.
 
-This slice runs COUNT, PRIVACY_ID_COUNT, SUM, MEAN and VARIANCE with
-per-value bounds, and VECTOR_SUM, in (l0, linf), total-cap (scalars only)
-or bounds-already-enforced mode, with public or private partitions, on one
-device and in one batch. VECTOR_SUM accumulates under the JAX package's
+This slice runs COUNT, PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE and
+PERCENTILE with per-value bounds, and VECTOR_SUM, in (l0, linf),
+total-cap (not VECTOR_SUM) or bounds-already-enforced mode, with public
+or private partitions, on one device. A table of more rows than one batch
+streams through ``streaming.py`` (serially, in two passes for
+PERCENTILE); streamed VECTOR_SUM and streamed ``select_partitions`` are
+not ported yet (ROADMAP step 7).
+
+One function builds every subtree histogram of the walk,
+``_subtree_counts_multi`` (K3 on the card), single-batch and streamed.
+The JAX package's single-batch walk builds the same integers with XLA
+scatters instead (``_build_sub_hist``'s prefix-sum row compaction, its
+``_MAX_WALK_BLOCKS`` bound and the per-level-scatter fallback), for
+reasons of the TPU: its Pallas binner must fit a 4 MB VMEM envelope and
+its walk's block count bounds an XLA program's size. Neither holds for a
+CUDA kernel launched from a host loop, so none of the three is ported:
+past ``PIPELINEDP_TPU_SUBHIST_CAP`` the port walks partition blocks in a
+host loop. The values do not depend on which path builds the integers.
+
+VECTOR_SUM accumulates under the JAX package's
 ``vector_accumulator`` switch: ``fx`` (fixed-point lanes, bit-identical to
 the JAX package) or ``f32`` (a float32 ``index_add_``, the default, equal
 to the JAX package's float32 ``segment_sum`` up to the order of the
@@ -58,9 +82,10 @@ from pipelinedp_tpu_torch.ops import counter_rng
 from pipelinedp_tpu_torch.ops import noise as noise_ops
 from pipelinedp_tpu_torch.ops import partition_selection as ps_ops
 from pipelinedp_tpu_torch.ops import prng
+from pipelinedp_tpu_torch.ops import quantile_tree
 from pipelinedp_tpu_torch.ops import segment as seg_ops
 from pipelinedp_tpu_torch.ops import vector_noise
-from pipelinedp_tpu_torch.ops.kernels import segsum
+from pipelinedp_tpu_torch.ops.kernels import hist, segsum
 
 #: VECTOR_SUM's accumulator when ``PIPELINEDP_TPU_VECTOR_ACCUMULATOR`` is
 #: unset: the module seam of the JAX package's ``vector_accumulator`` knob
@@ -103,6 +128,7 @@ class FusedConfig:
     max_sum_per_partition: Optional[float]
     selection: Optional[PartitionSelectionStrategy]  # None = public
     bounds_already_enforced: bool
+    percentiles: Tuple[float, ...] = ()  # PERCENTILE(p) parameters, in order
     # Total-cap bounding: M rows per privacy unit across ALL partitions
     # (l0/linf are None in this mode).
     max_contributions: Optional[int] = None
@@ -127,8 +153,20 @@ class FusedConfig:
 
     @staticmethod
     def from_params(params: AggregateParams, public: bool) -> "FusedConfig":
+        # Every PERCENTILE(p) folds into one "PERCENTILE" metric; the
+        # parameters keep their order in ``percentiles``.
+        names = []
+        percentiles = []
+        for m in params.metrics:
+            if m.is_percentile:
+                percentiles.append(float(m.parameter))
+                if "PERCENTILE" not in names:
+                    names.append("PERCENTILE")
+            else:
+                names.append(m.name)
         return FusedConfig(
-            metrics=tuple(m.name for m in params.metrics),
+            metrics=tuple(names),
+            percentiles=tuple(percentiles),
             noise_kind=params.noise_kind,
             linf=params.max_contributions_per_partition,
             l0=params.max_partitions_contributed,
@@ -153,14 +191,14 @@ class FusedConfig:
 FUSABLE_METRICS = {"COUNT", "PRIVACY_ID_COUNT", "SUM", "MEAN", "VARIANCE",
                    "VECTOR_SUM", "PERCENTILE"}
 _VALUE_METRICS = {"SUM", "MEAN", "VARIANCE", "VECTOR_SUM", "PERCENTILE"}
-# The quantile tree's leaf count (branching 16, height 4), for the float32
-# range check of percentile params.
-_N_LEAVES = 16**4
 
 
 def params_are_fusable(params: AggregateParams) -> bool:
     """``jax_engine.params_are_fusable``: whether the JAX package runs
-    these params on its fused plane."""
+    these params on its fused plane. A percentile needs real tree bounds,
+    and a range so small that ``n_leaves / range`` overflows float32 goes
+    to the host path, which computes the leaf in float64 (``_qrows``
+    folds that constant into one float32)."""
     if params.custom_combiners:
         return False
     for m in params.metrics:
@@ -168,8 +206,10 @@ def params_are_fusable(params: AggregateParams) -> bool:
             if (params.min_value is None or
                     not params.min_value < params.max_value):
                 return False
-            inv = _N_LEAVES / (float(params.max_value) -
-                               float(params.min_value))
+            n_leaves = (quantile_tree.DEFAULT_BRANCHING_FACTOR**
+                        quantile_tree.DEFAULT_TREE_HEIGHT)
+            inv = n_leaves / (float(params.max_value) -
+                              float(params.min_value))
             if inv > float(np.finfo(np.float32).max):
                 return False
         elif m.name not in FUSABLE_METRICS:
@@ -180,9 +220,6 @@ def params_are_fusable(params: AggregateParams) -> bool:
 def unported_reason(params: AggregateParams) -> Optional[str]:
     """Why these fusable params are outside this slice (None when the
     slice runs them)."""
-    names = {m.name for m in params.metrics}
-    if "PERCENTILE" in names:
-        return "PERCENTILE (ROADMAP step 5: single-batch percentiles)"
     if params.bounds_per_partition_are_set:
         return ("min_sum_per_partition / max_sum_per_partition bounds "
                 "(ROADMAP §1: the per-partition-sum-bounds SUM)")
@@ -470,17 +507,18 @@ def put_on_device(encoded: EncodedData, device: torch.device,
 
 
 def _fused_body(config: FusedConfig, num_partitions: int, pid, pk, values,
-                keep_table, sel_threshold, sel_scale, sel_min_count,
-                sel_rows_per_uid, key, fx_bits: int):
+                noise_scales, keep_table, sel_threshold, sel_scale,
+                sel_min_count, sel_rows_per_uid, key, fx_bits: int):
     """``jax_engine._fused_kernel_body``: the one root split into the
-    bounding, selection and noise streams, then bounding, reduction and
-    selection."""
+    bounding, selection and noise streams, then bounding, reduction,
+    selection and the percentile walk."""
     k_bound, k_sel, k_noise = prng.split(key, 3)
-    part, part_nseg = _partials(config, num_partitions, pid, pk, values,
-                                k_bound, fx_bits)
-    return _selection_and_metrics(config, num_partitions, part, part_nseg,
-                                  keep_table, sel_threshold, sel_scale,
-                                  sel_min_count, sel_rows_per_uid, k_sel)
+    part, part_nseg, qrows = _partials(config, num_partitions, pid, pk,
+                                       values, k_bound, fx_bits)
+    return _selection_and_metrics(
+        config, num_partitions, part, part_nseg, keep_table, sel_threshold,
+        sel_scale, sel_min_count, sel_rows_per_uid, k_sel, k_noise=k_noise,
+        noise_scales=noise_scales, qrows=qrows)
 
 
 def _lexsort_pid_hpk_tie(pid: torch.Tensor, hpk: torch.Tensor,
@@ -501,23 +539,33 @@ def _partials(config: FusedConfig, num_partitions: int, pid, pk, values,
     (``jax_engine._partials``). ``pid``/``pk`` int32 [N], ``values``
     float32 [N] or [N, D] (or None when no metric reads values), all on
     one device. Returns (columns dict of int32 [P], plus VECTOR_SUM's
-    [P, W] column, and the privacy-id-count column)."""
-    spk, masked, keep_row, seg_marker = _bound_rows(config, pid, pk, values,
-                                                    key)
+    [P, W] column; the privacy-id-count column; the percentile row view
+    ``_qrows`` of the bounded rows, or None without percentiles)."""
+    spk, masked, keep_row, seg_marker, svalues = _bound_rows(
+        config, pid, pk, values, key)
     part, nseg = _reduce_per_pk(config, spk, masked, keep_row,
                                 num_partitions, seg_marker=seg_marker,
                                 fx_bits=fx_bits)
     if config.bounds_already_enforced:
         # Without pids every row counts as its own privacy unit.
         nseg = part["count"]
-    return part, nseg
+    qrows = (_qrows(config, spk, svalues, keep_row) if config.percentiles
+             else None)
+    return part, nseg, qrows
+
+
+def _bounded_qrows(config: FusedConfig, pid, pk, values, key):
+    """The percentile row view alone, for the streamed pass B: the same
+    bounding as ``_partials`` under the same key, without the reduction."""
+    spk, _, keep_row, _, svalues = _bound_rows(config, pid, pk, values, key)
+    return _qrows(config, spk, svalues, keep_row)
 
 
 def _bound_rows(config: FusedConfig, pid, pk, values, key):
     """Contribution bounding in row space: returns (pk, clipped values
     zeroed outside the kept rows or None, kept-row mask, kept-segment
-    marker or None), each [N] (values [N] or [N, D]) in the bounding's
-    sorted row order."""
+    marker or None, the unclipped values or None), each [N] (values [N]
+    or [N, D]) in the bounding's sorted row order."""
     if config.per_partition_bounds:
         raise NotImplementedError(
             "the per-partition-sum-bounds SUM is not ported yet (ROADMAP "
@@ -530,7 +578,7 @@ def _bound_rows(config: FusedConfig, pid, pk, values, key):
         row_keep = torch.ones(n, dtype=torch.bool, device=device)
         masked = (_clip_values(config, values) if config.needs_values
                   else None)
-        return pk, masked, row_keep, None
+        return pk, masked, row_keep, None, values
 
     # Bounding streams: tie-breaks keyed by row position, the per-run
     # salt, and the total-cap sample bits.
@@ -584,7 +632,7 @@ def _bound_rows(config: FusedConfig, pid, pk, values, key):
     if config.needs_values:
         clipped = _clip_values(config, svalues)
         masked = torch.where(_expand(keep_row, clipped), clipped, 0.0)
-    return spk, masked, keep_row, seg_marker
+    return spk, masked, keep_row, seg_marker, svalues
 
 
 # Fixed-point value accumulation: quantization grid (2^23 steps over the
@@ -610,7 +658,7 @@ def _fx_plan(n_rows_total: int) -> Tuple[int, int]:
     if n_rows_total * ((1 << bits) - 1) >= _LANE_SUM_CAP:
         raise NotImplementedError(
             f"fixed-point value lanes support up to 2^27 rows per batch "
-            f"(got {n_rows_total}); streaming is ROADMAP step 7")
+            f"(got {n_rows_total})")
     return bits, -(-_FX_PAYLOAD_BITS // bits)
 
 
@@ -807,13 +855,16 @@ def _fold_fixedpoint(config: FusedConfig, part64, fx_bits: int) -> None:
 
 def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
                            part_nseg, keep_table, sel_threshold, sel_scale,
-                           sel_min_count, sel_rows_per_uid, k_sel):
-    """Batched partition selection over the whole [P] axis
-    (``jax_engine._selection_and_metrics`` without percentiles). Returns
-    (keep_pk bool [P], accumulator columns). The thresholds arrive as
-    float32 values, as the JAX package passes them."""
+                           sel_min_count, sel_rows_per_uid, k_sel,
+                           k_noise=None, noise_scales=None, qrows=None):
+    """Batched partition selection over the whole [P] axis, then the
+    percentile walk (``jax_engine._selection_and_metrics``). Returns
+    (keep_pk bool [P], accumulator columns, with one float32 [P] column
+    per percentile). The thresholds arrive as float32 values, as the JAX
+    package passes them; the walk's noise scale is the last entry of
+    ``noise_scales`` and its key a constant fold of ``k_noise``."""
     P = num_partitions
-    device = part["count"].device
+    device = part_nseg.device
     if config.selection is None:
         keep_pk = torch.ones(P, dtype=torch.bool, device=device)
     else:
@@ -843,7 +894,328 @@ def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
         keep_pk = keep_pk & (part_nseg > 0)
     out = dict(part)
     out["privacy_id_count_raw"] = part_nseg
+    if config.percentiles:
+        # The tree key is independent of the selection stream.
+        k_tree = prng.fold_in(k_noise, 0x7ee)
+        vals = _percentile_values(config, P, qrows,
+                                  float(np.asarray(noise_scales)[-1]), k_tree)
+        for qi, name in enumerate(_percentile_field_names(
+                config.percentiles)):
+            out[name] = vals[:, qi]
     return keep_pk, out
+
+
+# ---------------------------------------------------------------------------
+# The percentile walk
+# ---------------------------------------------------------------------------
+
+#: Byte cap of one [Pb, Q, span] int32 subtree histogram when
+#: ``PIPELINEDP_TPU_SUBHIST_CAP`` is unset: the module seam of the JAX
+#: package's ``subhist_byte_cap`` knob. Above it the single-batch walk
+#: walks partition blocks in a host loop, and the streamed pass B tiles
+#: the (quantile x partition) grid; every blocking is bit-identical.
+_SUBHIST_BYTE_CAP = 600 << 20
+_SUBHIST_CAP_ENV = "PIPELINEDP_TPU_SUBHIST_CAP"
+
+
+def _subhist_byte_cap() -> int:
+    """The knob's resolution in the JAX package: the environment, then the
+    seam."""
+    raw = os.environ.get(_SUBHIST_CAP_ENV)
+    return int(raw) if raw else int(_SUBHIST_BYTE_CAP)
+
+
+def _qrows(config: FusedConfig, pk, values, kept):
+    """Percentile row view: (pk, leaf index, kept mask) per row, in the
+    caller's row order (``jax_engine._qrows``). The leaf is one float32
+    subtract, then one float32 multiply by the host-folded constant
+    ``float32(n_leaves / range)``, truncated to int32: neither step is an
+    FMA pattern, so pass A and pass B of a stream map every row to the
+    same leaf."""
+    b, height, _, _ = quantile_tree.tree_constants()
+    n_leaves = b**height
+    lower, upper = float(config.min_value), float(config.max_value)
+    inv_range = np.float32(n_leaves / (upper - lower))
+    assert np.isfinite(inv_range), (
+        f"fused percentile range [{lower}, {upper}] has no finite float32 "
+        "leaf constant — params_are_fusable should have rejected it")
+    v = torch.clamp(values, _f32(lower), _f32(upper))
+    leaf = torch.clamp_max(((v - _f32(lower)) * float(inv_range)).to(
+        torch.int32), n_leaves - 1)
+    return torch.where(kept, pk, 0), leaf, kept
+
+
+def _percentile_field_names(percentiles) -> List[str]:
+    """``percentile_50``, ``percentile_99_9``: the names of the JAX
+    package's ``_percentile_field_names``."""
+    names = []
+    for p in percentiles:
+        int_p = int(round(p))
+        text = str(int_p) if int_p == p else str(p).replace(".", "_")
+        names.append(f"percentile_{text}")
+    return names
+
+
+def _node_noise(noise_kind: NoiseKind, key, node_ids, pk_index=None):
+    """One unit draw per (partition, tree node), a pure function of the
+    two indices (``jax_engine._node_noise``): ``node_ids`` int [P, Q, b],
+    ``pk_index`` the global partition of each row of ``node_ids``
+    (default ``arange(P)``). The walk's draws at scale 1."""
+    draw, factor = _scaled_node_noise(noise_kind, key, node_ids, 1.0,
+                                      pk_index)
+    return draw * factor
+
+
+def _node_counters(node_ids, pk_index=None):
+    """The counter lanes (partition, node id) of ``_node_noise``."""
+    P = node_ids.shape[0]
+    if pk_index is None:
+        pk_index = torch.arange(P, device=node_ids.device)
+    x0 = pk_index.to(torch.int64).reshape(
+        (P,) + (1,) * (node_ids.dim() - 1)).expand(node_ids.shape)
+    return x0, node_ids.to(torch.int64)
+
+
+def _scaled_node_noise(noise_kind: NoiseKind, key, node_ids, scale: float,
+                       pk_index=None):
+    """``(draw, factor)`` whose float32 product is the walk's noise
+    ``_node_noise * scale`` as XLA computes it: a Laplace draw times
+    ``scale``, and for a Gaussian ``erf_inv`` times ``float32(sqrt(2) *
+    scale)``, since XLA folds the constant ``sqrt(2)`` of the draw into
+    the scale."""
+    x0, x1 = _node_counters(node_ids, pk_index)
+    if noise_kind == NoiseKind.LAPLACE:
+        return counter_rng.laplace(key, x0, x1), _f32(scale)
+    return (counter_rng.normal_erfinv(key, x0, x1),
+            _f32(counter_rng.SQRT2_F32 * _f32(scale)))
+
+
+def _halves_sum(x):
+    """The sum over the last axis (a power of two long) as a tree of
+    halves, ``x[:h] + x[h:]`` until one is left: the order of XLA's CPU
+    code for a vectorised row reduction of 16 float32 lanes."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _walk_step(noisy, lo, hi, target, leaf_lo, done, b, w, scan=None,
+               halves_total=False, rank_fma=False):
+    """One level of the descent (``jax_engine._walk_step``): pick the child
+    whose cumulative noisy count crosses the rank target and re-normalise
+    the target into it. ``lo + child * width`` is one FMA, as XLA
+    contracts it.
+
+    The rest follows XLA's CPU code for the program it runs in. Alone,
+    ``_walk_step`` scans and sums the ``b`` children with sequential
+    float32 adds (``torch.cumsum`` and ``torch.sum`` add in other orders)
+    and rounds ``target * total - cum`` twice. Inside the walk's program
+    (see ``_walk_level``) XLA sums the children as a tree of halves
+    (``halves_total``), may take the running sum and the total over a
+    second copy of the counts (``scan``), and may contract the rank's
+    numerator into one FMA (``rank_fma``)."""
+    scan = noisy if scan is None else scan
+    incl = [scan[..., 0]]
+    for c in range(1, b):
+        incl.append(incl[-1] + scan[..., c])
+    total = _halves_sum(scan) if halves_total else incl[-1]
+    incl = torch.stack(incl, dim=-1)
+    rank = target * total
+    ge = incl >= rank[..., None]
+    child = torch.where(ge.any(-1), ge.to(torch.int32).argmax(-1), b - 1)
+    c = torch.gather(noisy, -1, child[..., None])[..., 0]
+    cum = torch.gather(incl, -1, child[..., None])[..., 0] - c
+    width = (hi - lo) / float(b)
+    new_lo = prng.fma32(child.to(torch.float32), width, lo)
+    numer = prng.fma32(target, total, -cum) if rank_fma else rank - cum
+    new_target = torch.where(
+        c <= 0, 0.0,
+        torch.clamp(numer / torch.clamp_min(c, _f32(1e-30)), 0.0, 1.0))
+    stop = done | (total <= 0)
+    lo = torch.where(stop, lo, new_lo)
+    hi = torch.where(stop, hi, new_lo + width)
+    target = torch.where(stop, target, new_target)
+    leaf_lo = torch.where(stop, leaf_lo,
+                          leaf_lo + (child * w).to(torch.int32))
+    return lo, hi, target, leaf_lo, stop
+
+
+def _walk_level(noise_kind, key, scale, raw, base, level_offset, lo, hi,
+                target, leaf_lo, done, b, w, pk_index=None):
+    """One walk level from its raw child counts (``jax_engine.
+    _walk_level``): node-id-keyed noise, ``max(raw + noise * scale, 0)``,
+    then the descent step. At the root every quantile shares base 0, so
+    one draw per (partition, child) is broadcast over Q.
+
+    The float32 arithmetic is XLA's CPU code for the walk's program, as
+    measured against it (``tests/test_torch_percentile.py``): the total of
+    the children is a tree of halves at every level, and the noisy counts
+    are one FMA, except at the root, where XLA recomputes the counts
+    unfused (two roundings) for the running sum and the total and
+    contracts the rank's numerator ``target * total - cum`` instead."""
+    node_ids = (level_offset + base)[..., None] + torch.arange(
+        b, dtype=torch.int32, device=base.device)
+    root = level_offset == 0
+    if root:
+        draw, factor = _scaled_node_noise(noise_kind, key, node_ids[:, :1, :],
+                                          scale, pk_index)
+        draw = draw.expand(node_ids.shape)
+    else:
+        draw, factor = _scaled_node_noise(noise_kind, key, node_ids, scale,
+                                          pk_index)
+    noisy = torch.clamp_min(prng.fma32(draw, factor, raw), 0.0)
+    scan = torch.clamp_min(raw + draw * factor, 0.0) if root else None
+    return _walk_step(noisy, lo, hi, target, leaf_lo, done, b, w, scan=scan,
+                      halves_total=True, rank_fma=root)
+
+
+def _monotone_in_q(vals, quantiles):
+    """Monotone in q, like the host post-processing step: a running
+    maximum over the quantiles in ascending order."""
+    order = np.argsort(quantiles, kind="stable")
+    fwd = torch.as_tensor(order, device=vals.device)
+    back = torch.as_tensor(np.argsort(order), device=vals.device)
+    return torch.cummax(vals[:, fwd], dim=1).values[:, back]
+
+
+def _mid_level_counts(mid, base, w, bucket_w, b):
+    """Child counts [P, Q, b] float32 of width-``w`` walk nodes
+    (``w >= bucket_w``) from the [P, n_mid] mid histogram: children are
+    contiguous groups of ``w / bucket_w`` buckets. Integer sums and a
+    gather only."""
+    P, n_mid = mid.shape
+    g = w // bucket_w
+    lvl = mid if g == 1 else mid.reshape(P, n_mid // g, g).sum(-1)
+    idx = base[..., None] + torch.arange(b, device=base.device)
+    return torch.gather(lvl, 1, idx.reshape(P, -1).long()).reshape(
+        idx.shape).to(torch.float32)
+
+
+def _sub_level_counts(sub, sub_start, leaf_lo, w, b):
+    """Child counts [P, Q, b] float32 of width-``w`` nodes from the
+    [P, Q, span] subtree leaf histograms: children occupy the ``w``-leaf
+    groups ``off + c``, ``off`` the node's group offset in the subtree."""
+    P, Q, span = sub.shape
+    g = sub if w == 1 else sub.reshape(P, Q, span // w, w).sum(-1)
+    off = (leaf_lo - sub_start) // w
+    idx = off[..., None] + torch.arange(b, device=off.device)
+    return torch.gather(g, 2, idx.long()).to(torch.float32)
+
+
+def _mid_histogram(P: int, qrows):
+    """The [P, n_mid] int32 mid-level histogram: the kept rows counted by
+    (partition, leaf bucket of width ``bucket_w``), one column over
+    ``P * n_mid`` segments through ``segment_sum_lanes`` (K1 on the card).
+    Additive across the batches of a stream."""
+    _, _, n_mid, bucket_w = quantile_tree.tree_constants()
+    qpk, leaf, kept = qrows
+    key = qpk * n_mid + torch.clamp_max(leaf // bucket_w, n_mid - 1)
+    return segsum.segment_sum_lanes(
+        kept.to(torch.int32)[:, None].contiguous(),
+        key.to(torch.int32).contiguous(), P * n_mid).reshape(P, n_mid)
+
+
+def _subtree_counts_multi(qpk, leaf, kept, sub_starts, p_offsets, Pb: int,
+                          span: int, out=None):
+    """Every tile's subtree-leaf counts from one pass over the rows
+    (``jax_engine._subtree_counts_multi``): ``sub_starts`` [T, Pb, Qc],
+    ``p_offsets`` [T] int32, output [T, Pb, Qc, span] int32, added into
+    ``out`` when given. Every subtree histogram of the port, single-batch
+    and streamed, is made here: K3 on the card."""
+    return hist.subtree_counts_multi(
+        qpk.contiguous(), leaf.contiguous(), kept.contiguous(),
+        sub_starts.to(torch.int32).contiguous(),
+        p_offsets.to(torch.int32).contiguous(), Pb, span, out=out)
+
+
+def _walk_top(config: FusedConfig, P: int, mid, key, scale):
+    """The levels the mid histogram serves (node width >= bucket_w: levels
+    0 and 1), from the root state. Returns (lo, hi, target, leaf_lo, done)
+    [P, Q] (``streaming._walk_top_kernel`` of the JAX package, which is
+    also the top of its single-batch walk)."""
+    b, height, _, bucket_w = quantile_tree.tree_constants()
+    quantiles = np.asarray([p / 100.0 for p in config.percentiles],
+                           np.float32)
+    Q = quantiles.shape[0]
+    device = mid.device
+    lo = torch.full((P, Q), _f32(config.min_value), dtype=torch.float32,
+                    device=device)
+    hi = torch.full((P, Q), _f32(config.max_value), dtype=torch.float32,
+                    device=device)
+    target = torch.as_tensor(quantiles, device=device).expand(P, Q)
+    leaf_lo = torch.zeros((P, Q), dtype=torch.int32, device=device)
+    done = torch.zeros((P, Q), dtype=torch.bool, device=device)
+    level_offset = 0
+    for level in range(min(2, height)):
+        w = b**(height - 1 - level)
+        base = leaf_lo // w
+        raw = _mid_level_counts(mid, base, w, bucket_w, b)
+        lo, hi, target, leaf_lo, done = _walk_level(
+            config.noise_kind, key, scale, raw, base, level_offset, lo, hi,
+            target, leaf_lo, done, b, w)
+        level_offset += b**(level + 1)
+    return lo, hi, target, leaf_lo, done
+
+
+def _walk_bottom(config: FusedConfig, P: int, sub, sub_start, lo, hi,
+                 target, leaf_lo, done, key, scale, p_offset: int):
+    """Finishes the walk of a block of ``P`` partitions, the first global
+    partition ``p_offset``, from its [P, Qc, span] subtree histograms
+    (``streaming._walk_bottom_kernel`` of the JAX package). Node noise is
+    keyed by the global partition, so any blocking walks alike. Returns
+    the [P, Qc] float32 values ``lo + (hi - lo) * target``, one FMA."""
+    b, height, _, _ = quantile_tree.tree_constants()
+    pk_index = p_offset + torch.arange(P, device=sub.device)
+    level_offset = sum(b**(level + 1) for level in range(min(2, height)))
+    for level in range(min(2, height), height):
+        w = b**(height - 1 - level)
+        base = leaf_lo // w
+        raw = _sub_level_counts(sub, sub_start, leaf_lo, w, b)
+        lo, hi, target, leaf_lo, done = _walk_level(
+            config.noise_kind, key, scale, raw, base, level_offset, lo, hi,
+            target, leaf_lo, done, b, w, pk_index=pk_index)
+        level_offset += b**(level + 1)
+    return prng.fma32(hi - lo, target, lo)
+
+
+def _walk_blocks(P: int, Q: int, span: int) -> int:
+    """Partitions per block of the single-batch bottom walk: all of them
+    when the [P, Q, span] int32 histogram fits the byte cap, else the
+    largest power of two that fits (at least one)."""
+    cap = _subhist_byte_cap()
+    if P * Q * span * 4 <= cap:
+        return P
+    return min(P, 1 << max(0, (cap // (Q * span * 4)).bit_length() - 1))
+
+
+def _percentile_values(config: FusedConfig, P: int, qrows, scale, key):
+    """The batched quantile-tree descent over every partition at once
+    (``jax_engine._percentile_values``): the top two levels from the mid
+    histogram, the bottom two from subtree-leaf histograms built by
+    ``_subtree_counts_multi``, one partition block at a time (one block
+    when the histogram fits the byte cap). Returns [P, Q] float32."""
+    qpk, leaf, kept = qrows
+    _, _, _, span = quantile_tree.tree_constants()
+    quantiles = np.asarray([p / 100.0 for p in config.percentiles],
+                           np.float32)
+    Q = quantiles.shape[0]
+    mid = _mid_histogram(P, qrows)
+    lo, hi, target, leaf_lo, done = _walk_top(config, P, mid, key, scale)
+    del mid
+    blk = _walk_blocks(P, Q, span)
+    offset = torch.zeros(1, dtype=torch.int32, device=qpk.device)
+    outs = []
+    for p0 in range(0, P, blk):
+        Pb = min(blk, P - p0)
+        psl = slice(p0, p0 + Pb)
+        ss = leaf_lo[psl]
+        sub = _subtree_counts_multi(qpk, leaf, kept, ss[None],
+                                    offset + p0, Pb, span)[0]
+        outs.append(_walk_bottom(config, Pb, sub, ss, lo[psl], hi[psl],
+                                 target[psl], ss, done[psl], key, scale, p0))
+        del sub
+    return _monotone_in_q(torch.cat(outs, dim=0), quantiles)
 
 
 def _compact_fetch(keep_pk, cols, num_partitions: int, cap: int):
@@ -986,7 +1358,30 @@ def _metric_field_order(config: FusedConfig) -> List[str]:
         fields.append("privacy_id_count")
     if "VECTOR_SUM" in names:
         fields.append("vector_sum")
+    fields.extend(_percentile_field_names(config.percentiles))
     return fields
+
+
+def _noise_scales(config: FusedConfig, specs: Dict[str, Any]) -> np.ndarray:
+    """The device's noise-scale inputs (``jax_engine._noise_scales``):
+    empty without percentiles, else the tree's per-level node-noise scale
+    as the last entry, float32. The budget splits evenly over the tree's
+    levels."""
+    if not config.percentiles:
+        return np.zeros(0, dtype=np.float32)
+    l0, linf = dp_computations.count_sensitivity_pair(
+        config.l0, config.linf, config.max_contributions)
+    spec = specs["percentile"]
+    height = quantile_tree.DEFAULT_TREE_HEIGHT
+    eps_l = spec.eps / height
+    if config.noise_kind == NoiseKind.LAPLACE:
+        scale = noise_ops.laplace_scale(
+            eps_l, dp_computations.compute_l1_sensitivity(l0, linf))
+    else:
+        scale = noise_ops.gaussian_sigma(
+            eps_l, spec.delta / height,
+            dp_computations.compute_l2_sensitivity(l0, linf))
+    return np.asarray([scale], dtype=np.float32)
 
 
 def request_budgets(config: FusedConfig, params: AggregateParams,
@@ -1016,6 +1411,10 @@ def request_budgets(config: FusedConfig, params: AggregateParams,
     if "VECTOR_SUM" in names:
         specs["vector_sum"] = request(
             "vector_sum", internal_splits=int(config.vector_size))
+    if config.percentiles:
+        # One budget for all percentiles, requested last.
+        specs["percentile"] = request(
+            "percentile", internal_splits=quantile_tree.DEFAULT_TREE_HEIGHT)
     return specs
 
 
@@ -1023,16 +1422,6 @@ def request_budgets(config: FusedConfig, params: AggregateParams,
 # the full fetch runs instead (as in the JAX package: the choice decides
 # which rows draw host noise, so it is part of the bit-identity contract).
 _COMPACT_FETCH_CAP = 8192
-# The JAX package streams above this many rows per batch
-# (``streaming.chunk_target_rows`` at the default ``stream_chunk_rows``).
-_STREAM_CHUNK_ROWS = 1 << 26
-
-
-def chunk_target_rows(config: FusedConfig) -> int:
-    chunk = _STREAM_CHUNK_ROWS
-    if _fixedpoint_layout(config) or _vector_fx(config):
-        chunk = min(chunk, _fx_max_rows())
-    return chunk
 
 
 def _assemble_output(config: FusedConfig, vocab, metric_arrays, rel_sel,
@@ -1057,23 +1446,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _run_fused(config: FusedConfig, encoded: EncodedData, keep_table, thr,
-               s_scale, min_count, rows_per_uid, rng_seed, device):
+def _run_seed(rng_seed: Optional[int]) -> int:
+    """The seed protocol: the engine's seed, or a fresh one per run."""
+    return (rng_seed if rng_seed is not None else
+            int(noise_ops._host_rng.integers(0, 2**31 - 1)))
+
+
+def _run_fused(config: FusedConfig, encoded: EncodedData, scales,
+               keep_table, thr, s_scale, min_count, rows_per_uid, rng_seed,
+               device):
     """The seed protocol and the device path: returns (keep_pk [P_pad],
     accumulator columns, fx_bits)."""
     P_pad = _pad_pow2(len(encoded.pk_vocab))
-    seed = (rng_seed if rng_seed is not None else
-            int(noise_ops._host_rng.integers(0, 2**31 - 1)))
-    key = prng.PRNGKey(seed)
+    key = prng.PRNGKey(_run_seed(rng_seed))
     if _fixedpoint_layout(config) or _vector_fx(config):
         fx_bits, _ = _fx_plan(max(encoded.n_rows, 1))
     else:
         fx_bits = 12
     pid, pk, values = put_on_device(encoded, device,
                                     with_values=config.needs_values)
-    keep_pk, raw = _fused_body(config, P_pad, pid, pk, values, keep_table,
-                               thr, s_scale, min_count, rows_per_uid, key,
-                               fx_bits)
+    keep_pk, raw = _fused_body(config, P_pad, pid, pk, values, scales,
+                               keep_table, thr, s_scale, min_count,
+                               rows_per_uid, key, fx_bits)
     return keep_pk, raw, fx_bits
 
 
@@ -1083,7 +1477,10 @@ class LazyFusedResult:
     protocol. Iterating again reuses the cached result.
 
     ``timings`` holds ``host_encode_s``, ``device_s`` (ends with a
-    synchronise on the card) and ``host_decode_s`` of the last run."""
+    synchronise on the card) and ``host_decode_s`` of the last run; a
+    streamed run adds ``stream_batches`` and, with percentiles,
+    ``stream_pass_b`` (the pass-B batch source, always ``"reship"``),
+    ``stream_pass_b_sweeps`` and ``stream_pass_b_tiles``."""
 
     def __init__(self, rows, params: AggregateParams, config: FusedConfig,
                  data_extractors, public_partitions, specs,
@@ -1119,11 +1516,7 @@ class LazyFusedResult:
         P = len(encoded.pk_vocab)
         if P == 0:
             return []
-        if encoded.n_rows > chunk_target_rows(config):
-            raise NotImplementedError(
-                f"{encoded.n_rows} rows exceed one batch "
-                f"({chunk_target_rows(config)} rows): streaming is ROADMAP "
-                "step 7")
+        scales = _noise_scales(config, self._specs)
         # Without privacy ids the selection user-count estimate divides by
         # the max rows one user may own.
         if config.bounds_already_enforced:
@@ -1139,14 +1532,20 @@ class LazyFusedResult:
             keep_table, thr, s_scale, min_count = selection_inputs(
                 config, 1.0, 1e-9, None)
 
+        from pipelinedp_tpu_torch import streaming
+        if streaming.should_stream(config, encoded.n_rows):
+            return self._execute_streamed(encoded, scales, keep_table, thr,
+                                          s_scale, min_count, rows_per_uid)
         t0 = time.perf_counter()
         keep_pk, raw, fx_bits = _run_fused(
-            config, encoded, keep_table, thr, s_scale, min_count,
+            config, encoded, scales, keep_table, thr, s_scale, min_count,
             rows_per_uid, self._rng_seed, self._device)
-        # The rank-1 columns are int32 [P_pad] and ride one packed block;
-        # the rank-2 VECTOR_SUM column is gathered by the kept indices.
+        # The rank-1 columns are [P_pad] and ride one packed int32 block,
+        # the float32 percentile columns bitcast into it; the rank-2
+        # VECTOR_SUM column is gathered by the kept indices.
         flat = sorted(k for k, v in raw.items() if v.dim() == 1)
-        cols = [raw[name] for name in flat]
+        cols = [raw[name] if raw[name].dtype == torch.int32 else
+                raw[name].contiguous().view(torch.int32) for name in flat]
         compact = self._public is None
         if compact:
             cap = min(P, _COMPACT_FETCH_CAP)
@@ -1164,7 +1563,9 @@ class LazyFusedResult:
             stacked = torch.stack(
                 [keep_pk.to(torch.int32)] + cols)[:, :P].cpu().numpy()
             kept_idx = np.flatnonzero(stacked[0] > 0)
-        fetched = {name: stacked[1 + i] for i, name in enumerate(flat)}
+        fetched = {name: (stacked[1 + i] if raw[name].dtype == torch.int32
+                          else stacked[1 + i].view(np.float32))
+                   for i, name in enumerate(flat)}
         for name, arr in raw.items():
             if arr.dim() != 1:
                 if compact:
@@ -1210,6 +1611,57 @@ class LazyFusedResult:
                                       rng_seed=self._rng_seed,
                                       pk_index=row_vocab,
                                       device=self._device)
+        # The walk released the percentiles on the device, in float32.
+        for name in _percentile_field_names(config.percentiles):
+            metric_arrays[name] = fetched[name]
+        out = _assemble_output(config, encoded.pk_vocab, metric_arrays,
+                               rel_sel, vocab_idx)
+        self.timings["host_decode_s"] = time.perf_counter() - t0
+        return out
+
+    def _execute_streamed(self, encoded: EncodedData, scales, keep_table,
+                          thr, s_scale, min_count, rows_per_uid):
+        """More rows than one batch: ``streaming.stream_partials_and_select``
+        folds the batches' partials on the host and walks the percentiles
+        in two passes; the release covers only the kept partitions, in
+        ascending pk order (the host-noise draw order of the single-batch
+        compact fetch)."""
+        from pipelinedp_tpu_torch import streaming
+        config = self._config
+        P = len(encoded.pk_vocab)
+        t0 = time.perf_counter()
+        keep, part64, stats = streaming.stream_partials_and_select(
+            config, encoded, scales, keep_table, thr, s_scale, min_count,
+            rows_per_uid, self._rng_seed, self._device)
+        _sync(self._device)
+        self.timings["device_s"] = time.perf_counter() - t0
+        self.timings["stream_batches"] = stats["n_batches"]
+        if config.percentiles:
+            self.timings.update(
+                stream_pass_b=stats["pass_b_source"],
+                stream_pass_b_sweeps=stats["pass_b_sweeps"],
+                stream_pass_b_tiles=stats["pass_b_tiles"])
+
+        t0 = time.perf_counter()
+        part64 = {k: v[:P] for k, v in part64.items()}
+        if self._public is not None:
+            rel_sel = vocab_idx = np.arange(P)
+        else:
+            kept_idx = np.flatnonzero(keep[:P])
+            part64 = {k: v[kept_idx] for k, v in part64.items()}
+            rel_sel = np.arange(len(kept_idx))
+            vocab_idx = kept_idx
+        rng = (np.random.default_rng(self._rng_seed)
+               if self._rng_seed is not None else None)
+        metric_arrays = _host_release(config, self._specs, part64,
+                                      part64["privacy_id_count_raw"], rng,
+                                      rng_seed=self._rng_seed,
+                                      pk_index=vocab_idx,
+                                      device=self._device)
+        for qi, name in enumerate(_percentile_field_names(
+                config.percentiles)):
+            metric_arrays[name] = stats["percentile_values"][:P,
+                                                             qi][vocab_idx]
         out = _assemble_output(config, encoded.pk_vocab, metric_arrays,
                                rel_sel, vocab_idx)
         self.timings["host_decode_s"] = time.perf_counter() - t0
@@ -1248,15 +1700,16 @@ class LazySelectResult:
         P = len(encoded.pk_vocab)
         if P == 0:
             return []
-        if encoded.n_rows > chunk_target_rows(config):
+        from pipelinedp_tpu_torch import streaming
+        if streaming.should_stream(config, encoded.n_rows):
             raise NotImplementedError(
-                f"{encoded.n_rows} rows exceed one batch: streaming is "
-                "ROADMAP step 7")
+                f"{encoded.n_rows} rows exceed one batch: streamed "
+                "select_partitions is ROADMAP step 7")
         keep_table, thr, s_scale, min_count = selection_inputs(
             config, self._spec.eps, self._spec.delta, params.pre_threshold)
-        keep_pk, _, _ = _run_fused(config, encoded, keep_table, thr,
-                                   s_scale, min_count, 1.0, self._rng_seed,
-                                   self._device)
+        keep_pk, _, _ = _run_fused(config, encoded, _noise_scales(config, {}),
+                                   keep_table, thr, s_scale, min_count, 1.0,
+                                   self._rng_seed, self._device)
         vocab = encoded.pk_vocab
         cap = min(P, _COMPACT_FETCH_CAP)
         packed = _compact_fetch(keep_pk, (), P, cap).cpu().numpy()

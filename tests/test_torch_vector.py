@@ -166,8 +166,10 @@ def test_vector_partials_bit_equal(enforced, fx_bits, monkeypatch):
         None if enforced else pid, pk, values), None, None,
         require_pid=not enforced, vector_size=6)
     tpid, tpk, tvals = te.put_on_device(tenc, torch.device("cpu"))
-    part_t, nseg_t = te._partials(cfg_t, P, tpid, tpk, tvals,
-                                  convert.key_from_jax(k_bound), fx_bits)
+    part_t, nseg_t, qrows_t = te._partials(cfg_t, P, tpid, tpk, tvals,
+                                           convert.key_from_jax(k_bound),
+                                           fx_bits)
+    assert qrows_t is None
     assert sorted(part_t) == sorted(part_j) == ["count", "vector_sum"]
     n_lanes = -(-te._FX_PAYLOAD_BITS // fx_bits)
     assert tuple(part_t["vector_sum"].shape) == (P, 6 * n_lanes)
