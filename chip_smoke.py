@@ -12,8 +12,10 @@ Phases, one line each; any failure raises and exits non-zero:
    flagship aggregation's own lane stack (P = 65536, C = 6, N = 25M),
    where the kernel, the plain version and one ``index_add_`` call (the
    library yardstick, never called by the port) are timed with CUDA
-   events; and once more on a dense stack of that shape over the zipf(1.3)
-   keys, the worst case for the atomics;
+   events; and once more on a dense stack of that shape (every element
+   nonzero) over the zipf(1.3) keys, the worst case for the atomics, in
+   the main path's row order (the keys as the bounding sorts them) and in
+   the raw order; the hot-key slots each launch had are logged;
 3. main path, GPU vs CPU: ``DPEngine.aggregate`` at 1M rows and 8k
    partitions through ``TorchBackend(device="cuda")`` and
    ``TorchBackend(device="cpu")`` with one seed: the same kept keys and
@@ -24,10 +26,14 @@ Phases, one line each; any failure raises and exits non-zero:
    just before and read just after;
 5. K2 vs plain: ``segment_sum_wide`` on the card against its plain
    version, bit for bit, at the shapes of the tests (widths that are no
-   multiple of the kernel's column tile, P = 1, P = 65536, lane-maximum
-   columns) and on the lane stacks of the three VECTOR_SUM widths below,
-   where the kernel, the plain version, one ``index_add_`` (the library
-   yardstick) and K1 on the same stack are timed; the ``kernels`` line
+   multiple of the kernel's column tile, P = 1, P on both sides of the
+   shared-memory limit, P = 65536, lane-maximum columns) and on the lane
+   stacks of the three VECTOR_SUM widths below, where the kernel, the
+   plain version, one ``index_add_`` (the library yardstick) and K1 on
+   the same stack are timed, and on a dense zipf(1.3) stack at D = 64
+   over 65536 partitions, past the shared-memory limit, where K2 takes
+   K1's kernel; the design each launch took (``segsum.wide_tile``, the
+   kernel library's ``segsum_wide_tile``) is logged; the ``kernels`` line
    reports the D = 64 stack;
 6. VECTOR_SUM, GPU vs CPU: 200k rows at D = 64 under the ``fx``
    accumulator with private selection, Laplace and Gaussian: the same
@@ -45,7 +51,8 @@ Phases, one line each; any failure raises and exits non-zero:
    stack (the bounded rows and top-walk starts of the aggregation in
    phase 10: T = 1, P = 131072, Q = 3, span = 256, N = 10M), where K3,
    the plain version, one ``bincount`` per (t, q) (the library
-   yardstick) and the [P, 256] mid histogram on K1 are timed;
+   yardstick) and the [P, 256] mid histogram are timed, the latter's K1
+   launch held to its plain version and timed with its bound;
 9. PERCENTILE, GPU vs CPU: 1M rows of the config-4 generator over 10k
    partitions, Laplace with private selection and Gaussian with public
    partitions, each single-batch and streamed at a chunk of n // 6 rows
@@ -199,27 +206,48 @@ def phase_kernel(columns):
     checked.append([P, C, n, "flagship stack"])
     timings = time_kernel(stack, spk, P)
     nonzero_rows = float((stack != 0).any(dim=1).float().mean())
-    del stack, spk, got, want
+    del stack, got, want
 
     # The same shape with every element nonzero: the worst case for the
     # atomics on zipf(1.3) keys, where a quarter of the rows share one
-    # partition.
-    keys = torch.from_numpy(columns[1].astype(np.int32)).to(dev)
+    # partition; in the main path's row order and in the raw order.
+    raw_keys = torch.from_numpy(columns[1].astype(np.int32)).to(dev)
     dense = torch.randint(0, 64, (n, C), generator=gen, device=dev,
                           dtype=torch.int32)
     dense[:, :2] = 1
-    assert torch.equal(segsum.segment_sum_lanes(dense, keys, P),
-                       segsum.segment_sum_lanes_plain(dense, keys, P))
-    checked.append([P, C, n, "dense zipf1.3"])
-    dense_timings = time_kernel(dense, keys, P)
+    dense_timings = {}
+    for order, keys in (("main_path_order", spk), ("raw_order", raw_keys)):
+        assert torch.equal(segsum.segment_sum_lanes(dense, keys, P),
+                           segsum.segment_sum_lanes_plain(dense, keys, P))
+        checked.append([P, C, n, f"dense zipf1.3, {order}"])
+        dense_timings[order] = time_kernel(dense, keys, P)
     hot_share = float(np.bincount(columns[1]).max() / n)
-    del dense, keys
+    del dense, raw_keys, spk
     log("kernel", kernel="segment_sum_lanes", bit_equal_shapes=checked,
+        hot_slots=hot_slots(C),
         flagship=dict(shape=[P, C, n], nonzero_row_share=nonzero_rows,
                       **timings),
         dense_zipf=dict(hottest_partition_row_share=hot_share,
                         **dense_timings))
     return dict(max_abs_err=max_abs_err, **timings)
+
+
+def hot_slots(C):
+    """Hot-key slots of K1's shared-memory accumulator for C lanes."""
+    import ctypes
+    from pipelinedp_tpu_torch.ops.kernels import _build
+    fn = _build.load("segsum_lanes").segsum_lanes_hot_slots
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(C)
+
+
+def wide_design(W, P):
+    """The design K2 takes at (W, P), from the kernel library's rule."""
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    tile = segsum.wide_tile(W, P)
+    return (f"shared-memory tile {tile}" if tile else
+            f"K1's kernel, {hot_slots(W)} hot slots")
 
 
 def flagship_stack(columns):
@@ -490,20 +518,18 @@ def vector_stack(columns, d, public):
 def phase_wide_kernel(vector_data):
     """K2 against its plain version, bit for bit, then timed on each
     width's lane stack with K1 on the same stack beside it."""
-    import ctypes
-    from pipelinedp_tpu_torch.ops.kernels import _build, segsum
-    tile = _build.load("segsum_wide").segsum_wide_tile
-    tile.argtypes = [ctypes.c_int, ctypes.c_int]
-    tile.restype = ctypes.c_int
+    from pipelinedp_tpu_torch.ops.kernels import segsum
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     checked = []
-    # (P, W, n): one per column tile the kernel picks (32 down to 1) and
-    # the global-atomic design of P = 65536; no W a multiple of its tile.
+    # (P, W, n): column tiles from 64 down to 4, both sides of the
+    # shared-memory limit (P = 12800) and K1's kernel at P = 65536; no W
+    # a multiple of its tile, some W no multiple of 4.
     shapes = [(1, 7, 500), (8, 192, 3000), (64, 99, 2000), (700, 70, 5000),
               (1024, 40, 5000), (2048, 512, 2500), (8192, 130, 1000),
-              (24576, 3, 5000), (65536, 24, 20_000)]
+              (12800, 6, 5000), (12801, 6, 5000), (24576, 3, 5000),
+              (65536, 24, 20_000)]
     for P, W, n in shapes:
         pk = torch.randint(0, P, (n,), generator=gen, device=dev,
                            dtype=torch.int32)
@@ -513,7 +539,7 @@ def phase_wide_kernel(vector_data):
         torch.cuda.synchronize()
         assert torch.equal(got, segsum.segment_sum_wide_plain(cols, pk, P)), (
             f"K2 mismatch at P={P} W={W} n={n}")
-        checked.append([P, W, n, f"tile {tile(W, P)}"])
+        checked.append([P, W, n, wide_design(W, P)])
     n, P, W = 8192, 1, 96
     cols = torch.full((n, W), (1 << 12) - 1, dtype=torch.int32, device=dev)
     pk = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -539,7 +565,7 @@ def phase_wide_kernel(vector_data):
         max_abs_err = max(max_abs_err, err)
         assert err == 0, f"K2 mismatch on the D={d} stack: {err}"
         n, W = lanes.shape
-        rec = dict(shape=[P, W, n], fx_bits=fx_bits, tile=tile(W, P),
+        rec = dict(shape=[P, W, n], fx_bits=fx_bits, design=wide_design(W, P),
                    nonzero_row_share=float(
                        (lanes != 0).any(dim=1).float().mean()),
                    **time_kernel(lanes, spk, P, "segment_sum_wide"))
@@ -547,6 +573,23 @@ def phase_wide_kernel(vector_data):
             lambda: segsum.segment_sum_lanes(lanes, spk, P))
         stacks[f"D={d}"] = rec
         del lanes, spk, got, want
+    # Past the shared-memory limit: a dense zipf(1.3) stack at D = 64 over
+    # 65536 partitions, where K2 takes K1's kernel.
+    n, W, P = VECTOR_ROWS_AT_64, 3 * VECTOR_WIDTHS[0], 65536
+    rng = np.random.default_rng(37)
+    keys = torch.from_numpy(((rng.zipf(1.3, n) - 1) % P).astype(
+        np.int32)).to(dev)
+    dense = torch.randint(1, 1 << 10, (n, W), generator=gen, device=dev,
+                          dtype=torch.int32)
+    got = segsum.segment_sum_wide(dense, keys, P)
+    err = int((got.long() - segsum.segment_sum_wide_plain(
+        dense, keys, P).long()).abs().max())
+    max_abs_err = max(max_abs_err, err)
+    assert err == 0, f"K2 mismatch on the dense P={P} stack: {err}"
+    stacks[f"dense zipf1.3 P={P} D={VECTOR_WIDTHS[0]}"] = dict(
+        shape=[P, W, n], design=wide_design(W, P),
+        **time_kernel(dense, keys, P, "segment_sum_wide"))
+    del dense, keys, got
     log("wide_kernel", kernel="segment_sum_wide", bit_equal_shapes=checked,
         stacks=stacks)
     first = stacks[f"D={VECTOR_WIDTHS[0]}"]
@@ -794,14 +837,14 @@ def phase_hist_kernel(columns):
     mkey = (qpk * n_mid + torch.clamp_max(leaf // 256, n_mid - 1)).to(
         torch.int32).contiguous()
     mcol = kept.to(torch.int32)[:, None].contiguous()
-    mid_k1_ms = cuda_ms(lambda: segsum.segment_sum_lanes(mcol, mkey,
-                                                         P * n_mid))
+    assert torch.equal(segsum.segment_sum_lanes(mcol, mkey, P * n_mid),
+                       segsum.segment_sum_lanes_plain(mcol, mkey, P * n_mid))
+    mid_k1 = time_kernel(mcol, mkey, P * n_mid)
     del qpk, leaf, kept, starts, mkey, mcol
     log("hist_kernel", kernel="subtree_counts_multi",
         bit_equal_shapes=checked,
         config4=dict(shape=[1, P, Q, span], **timings),
-        mid_histogram=dict(segments=P * n_mid, ms=mid_ms,
-                           k1_launch_ms=mid_k1_ms))
+        mid_histogram=dict(segments=P * n_mid, ms=mid_ms, k1=mid_k1))
     return dict(max_abs_err=max_abs_err, mid_ms=mid_ms, **timings)
 
 
@@ -1090,14 +1133,14 @@ def main() -> int:
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
-        "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:64",
+        "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:76",
         "parity": "bit-equal", "launches": launches,
         "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]}, {
         "name": "segment_sum_wide", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_wide.cu",
-        "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:116",
+        "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:134",
         "parity": "bit-equal",
         "launches": vector_launches["segment_sum_wide"],
         "max_abs_err": wide["max_abs_err"], "ms": wide["ms"],
@@ -1105,7 +1148,7 @@ def main() -> int:
         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"]}, {
         "name": "subtree_counts_multi", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/hist_bin.cu",
-        "replaces": "pipelinedp_tpu/ops/kernels/hist.py:111",
+        "replaces": "pipelinedp_tpu/ops/kernels/hist.py:130",
         "parity": "bit-equal",
         "launches": c4_single["launches"]["subtree_counts_multi"],
         "launches_streamed": c4_streamed["launches"][

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``pipelinedp_tpu_torch/``, and not
-``chip_smoke.py``, imports ``jax`` or ``pipelinedp_tpu`` (an AST scan, so
-imports inside functions count too)."""
+``chip_smoke.py`` or ``tools/segsum_ab.py``, imports ``jax`` or
+``pipelinedp_tpu`` (an AST scan, so imports inside functions count too)."""
 
 import ast
 import os
@@ -12,7 +12,8 @@ BANNED = ("jax", "jaxlib", "pipelinedp_tpu")
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "segsum_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pipelinedp_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
