@@ -69,15 +69,47 @@ Phases, one line each; any failure raises and exits non-zero:
     public partitions, seed 13, a chunk of n // 6 rows: seven batches)
     at the default byte cap and at a cap that makes pass B tile: the same
     percentiles;
-12. a ``kernels`` JSON line per ported kernel, then the card line, then
+12. K4 vs plain (after phase 4, on its data): ``segment_totals`` on the
+    card against its plain version, bit for bit, on the flagship's
+    bounded rows under per-partition sum bounds and on a hot-segment
+    stack (one (user, partition) pair of 2^20 rows), each timed beside
+    the plain version and one float32 ``index_add_`` (the library
+    yardstick; its bits differ), K1 timed on the per-partition lane stack;
+13. the per-partition-sum-bounds SUM, GPU vs CPU: 1M rows, COUNT+SUM
+    with totals clipped to [0, 20], in the three bounding modes: the same
+    kept keys and float64 releases, K4 launched on the card where
+    segments have rows to add;
+14. that SUM at the flagship's full size (25M rows, L0 = 4, Linf = 2),
+    with the kernel counts zeroed just before and read just after;
+15. streamed VECTOR_SUM as ``bench_dp_vector_sum`` streams it (a chunk of
+    n // 4: four batches, K2 once each): GPU vs CPU bit for bit at 200k
+    rows, then rows/s and coordinate bytes/s at the three full widths
+    (after phase 7);
+16. streamed ``select_partitions`` (after phase 10): GPU vs CPU on the
+    kept set at 1M rows in five batches, timed on config 4's 10M rows in
+    six;
+17. config 4 streamed under each pass-B source (``device_cache``, a
+    ``hybrid`` budget of about half the batches, ``reship``) and each
+    executor mode (serial, overlapped): bit for bit phase 10's streamed
+    release;
+18. kill and resume: config 4 streamed killed at batch 3 by the port's
+    ``FaultPlan`` and resumed from a checkpoint under ``build/``, serial
+    and overlapped: bit for bit the uninterrupted run;
+19. the JAX package's streaming record shape (``bench_streaming``: 150M
+    rows, COUNT+SUM+MEAN, three batches of the default chunk), serial and
+    overlapped: bit for bit the same release, with each wall and its
+    stage / device / fold split;
+20. a ``kernels`` JSON line per kernel (K1-K4), then the card line, then
     the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
 after phase 4 and of config 4 after phase 10: CUDA-event times of each
 device stage, and the device busy share and top operators from
-``torch.profiler``. ``--out DIR`` writes the phase records
+``torch.profiler``; and one more overlapped 150M-row run under the
+profiler in phase 19. ``--out DIR`` writes the phase records
 (``chip_smoke.json``) and the profiler tables (``flagship_profile.txt``,
-``config4_profile.txt``, ``config4_streamed_profile.txt``) into DIR.
+``config4_profile.txt``, ``config4_streamed_profile.txt``,
+``stream150_profile.txt``) into DIR.
 
 It exits non-zero, and prints no result, without a CUDA device.
 """
@@ -110,7 +142,9 @@ VECTOR_PARTITIONS = 2048
 CONFIG4 = dict(rows=10_000_000, users=200_000, partitions=100_000, seed=4)
 CHUNK_ENV = "PIPELINEDP_TPU_STREAM_CHUNK"
 CAP_ENV = "PIPELINEDP_TPU_SUBHIST_CAP"
-KERNEL_SOURCES = ("segsum_lanes", "segsum_wide", "hist_bin")
+KERNEL_SOURCES = ("segsum_lanes", "segsum_wide", "hist_bin", "segtotal")
+# ``bench.py``'s ``bench_streaming`` at its default ``--stream-rows``.
+STREAM_ROWS = 150_000_000
 RECORD = {"phases": {}}
 
 
@@ -153,6 +187,10 @@ def phase_card():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
     from concurrent.futures import ThreadPoolExecutor
     from pipelinedp_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
@@ -161,8 +199,8 @@ def phase_card():
     log("card", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
-        kernels_built=list(KERNEL_SOURCES))
-    return smi
+        kernels_built=list(KERNEL_SOURCES), max_sm_mhz=max_sm_mhz)
+    return smi, max_sm_mhz
 
 
 def phase_kernel(columns):
@@ -262,10 +300,10 @@ def flagship_stack(columns):
     pid, pk, values = te.put_on_device(enc, torch.device("cuda"))
     fx_bits = te._fx_plan(enc.n_rows)[0]
     k_bound = prng.split(prng.PRNGKey(FLAGSHIP["seed"]), 3)[0]
-    spk, masked, keep_row, seg_marker, _ = te._bound_rows(
-        config, pid, pk, values, k_bound)
-    stack, _ = te._lane_stack(config, masked, keep_row, seg_marker, fx_bits)
-    return stack, spk.to(torch.int32).contiguous(), te._pad_pow2(
+    b = te._bound_rows(config, pid, pk, values, k_bound)
+    stack, _ = te._lane_stack(config, b.masked, b.keep_row, b.seg_marker,
+                              fx_bits)
+    return stack, b.spk.to(torch.int32).contiguous(), te._pad_pow2(
         len(enc.pk_vocab))
 
 
@@ -305,11 +343,12 @@ def time_kernel(cols, pk, P, kernel="segment_sum_lanes"):
         nonzero_elements=adds)
 
 
-def _aggregate(pdt, columns, params_kw, device, seed, public=None):
+def _aggregate(pdt, columns, params_kw, device, seed, public=None,
+               **backend):
     pids, pks, values = columns
     acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
     engine = pdt.DPEngine(acc, pdt.TorchBackend(device=device,
-                                                rng_seed=seed))
+                                                rng_seed=seed, **backend))
     result = engine.aggregate(
         pdt.ArrayDataset(privacy_ids=pids, partition_keys=pks,
                          values=values),
@@ -508,10 +547,9 @@ def vector_stack(columns, d, public):
     pid, pk, values = te.put_on_device(enc, torch.device("cuda"))
     fx_bits = te._fx_plan(enc.n_rows)[0]
     k_bound = prng.split(prng.PRNGKey(0), 3)[0]
-    spk, masked, keep_row, _, _ = te._bound_rows(config, pid, pk, values,
-                                                 k_bound)
-    lanes = te._vector_lanes(config, masked, keep_row, fx_bits)
-    return (lanes, spk.to(torch.int32).contiguous(),
+    b = te._bound_rows(config, pid, pk, values, k_bound)
+    lanes = te._vector_lanes(config, b.masked, b.keep_row, fx_bits)
+    return (lanes, b.spk.to(torch.int32).contiguous(),
             te._pad_pow2(len(enc.pk_vocab)), fx_bits)
 
 
@@ -726,9 +764,8 @@ def config4_stack(columns):
     pid, pk, values = te.put_on_device(enc, torch.device("cuda"))
     P = te._pad_pow2(len(enc.pk_vocab))
     k_bound, _, k_noise = prng.split(prng.PRNGKey(CONFIG4["seed"]), 3)
-    spk, _, keep_row, _, svalues = te._bound_rows(config, pid, pk, values,
-                                                  k_bound)
-    qrows = te._qrows(config, spk, svalues, keep_row)
+    b = te._bound_rows(config, pid, pk, values, k_bound)
+    qrows = te._qrows(config, b.spk, b.svalues, b.keep_row)
     mid = te._mid_histogram(P, qrows)
     k_tree = prng.fold_in(k_noise, 0x7ee)
     leaf_lo = te._walk_top(config, P, mid, k_tree, scale)[3]
@@ -848,7 +885,7 @@ def phase_hist_kernel(columns):
     return dict(max_abs_err=max_abs_err, mid_ms=mid_ms, **timings)
 
 
-def _percentile_rows_identical(a_rows, b_rows, what):
+def _released_identical(a_rows, b_rows, what):
     assert len(a_rows) > 0, f"{what}: no partition released"
     assert [k for k, _ in a_rows] == [k for k, _ in b_rows], (
         f"{what}: kept keys differ")
@@ -886,7 +923,7 @@ def phase_percentile_gpu_vs_cpu():
             assert hist.LAUNCHES["subtree_counts_multi"] == k3, (
                 "the CPU run launched K3")
             what = f"{noise} {mode}"
-            _percentile_rows_identical(gpu_rows, cpu_rows, what)
+            _released_identical(gpu_rows, cpu_rows, what)
             assert gpu_rows[0][1]._fields[-3:] == (
                 "percentile_50", "percentile_90", "percentile_99")
             if mode == "streamed":
@@ -905,34 +942,15 @@ def phase_percentile_gpu_vs_cpu():
 
 
 def _timed_aggregate(pdt, columns, params, seed, public=None):
-    """One aggregation on the card with K1's and K3's counts zeroed just
-    before it and read just after."""
-    from pipelinedp_tpu_torch.ops.kernels import hist, segsum
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    segsum.reset_launches()
-    hist.reset_launches()
-    t0 = time.perf_counter()
-    rows, timings = _aggregate(pdt, columns, params, "cuda", seed, public)
-    wall_s = time.perf_counter() - t0
-    launches = dict(segsum.LAUNCHES, **hist.LAUNCHES)
-    assert launches["segment_sum_lanes"] >= 1, "K1 never launched"
-    assert launches["subtree_counts_multi"] >= 1, "K3 never launched"
+    """``_run_record`` of one PERCENTILE aggregation, held to have launched
+    K1 and K3 and released finite values."""
+    rows, rec = _run_record(pdt, columns, params, seed, public)
+    assert rec["launches"]["segment_sum_lanes"] >= 1, "K1 never launched"
+    assert rec["launches"]["subtree_counts_multi"] >= 1, "K3 never launched"
     assert len(rows) > 0, "no partition released"
     released = np.asarray([tuple(m) for _, m in rows], np.float64)
     assert released.shape == (len(rows), len(rows[0][1]))
     assert np.isfinite(released).all()
-    rec = dict(rows=len(columns[1]), kept=len(rows), wall_s=wall_s,
-               rows_per_s=len(columns[1]) / wall_s,
-               host_encode_s=timings["host_encode_s"],
-               device_s=timings["device_s"],
-               host_decode_s=timings["host_decode_s"],
-               peak_mem_bytes=torch.cuda.max_memory_allocated(),
-               launches=launches)
-    for k in ("stream_batches", "stream_pass_b", "stream_pass_b_sweeps",
-              "stream_pass_b_tiles"):
-        if k in timings:
-            rec[k] = timings[k]
     return rows, rec
 
 
@@ -961,7 +979,7 @@ def phase_config4(columns):
         rec_streamed["stream_batches"] * rec_streamed["stream_pass_b_sweeps"])
     assert rec_streamed["stream_batches"] == 6
     log("config4", data=CONFIG4, single=rec_single, streamed=rec_streamed)
-    return rec_single, rec_streamed
+    return rec_single, rec_streamed, streamed
 
 
 def phase_config4_breakdown(columns, out_dir):
@@ -1081,6 +1099,417 @@ def phase_streamed_percentile():
         capped_identical=True, default=rec_default, capped=rec_capped)
 
 
+# ---------------------------------------------------------------------------
+# The per-partition-sum-bounds SUM (K4) and the rest of single-GPU streaming
+# ---------------------------------------------------------------------------
+
+
+def sum_bounds_params(pdt, **bounding):
+    """The flagship's shape with per-partition sum bounds: COUNT+SUM,
+    Laplace, L0 = 4, Linf = 2 (or ``bounding``), each (user, partition)
+    total clipped to [0, 20]."""
+    kw = dict(metrics=[pdt.Metrics.COUNT, pdt.Metrics.SUM],
+              noise_kind=pdt.NoiseKind.LAPLACE, max_partitions_contributed=4,
+              max_contributions_per_partition=2, min_sum_per_partition=0.0,
+              max_sum_per_partition=20.0)
+    if bounding:
+        kw.pop("max_partitions_contributed")
+        kw.pop("max_contributions_per_partition")
+        kw.update(bounding)
+    return kw
+
+
+def bounded_rows(columns, params_kw, seed):
+    """``_bound_rows`` of the aggregation of ``columns`` under
+    ``params_kw`` and ``seed``, on the card: the rows K4 and K1 see."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    from pipelinedp_tpu_torch.ops import prng
+    config = te.FusedConfig.from_params(pdt.AggregateParams(**params_kw),
+                                        public=False)
+    enc = te.encode(pdt.ArrayDataset(*columns), None, None)
+    pid, pk, values = te.put_on_device(enc, torch.device("cuda"))
+    k_bound = prng.split(prng.PRNGKey(seed), 3)[0]
+    b = te._bound_rows(config, pid, pk, values, k_bound)
+    return config, b, te._pad_pow2(len(enc.pk_vocab)), te._fx_plan(
+        enc.n_rows)[0]
+
+
+def time_segtotal(values, new_seg, plain_reps=5):
+    """K4 against its plain version, bit for bit, and the median ms of K4,
+    the plain version and one float32 ``index_add_`` over the segment
+    ordinals (the library yardstick: per-segment totals, in no fixed order,
+    so not K4's bits), with the bound for these inputs."""
+    from pipelinedp_tpu_torch.ops.kernels import segtotal
+    got = segtotal.segment_totals(values, new_seg)
+    t0 = time.perf_counter()
+    want = segtotal.segment_totals_plain(values, new_seg)
+    torch.cuda.synchronize()
+    plain_once_s = time.perf_counter() - t0
+    diff = got.view(torch.int32) != want.view(torch.int32)
+    max_abs_err = float((got - want).abs().max())
+    assert not bool(diff.any()), (
+        f"K4 differs from its plain version at {int(diff.sum())} rows")
+    starts = new_seg.clone()
+    starts[0] = True
+    seg_ord = torch.cumsum(starts.to(torch.int64), 0) - 1
+    n_seg = int(starts.sum())
+    lens = torch.diff(torch.nonzero(starts).squeeze(1),
+                      append=torch.tensor([values.shape[0]],
+                                          device=values.device))
+
+    def library():
+        return torch.zeros(n_seg, dtype=torch.float32,
+                           device=values.device).index_add_(0, seg_ord,
+                                                            values)
+
+    n = values.shape[0]
+    # Each value and flag read once, each total written once; one float32
+    # add per row.
+    bytes_moved = n * 4 + n * 1 + n * 4
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n / SCALAR_OPS_PER_S * 1e3
+    return dict(
+        max_abs_err=max_abs_err,
+        ms=cuda_ms(lambda: segtotal.segment_totals(values, new_seg)),
+        plain_ms=(plain_once_s * 1e3 if plain_reps <= 1 else
+                  cuda_ms(lambda: segtotal.segment_totals_plain(
+                      values, new_seg), reps=plain_reps, warm=1)),
+        library_ms=cuda_ms(library),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_bytes=bytes_moved, rows=n, segments=n_seg,
+        longest_segment=int(lens.max()),
+        rows_in_segments_over_64=int(lens[lens > 64].sum()))
+
+
+def phase_segtotal_kernel(columns, max_sm_mhz):
+    """K4 against its plain version on the flagship stack with
+    per-partition bounds and on a hot-segment stack (one (user, partition)
+    pair with 2^20 rows), timed; K1 timed on the flagship's per-partition
+    lane stack."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    params = sum_bounds_params(pdt)
+    config, b, P, fx_bits = bounded_rows(columns, params, FLAGSHIP["seed"])
+    masked = b.masked.contiguous()
+    flagship = time_segtotal(masked, b.new_seg)
+    stack, _ = te._lane_stack(config, b.masked, b.keep_row, b.seg_marker,
+                              fx_bits, b.contrib)
+    k1 = time_kernel(stack, b.spk.to(torch.int32).contiguous(), P)
+    del b, masked, stack
+    # The hot segment: 3M flagship-like rows and one more user with 2^20
+    # rows in partition 0, all kept (Linf 2^21), so the segment's values
+    # are its raw values.
+    hot_rows = 1 << 20
+    base = zipf_columns(3_000_000, 20_000, 5_000, seed=43)
+    rng = np.random.default_rng(44)
+    hot = (np.concatenate([base[0], np.full(hot_rows, 20_000)]),
+           np.concatenate([base[1], np.zeros(hot_rows, np.int64)]),
+           np.concatenate([base[2], rng.uniform(0.0, 10.0, hot_rows)]))
+    hot_params = sum_bounds_params(pdt, max_partitions_contributed=4,
+                                   max_contributions_per_partition=1 << 21)
+    _, hb, _, _ = bounded_rows(hot, hot_params, 45)
+    hot_rec = time_segtotal(hb.masked.contiguous(), hb.new_seg,
+                            plain_reps=1)
+    assert hot_rec["longest_segment"] == hot_rows
+    # The longest segment's adds form one chain of dependent float32 adds:
+    # at least about 4 cycles each at the card's top SM clock.
+    hot_rec["add_chain_floor_ms"] = hot_rows * 4 / (max_sm_mhz * 1e6) * 1e3
+    del hb
+    log("segtotal_kernel", kernel="segment_totals", flagship=flagship,
+        flagship_k1=k1, hot_segment=hot_rec, max_sm_mhz=max_sm_mhz)
+    return flagship
+
+
+def phase_sum_bounds_gpu_vs_cpu():
+    """The per-partition SUM through ``DPEngine.aggregate`` on the card
+    and on the CPU at 1M rows in the three bounding modes: the same kept
+    keys and float64 releases; K4 launched on the card where segments
+    have several rows, never on the CPU."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.ops.kernels import segsum, segtotal
+    columns = zipf_columns(1_000_000, 40_000, 8192, seed=7)
+    out = {}
+    for mode, bounding in (("l0_linf", {}),
+                           ("max_contributions", dict(max_contributions=8)),
+                           ("bounds_enforced", dict(
+                               max_partitions_contributed=4,
+                               max_contributions_per_partition=2,
+                               contribution_bounds_already_enforced=True))):
+        params = sum_bounds_params(pdt, **bounding)
+        cols = ((None,) + columns[1:] if mode == "bounds_enforced"
+                else columns)
+        segsum.reset_launches()
+        segtotal.reset_launches()
+        gpu_rows, gpu_t = _aggregate(pdt, cols, params, "cuda", 7)
+        k4 = segtotal.LAUNCHES["segment_totals"]
+        k1 = segsum.LAUNCHES["segment_sum_lanes"]
+        cpu_rows, cpu_t = _aggregate(pdt, cols, params, "cpu", 7)
+        assert segtotal.LAUNCHES["segment_totals"] == k4, "CPU launched K4"
+        assert k1 >= 1, f"{mode}: K1 never launched"
+        # Without privacy ids every row is its own segment: a row clip.
+        assert k4 == (0 if mode == "bounds_enforced" else 1), (mode, k4)
+        _released_identical(gpu_rows, cpu_rows, f"sum bounds {mode}")
+        assert gpu_rows[0][1]._fields == ("count", "sum")
+        out[mode] = dict(kept=len(gpu_rows), k4_launches=k4,
+                         k1_launches=k1, gpu_device_s=gpu_t["device_s"],
+                         cpu_device_s=cpu_t["device_s"])
+    log("sum_bounds_gpu_vs_cpu", rows=1_000_000, partitions=8192,
+        identical=True, **out)
+
+
+def _launch_counts():
+    from pipelinedp_tpu_torch.ops.kernels import hist, segsum, segtotal
+    return dict(segsum.LAUNCHES, **hist.LAUNCHES, **segtotal.LAUNCHES)
+
+
+def _reset_launches():
+    from pipelinedp_tpu_torch.ops.kernels import hist, segsum, segtotal
+    for mod in (segsum, hist, segtotal):
+        mod.reset_launches()
+
+
+def _run_record(pdt, columns, params, seed, public=None, **backend):
+    """One aggregation on the card with every kernel count zeroed just
+    before it and read just after; the wall, the engine's timings and the
+    peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    rows, timings = _aggregate(pdt, columns, params, "cuda", seed, public,
+                               **backend)
+    wall_s = time.perf_counter() - t0
+    n = len(columns[1])
+    rec = dict(rows=n, kept=len(rows), wall_s=wall_s, rows_per_s=n / wall_s,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=_launch_counts(), **timings)
+    return rows, rec
+
+
+def phase_sum_bounds_full(columns):
+    """The per-partition SUM at the flagship's full size through
+    ``DPEngine.aggregate``, with the kernel counts zeroed just before and
+    read just after."""
+    import pipelinedp_tpu_torch as pdt
+    rows, rec = _run_record(pdt, columns, sum_bounds_params(pdt),
+                            FLAGSHIP["seed"])
+    assert rec["launches"]["segment_totals"] >= 1, "K4 never launched"
+    assert rec["launches"]["segment_sum_lanes"] >= 1, "K1 never launched"
+    released = np.asarray([tuple(m) for _, m in rows], np.float64)
+    assert released.shape == (len(rows), 2) and len(rows) > 0
+    assert np.isfinite(released).all()
+    log("sum_bounds_full", data=FLAGSHIP, **rec)
+    return rec
+
+
+def phase_vector_streamed(vector_data):
+    """VECTOR_SUM streamed as ``bench_dp_vector_sum`` streams it (a chunk
+    of n // 4 rows: four batches, K2 once per batch): GPU against CPU bit
+    for bit at 200k rows, then the three full widths."""
+    import pipelinedp_tpu_torch as pdt
+    public = list(range(VECTOR_PARTITIONS))
+    n, d0 = 200_000, VECTOR_WIDTHS[0]
+    rng = np.random.default_rng(33)
+    small = (rng.integers(0, n // 8, n),
+             (rng.zipf(1.3, n) % VECTOR_PARTITIONS).astype(np.int32),
+             rng.uniform(-1.0, 1.0, (n, d0)).astype(np.float32))
+    os.environ[CHUNK_ENV] = str(n // 4)
+    try:
+        gpu_rows, g = _run_record(pdt, small, vector_params(pdt, d0), 19,
+                                  public)
+        cpu_rows, _ = _aggregate(pdt, small, vector_params(pdt, d0), "cpu",
+                                 19, public)
+    finally:
+        os.environ.pop(CHUNK_ENV, None)
+    _released_identical(gpu_rows, cpu_rows, "streamed VECTOR_SUM")
+    assert g["stream_batches"] == 4
+    assert g["launches"]["segment_sum_wide"] == g["stream_batches"]
+    widths = {}
+    for d in VECTOR_WIDTHS:
+        columns = vector_data[d]
+        n_d = len(columns[1])
+        os.environ[CHUNK_ENV] = str(max(n_d // 4, 500))
+        try:
+            rows, rec = _run_record(pdt, columns, vector_params(pdt, d), 0,
+                                    public)
+        finally:
+            os.environ.pop(CHUNK_ENV, None)
+        assert rec["stream_batches"] == 4
+        assert rec["launches"]["segment_sum_wide"] == 4
+        vec = np.stack([np.asarray(m.vector_sum, np.float64)
+                        for _, m in rows])
+        assert vec.shape == (VECTOR_PARTITIONS, d)
+        assert not np.isnan(vec).any()
+        rec["coord_bytes_per_s"] = n_d * d * 4 / rec["wall_s"]
+        widths[f"D={d}"] = rec
+    log("vector_streamed", accumulator="fx", gpu_vs_cpu=dict(
+        rows=n, d=d0, identical=True, kept=len(gpu_rows)), **widths)
+
+
+def stream150_columns():
+    """``bench.py``'s ``bench_streaming`` data at its default 150M rows:
+    pids in [0, 2^24), zipf(1.3) keys modulo 50,000, values in [0, 10),
+    int32/float32 columns, from ``default_rng(9)`` in that order."""
+    rng = np.random.default_rng(9)
+    n = STREAM_ROWS
+    return (rng.integers(0, 1 << 24, n).astype(np.int32),
+            (rng.zipf(1.3, n) % 50_000).astype(np.int32),
+            rng.uniform(0.0, 10.0, n).astype(np.float32))
+
+
+def stream150_params(pdt):
+    """``bench_streaming``'s params: COUNT+SUM+MEAN, Laplace, L0 = 4,
+    Linf = 2, values in [0, 10]."""
+    return dict(metrics=[pdt.Metrics.COUNT, pdt.Metrics.SUM,
+                         pdt.Metrics.MEAN],
+                noise_kind=pdt.NoiseKind.LAPLACE,
+                max_partitions_contributed=4,
+                max_contributions_per_partition=2, min_value=0.0,
+                max_value=10.0)
+
+
+def phase_stream150(columns, profile, out_dir):
+    """The JAX package's streaming record shape at the default chunk
+    (three batches), serial and overlapped: bit for bit the same
+    release; the walls and the stage / device / fold split of each. With
+    ``--profile`` one more overlapped run under ``torch.profiler`` gives
+    the device's idle share."""
+    import pipelinedp_tpu_torch as pdt
+    params = stream150_params(pdt)
+    runs = {}
+    rows = {}
+    for mode in ("serial", "overlapped"):
+        rows[mode], runs[mode] = _run_record(
+            pdt, columns, params, 0, ingest_executor=mode == "overlapped")
+        assert runs[mode]["stream_executor"] == mode
+        assert runs[mode]["launches"]["segment_sum_lanes"] == runs[mode][
+            "stream_batches"]
+    _released_identical(rows["serial"], rows["overlapped"],
+                        "150M stream serial vs overlapped")
+    released = np.asarray([tuple(m) for _, m in rows["serial"]], np.float64)
+    assert np.isfinite(released).all()
+    rec = dict(rows=STREAM_ROWS, identical=True, **runs)
+    if profile:
+        rec["profile_overlapped"] = _profiled(
+            lambda: _aggregate(pdt, columns, params, "cuda", 0,
+                               ingest_executor=True),
+            out_dir and os.path.join(out_dir, "stream150_profile.txt"))
+    log("stream150", **rec)
+
+
+def phase_select_streamed(c4_columns):
+    """Streamed ``select_partitions``: GPU against CPU on the kept set at
+    1M rows in five batches, then timed on config 4's 10M rows in six."""
+    import pipelinedp_tpu_torch as pdt
+
+    def select(columns, device, seed):
+        acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        kept = pdt.DPEngine(acc, pdt.TorchBackend(
+            device=device, rng_seed=seed)).select_partitions(
+            pdt.ArrayDataset(privacy_ids=columns[0],
+                             partition_keys=columns[1]),
+            pdt.SelectPartitionsParams(max_partitions_contributed=4),
+            pdt.DataExtractors())
+        acc.compute_budgets()
+        return list(kept)
+
+    small = zipf_columns(1_000_000, 40_000, 8192, seed=47)
+    os.environ[CHUNK_ENV] = str(200_000)
+    try:
+        _reset_launches()
+        gpu = select(small, "cuda", 5)
+        k1 = _launch_counts()["segment_sum_lanes"]
+        cpu = select(small, "cpu", 5)
+        os.environ[CHUNK_ENV] = str(-(-CONFIG4["rows"] // 6))
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        full = select(c4_columns, "cuda", CONFIG4["seed"])
+        wall_s = time.perf_counter() - t0
+        full_launches = _launch_counts()["segment_sum_lanes"]
+    finally:
+        os.environ.pop(CHUNK_ENV, None)
+    assert gpu == cpu and len(gpu) > 0, "streamed kept sets differ"
+    assert k1 == 5, k1
+    assert full_launches == 6 and len(full) > 0
+    log("select_streamed", gpu_vs_cpu=dict(rows=1_000_000, batches=5,
+                                           kept=len(gpu), identical=True),
+        config4=dict(rows=CONFIG4["rows"], batches=6, kept=len(full),
+                     wall_s=wall_s, rows_per_s=CONFIG4["rows"] / wall_s,
+                     k1_launches=full_launches))
+
+
+def phase_pass_b_sources(columns, reference):
+    """Config 4 streamed under each pass-B source (the device cache, a
+    budget for about half the batches, none) and each executor mode: the
+    same bits as each other and as phase 10's streamed run."""
+    import pipelinedp_tpu_torch as pdt
+    params = config4_params(pdt)
+    os.environ[CHUNK_ENV] = str(-(-CONFIG4["rows"] // 6))
+    # One batch's device bytes: pid, pk and value, 12 bytes a row.
+    half = 3 * 12 * (-(-CONFIG4["rows"] // 6))
+    runs = {}
+    try:
+        for mode in ("serial", "overlapped"):
+            for source, cache in (("device_cache", None), ("hybrid", half),
+                                  ("reship", 0)):
+                rows, rec = _run_record(
+                    pdt, columns, params, CONFIG4["seed"],
+                    ingest_executor=mode == "overlapped", stream_cache=cache)
+                assert rec["stream_pass_b"] == source, (source, rec)
+                _released_identical(rows, reference,
+                                    f"config 4 streamed {mode} {source}")
+                runs[f"{mode}/{source}"] = rec
+    finally:
+        os.environ.pop(CHUNK_ENV, None)
+    log("pass_b_sources", data=CONFIG4, hybrid_cache_bytes=half,
+        identical=True, **runs)
+
+
+def phase_kill_resume(columns, reference):
+    """Config 4 streamed, killed at batch 3 by the port's ``FaultPlan`` and
+    resumed from a checkpoint under ``build/``, serially and overlapped:
+    the same bits as phase 10's uninterrupted run."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.resilience import (ChunkFailure, FaultPlan,
+                                                 injected_faults)
+    params = config4_params(pdt)
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    os.environ[CHUNK_ENV] = str(-(-CONFIG4["rows"] // 6))
+    out = {}
+    try:
+        for mode in ("serial", "overlapped"):
+            path = os.path.join(ckpt_dir, f"config4_{mode}.ckpt")
+            if os.path.exists(path):
+                os.unlink(path)
+            t0 = time.perf_counter()
+            try:
+                with injected_faults(FaultPlan(fail_chunks=(3,))):
+                    _aggregate(pdt, columns, params, "cuda", CONFIG4["seed"],
+                               ingest_executor=mode == "overlapped",
+                               checkpoint=path)
+            except ChunkFailure:
+                killed_s = time.perf_counter() - t0
+            else:
+                raise AssertionError(f"{mode}: the kill at batch 3 did "
+                                     "not fire")
+            assert os.path.exists(path), f"{mode}: no checkpoint survived"
+            rows, rec = _run_record(pdt, columns, params, CONFIG4["seed"],
+                                    ingest_executor=mode == "overlapped",
+                                    checkpoint=path)
+            assert not os.path.exists(path), "success must clear the store"
+            assert rec["stream_resumed_from"] >= 1
+            _released_identical(rows, reference, f"resumed {mode}")
+            out[mode] = dict(killed_run_s=killed_s, **rec)
+    finally:
+        os.environ.pop(CHUNK_ENV, None)
+    log("kill_resume", data=CONFIG4, killed_at_batch=3, identical=True,
+        **out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1094,7 +1523,7 @@ def main() -> int:
         return 1
     import pipelinedp_tpu_torch  # noqa: F401  (fails outside the repo)
     t_start = time.perf_counter()
-    smi = phase_card()
+    smi, max_sm_mhz = phase_card()
     t0 = time.perf_counter()
     columns = zipf_columns(FLAGSHIP["rows"], FLAGSHIP["users"],
                            FLAGSHIP["partitions"], FLAGSHIP["seed"])
@@ -1106,6 +1535,9 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
         phase_breakdown(columns, args.out)
+    k4 = phase_segtotal_kernel(columns, max_sm_mhz)
+    phase_sum_bounds_gpu_vs_cpu()
+    sum_bounds = phase_sum_bounds_full(columns)
     del columns
     # VECTOR_SUM under the fixed-point accumulator, set as the JAX bench
     # sets it.
@@ -1117,6 +1549,7 @@ def main() -> int:
     wide = phase_wide_kernel(vector_data)
     phase_vector_gpu_vs_cpu()
     vector_launches = phase_vector_full(vector_data)
+    phase_vector_streamed(vector_data)
     del vector_data
     os.environ.pop("PIPELINEDP_TPU_VECTOR_ACCUMULATOR")
     t0 = time.perf_counter()
@@ -1125,11 +1558,19 @@ def main() -> int:
     RECORD["config4_data_gen_s"] = time.perf_counter() - t0
     k3 = phase_hist_kernel(columns)
     phase_percentile_gpu_vs_cpu()
-    c4_single, c4_streamed = phase_config4(columns)
+    c4_single, c4_streamed, c4_rows = phase_config4(columns)
     if args.profile:
         phase_config4_breakdown(columns, args.out)
-    del columns
+    phase_select_streamed(columns)
+    phase_pass_b_sources(columns, c4_rows)
+    phase_kill_resume(columns, c4_rows)
+    del columns, c4_rows
     phase_streamed_percentile()
+    t0 = time.perf_counter()
+    columns = stream150_columns()
+    RECORD["stream150_data_gen_s"] = time.perf_counter() - t0
+    phase_stream150(columns, args.profile, args.out)
+    del columns
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
@@ -1155,7 +1596,18 @@ def main() -> int:
             "subtree_counts_multi"],
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}]
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {
+        # Port-only: it replaces the XLA segment_sum of the per-partition
+        # SUM, not a Pallas kernel; its library call is a float32
+        # index_add_, whose bits differ.
+        "name": "segment_totals", "route": "cuda",
+        "source": "pipelinedp_tpu_torch/csrc/segtotal.cu",
+        "replaces": "pipelinedp_tpu/jax_engine.py:879",
+        "port_only": True, "parity": "bit-equal",
+        "launches": sum_bounds["launches"]["segment_totals"],
+        "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"]}]
     RECORD["kernels"] = kernels
     RECORD["total_s"] = time.perf_counter() - t_start
     if args.out:

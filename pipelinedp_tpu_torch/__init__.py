@@ -2,13 +2,16 @@
 
 A second package beside the JAX one, held against it bit for bit. This
 package runs the fused ``DPEngine.aggregate`` path (COUNT,
-PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE, PERCENTILE, or VECTOR_SUM; public
-or private partitions; one device, in one batch or, past
-``PIPELINEDP_TPU_STREAM_CHUNK`` rows and for all but VECTOR_SUM, streamed
-in batches) and ``select_partitions`` on a CUDA device, with hand-written
-CUDA kernels for the per-partition segment sums of the scalar lanes and
-of VECTOR_SUM's coordinate lanes, and for the quantile walk's subtree
-histograms. The package imports torch, numpy and scipy, never JAX.
+PRIVACY_ID_COUNT, SUM with per-value or per-partition sum bounds, MEAN,
+VARIANCE, PERCENTILE, or VECTOR_SUM; public or private partitions; one
+device, in one batch or, past ``PIPELINEDP_TPU_STREAM_CHUNK`` rows,
+streamed in batches, serially or through the overlapped ingest executor,
+with a pass-B device cache and checkpoint and resume) and
+``select_partitions`` on a CUDA device, with hand-written CUDA kernels for
+the per-partition segment sums of the scalar lanes and of VECTOR_SUM's
+coordinate lanes, for the quantile walk's subtree histograms, and for the
+ordered per-segment totals of the per-partition-bounds SUM. The package
+imports torch, numpy and scipy, never JAX.
 
     import pipelinedp_tpu_torch as pdt
     accountant = pdt.NaiveBudgetAccountant(total_epsilon=1, total_delta=1e-6)

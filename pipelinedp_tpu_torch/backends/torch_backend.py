@@ -2,9 +2,9 @@
 
 Modelled on ``pipelinedp_tpu/backends/jax_backend.py``: a marker that
 tells ``DPEngine`` to lower fusable aggregations to the fused device path
-(``torch_engine``), plus the options that path reads. It has no mesh, no
-checkpoint, no ingest executor, no pass-B cache, no health probe and no
-compile cache (later slices).
+(``torch_engine``), plus the options that path reads, the streaming ones
+included. It has no mesh (multi-GPU is ROADMAP step 8), no health probe
+and no compile cache.
 """
 
 from __future__ import annotations
@@ -24,6 +24,15 @@ class TorchBackend:
       rng_seed: optional fixed seed for reproducible runs. The same seed
         gives the same result as ``JaxBackend(rng_seed=...)`` of the JAX
         package.
+      checkpoint: a ``resilience.CheckpointStore`` or a path: a streamed
+        aggregation saves its folded prefix there and a killed run
+        resumes from it bit for bit (needs ``rng_seed``).
+      ingest_executor: True or False selects the overlapped or the serial
+        stream; None (the default) follows
+        ``PIPELINEDP_TPU_INGEST_EXECUTOR`` (on unless 0).
+      stream_cache: the pass-B device cache's budget in bytes; None (the
+        default) follows ``PIPELINEDP_TPU_STREAM_CACHE`` (4 GiB unless
+        set); 0 re-ships every batch.
     """
 
     supports_fused_aggregation = True
@@ -32,22 +41,10 @@ class TorchBackend:
                  mesh=None, checkpoint=None,
                  ingest_executor: Optional[bool] = None,
                  stream_cache: Optional[int] = None):
-        # The JAX backend's streaming options that this port does not have
-        # yet. Asking for one raises; leaving them unset runs the serial
-        # stream, which releases the same values (the executor and the
-        # pass-B cache select bit-identical paths in the JAX package).
-        for asked, what in (
-                (mesh is not None, "a mesh (multi-GPU is ROADMAP step 8; "
-                 "streaming on a mesh, ROADMAP step 7)"),
-                (checkpoint is not None,
-                 "checkpoint and resume of a stream (ROADMAP step 7)"),
-                (bool(ingest_executor),
-                 "the overlapped ingest executor (ROADMAP step 7)"),
-                (bool(stream_cache),
-                 "the pass-B device prefix cache (ROADMAP step 7)")):
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported to pipelinedp_tpu_torch yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a mesh is not ported to pipelinedp_tpu_torch yet "
+                "(multi-GPU, and streaming on a mesh, are ROADMAP step 8)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -59,6 +56,9 @@ class TorchBackend:
                              f"{device}")
         self.device = device
         self.rng_seed = rng_seed
+        self.checkpoint = checkpoint
+        self.ingest_executor = ingest_executor
+        self.stream_cache = stream_cache
 
     def annotate(self, col, stage_name: str = None, **kwargs):
         """No annotators in this slice: returns ``col`` unchanged."""

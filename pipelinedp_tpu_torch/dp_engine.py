@@ -5,9 +5,8 @@ Port of the entry points of ``pipelinedp_tpu/dp_engine.py`` that this
 slice runs: fusable params on a ``TorchBackend`` go to
 ``torch_engine.build_fused_aggregation`` (``dp_engine.py:294-306`` of the
 JAX package) and ``build_fused_select_partitions``. Everything else —
-non-fusable params, custom combiners, a backend without the fused path,
-and the per-partition sum bounds of a later slice — raises
-``NotImplementedError``: the generic host path is ROADMAP step 11.
+non-fusable params, custom combiners, a backend without the fused path —
+raises ``NotImplementedError``: the generic host path is ROADMAP step 11.
 """
 
 from __future__ import annotations
@@ -51,13 +50,16 @@ class DPEngine:
         return [gen.report() for gen in self._report_generators]
 
     def _fused_options(self):
-        """(rng_seed, device) of a backend with the fused path; raises for
-        any other backend."""
+        """(rng_seed, device, stream options) of a backend with the fused
+        path; raises for any other backend."""
         if not getattr(self._backend, "supports_fused_aggregation", False):
             raise _not_ported(
                 f"running on {type(self._backend).__name__} (only "
                 "TorchBackend's fused path is)")
-        return self._backend.rng_seed, self._backend.device
+        b = self._backend
+        return b.rng_seed, b.device, dict(checkpoint=b.checkpoint,
+                                          executor=b.ingest_executor,
+                                          cache_bytes=b.stream_cache)
 
     def aggregate(self,
                   col,
@@ -74,10 +76,7 @@ class DPEngine:
             raise _not_ported("custom combiners")
         if not torch_engine.params_are_fusable(params):
             raise _not_ported(f"the metrics {params.metrics}")
-        reason = torch_engine.unported_reason(params)
-        if reason is not None:
-            raise _not_ported(reason)
-        rng_seed, device = self._fused_options()
+        rng_seed, device, stream = self._fused_options()
         with self._budget_accountant.scope(weight=params.budget_weight):
             self._report_generators.append(
                 report_generator.ReportGenerator(
@@ -88,7 +87,7 @@ class DPEngine:
             col = torch_engine.build_fused_aggregation(
                 col, params, data_extractors, public_partitions,
                 self._budget_accountant, self._current_report_generator,
-                rng_seed=rng_seed, device=device)
+                rng_seed=rng_seed, device=device, stream=stream)
             budget = self._budget_accountant._compute_budget_for_aggregation(
                 params.budget_weight)
             return self._backend.annotate(col, "annotation", params=params,
@@ -98,7 +97,7 @@ class DPEngine:
                           data_extractors: DataExtractors):
         """DP set of partition keys present in the data."""
         self._check_select_private_partitions(col, params, data_extractors)
-        rng_seed, device = self._fused_options()
+        rng_seed, device, _ = self._fused_options()
         with self._budget_accountant.scope(weight=params.budget_weight):
             self._report_generators.append(
                 report_generator.ReportGenerator(params,

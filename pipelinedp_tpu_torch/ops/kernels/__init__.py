@@ -9,7 +9,10 @@ from pipelinedp_tpu_torch.ops.kernels.segsum import (segment_sum_lanes,
                                                      segment_sum_lanes_plain,
                                                      segment_sum_wide,
                                                      segment_sum_wide_plain)
+from pipelinedp_tpu_torch.ops.kernels.segtotal import (segment_totals,
+                                                       segment_totals_plain)
 
 __all__ = ["segment_sum_lanes", "segment_sum_lanes_plain",
            "segment_sum_wide", "segment_sum_wide_plain",
+           "segment_totals", "segment_totals_plain",
            "subtree_counts_multi", "subtree_counts_multi_plain"]

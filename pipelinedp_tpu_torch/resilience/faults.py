@@ -1,0 +1,78 @@
+"""Deterministic fault injection at the chunk sites of the stream.
+
+A ``FaultPlan`` names the faults to inject; the stream
+(``pipelinedp_tpu_torch/streaming.py``) consults the active plan at two
+sites:
+
+* ``check_chunk(b)``: raise ``ChunkFailure`` when pass A reaches batch
+  ``b`` (kills a streamed run mid-flight);
+* ``check_pass_b_chunk(b)``: the same for batch ``b`` of a percentile
+  pass-B sweep (pass A reuses the batch indices and survives, so the kill
+  lands mid-sweep).
+
+A plan installs in process, with the ``injected_faults(plan)`` context
+manager. A port of the chunk sites of
+``pipelinedp_tpu/resilience/faults.py``; its other sites (serve, sketch,
+sweep, coordinator, mesh) and its ``PIPELINEDP_TPU_FAULTS`` transport to
+subprocess harnesses belong to later ROADMAP steps.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Optional, Tuple
+
+
+class FaultInjected(Exception):
+    """Base class for injected faults."""
+
+
+class ChunkFailure(FaultInjected):
+    """Injected failure while processing one streaming chunk."""
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    #: streaming batch indices whose pass-A dispatch raises
+    #: ``ChunkFailure``.
+    fail_chunks: Tuple[int, ...] = ()
+    #: batch indices whose percentile pass-B dispatch raises
+    #: ``ChunkFailure``.
+    fail_pass_b_chunks: Tuple[int, ...] = ()
+
+
+_plan: Optional[FaultPlan] = None
+
+
+def install(plan: FaultPlan) -> None:
+    global _plan
+    _plan = plan
+
+
+def clear() -> None:
+    global _plan
+    _plan = None
+
+
+@contextlib.contextmanager
+def injected_faults(plan: FaultPlan):
+    """Install ``plan`` for the duration of the block."""
+    install(plan)
+    try:
+        yield plan
+    finally:
+        clear()
+
+
+def check_chunk(index: int) -> None:
+    plan = _plan
+    if plan is not None and index in plan.fail_chunks:
+        raise ChunkFailure(f"injected failure at streaming chunk {index}")
+
+
+def check_pass_b_chunk(index: int) -> None:
+    plan = _plan
+    if plan is not None and index in plan.fail_pass_b_chunks:
+        raise ChunkFailure(
+            f"injected failure at pass-B sweep batch {index}")

@@ -1,5 +1,5 @@
 """Batched ingest for tables of more rows than one device batch: the port
-of the serial, single-device core of ``pipelinedp_tpu/streaming.py``.
+of the single-device stream of ``pipelinedp_tpu/streaming.py``.
 
 The per-partition accumulator columns are additive, so a large table
 streams through the same ``torch_engine._partials`` in batches grouped by
@@ -9,12 +9,15 @@ privacy unit:
   by ``fmix32(pid ^ seed)``), so bounding per batch equals bounding over
   the whole table; batch ``b`` bounds under ``fold_in(k_bound, b)``;
 * each batch's int32 columns are fetched and folded on the host: counts
-  in int64, fixed-point value lanes into exact float64 step totals (the
+  in int64, fixed-point value lanes (the per-value ``nsum``/``nsumsq`` or
+  the per-partition-bounds ``sum``) into exact float64 step totals (the
   lane plan comes from the largest batch; the division by the scale
   happens once, at the end), so the released bits do not depend on the
-  batch boundaries;
+  batch boundaries; VECTOR_SUM folds its [P, n_lanes * D] lane sums (K2)
+  the same way under ``fx``, and its float32 sums in float64 under ``f32``;
 * partition selection runs once on the device over the combined
-  privacy-id counts, with the same draw as a single batch;
+  privacy-id counts, with the same draw as a single batch; a streamed
+  ``select_partitions`` keeps only that keep vector;
 * PERCENTILE walks in two passes. Pass A adds each batch's [P, 256] mid
   histogram (K1) on the device and the top two levels walk on the sum.
   Pass B streams the same batches again, once per sweep of the planner
@@ -22,33 +25,44 @@ privacy unit:
   [T, Pb, Qc, 256] subtree tile with ``_subtree_counts_multi`` (kernel
   K3 on the card), adding into the sweep's accumulator; the bottom two
   levels then walk per tile and one running maximum over the quantile
-  list ends the walk.
+  list ends the walk. Pass B reads the batches that pass A kept on the
+  device (the pass-B cache, ``PIPELINEDP_TPU_STREAM_CACHE``) and
+  re-ships the rest.
+
+Pass A runs serially or through the overlapped ingest executor
+(``ingest/executor.py``, on by default): a stager thread gathers batch
+b+1's rows into pinned host buffers and ships them on a side CUDA stream
+while the card computes batch b, and a fold thread fetches and folds the
+batches in order. A checkpoint store saves the folded prefix so that a
+killed run resumes (``resilience/checkpoint.py``); ``resilience/faults.py``
+injects the kills that test it. Serial or overlapped, cached or
+re-shipped, resumed or not, the released bits are the same.
 
 Node noise is a pure function of the global (partition, node id), so with
 non-binding caps a streamed run releases the same values and kept set as
 a single batch; the JAX package's streamed run releases the same values
 as the port's for the same seed, bit for bit.
 
-Not ported here (each raises ``NotImplementedError`` naming ROADMAP step
-7): the overlapped ingest executor (the serial loop below is the JAX
-package's bit-parity reference path), the pass-B device prefix cache (pass
-B re-ships every batch each sweep, the ``"reship"`` source, bit-identical
-to the other two), checkpoint and resume, the mesh and its elastic
-reshards, streamed VECTOR_SUM and streamed ``select_partitions``.
+Streaming on a mesh, and the elastic reshards of a mesh that loses a
+device, wait for multi-GPU (ROADMAP step 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from pipelinedp_tpu_torch import ingest
 from pipelinedp_tpu_torch import torch_engine as te
 from pipelinedp_tpu_torch.ops import prng
 from pipelinedp_tpu_torch.ops import quantile_tree
+from pipelinedp_tpu_torch.resilience import checkpoint as ckpt_mod
+from pipelinedp_tpu_torch.resilience import faults
 
 #: Rows per batch, and the engine's trigger to stream, when
 #: ``PIPELINEDP_TPU_STREAM_CHUNK`` is unset (the JAX package's
@@ -56,6 +70,16 @@ from pipelinedp_tpu_torch.ops import quantile_tree
 #: unit's bounding sees, so it changes released values.
 _CHUNK_ENV = "PIPELINEDP_TPU_STREAM_CHUNK"
 _STREAM_CHUNK_ROWS = 1 << 26
+
+#: Device bytes the pass-B cache may keep when ``PIPELINEDP_TPU_STREAM_CACHE``
+#: is unset (the JAX package's ``stream_cache_bytes`` knob); 0 disables it.
+#: The three pass-B sources are bit-identical, so it trades device memory
+#: for host-to-device traffic only.
+_CACHE_ENV = "PIPELINEDP_TPU_STREAM_CACHE"
+_STREAM_CACHE_BYTES = 4 << 30
+
+#: Folds between two checkpoint writes (default 1).
+_CKPT_EVERY_ENV = "PIPELINEDP_TPU_CKPT_EVERY"
 
 #: The int32 guards: privacy units per partition at selection time, and
 #: kept rows per partition in the streamed tree histograms. Seams, so
@@ -67,6 +91,11 @@ _TREE_ROWS_CAP = int(np.iinfo(np.int32).max)
 def stream_chunk_rows() -> int:
     raw = os.environ.get(_CHUNK_ENV)
     return int(raw) if raw else int(_STREAM_CHUNK_ROWS)
+
+
+def stream_cache_bytes() -> int:
+    raw = os.environ.get(_CACHE_ENV)
+    return int(raw) if raw else int(_STREAM_CACHE_BYTES)
 
 
 def chunk_target_rows(config) -> int:
@@ -233,20 +262,174 @@ def plan_pass_b_sweeps(P_pad, Q, span, cap, q_chunk=0) -> PassBPlan:
     return PassBPlan(qc, pb, t_full, tiles, tuple(sweeps))
 
 
+class _Staging:
+    """Host buffers and the copy to the device for one stream.
+
+    A batch's rows are gathered into a host buffer set and shipped. On the
+    card the sets are pinned, and the copy runs ``non_blocking`` on a side
+    stream; a CUDA event recorded after it orders the copy before the
+    compute stream reads the batch. On the CPU the "device" tensors are
+    the host buffers themselves. A ``StagingRing`` keeps a set from being
+    written again until the batch staged from it has had its outputs
+    fetched; without a ring (a CPU run that feeds the pass-B cache, which
+    keeps what it ships) every batch gets fresh buffers."""
+
+    def __init__(self, config, encoded, order, batch_rows, device):
+        self.config = config
+        self.encoded = encoded
+        self.order = order
+        self.batch_rows = batch_rows
+        self.device = device
+        self.on_card = device.type == "cuda"
+        self.max_rows = int(batch_rows.max()) if len(batch_rows) else 0
+        self.copy_stream = (torch.cuda.Stream(device) if self.on_card
+                            else None)
+        self._sets: Dict[int, Tuple] = {}
+        self.stage_s = 0.0        # summed over both passes
+        self.reship_bytes = 0     # pass-B host->device bytes
+
+    def _alloc(self):
+        vshape = ((self.max_rows, self.config.vector_size)
+                  if self.config.vector_size else (self.max_rows,))
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, pin_memory=self.on_card)
+
+        return (empty(self.max_rows, torch.int32),
+                empty(self.max_rows, torch.int32),
+                empty(vshape, torch.float32) if self.config.needs_values
+                else None)
+
+    def batches(self, start_at=0, cancelled=None, ring=None,
+                track_reship=False):
+        """Ships the deterministic batch sequence from ``start_at`` on:
+        yields ``(b, pid, pk, values or None, ready event or None)``. Pass
+        A and every pass-B re-ship iterate it alike, on the caller's thread
+        or on the executor's stager thread (``cancelled`` is the stager's
+        teardown event)."""
+        enc = self.encoded
+        offset = int(self.batch_rows[:start_at].sum())
+        staged = 0
+        for b in range(start_at, len(self.batch_rows)):
+            cnt = int(self.batch_rows[b])
+            rows = (slice(offset, offset + cnt) if self.order is None
+                    else self.order[offset:offset + cnt])
+            offset += cnt
+            if cnt == 0:
+                continue
+            if ring is not None:
+                # Blocks until the set staged two batches ago has had its
+                # outputs fetched; aborts promptly on teardown.
+                ring.acquire(cancelled)
+            t0 = time.perf_counter()
+            if ring is None:
+                bufs = self._alloc()
+            else:
+                slot = staged % ring.n_slots
+                if slot not in self._sets:
+                    self._sets[slot] = self._alloc()
+                bufs = self._sets[slot]
+            staged += 1
+            host = [buf[:cnt] for buf in bufs if buf is not None]
+            sources = [enc.pid, enc.pk] + (
+                [enc.values] if self.config.needs_values else [])
+            for dst, src in zip(host, sources):
+                if self.order is None:
+                    dst.numpy()[...] = src[rows]
+                else:
+                    np.take(src, rows, axis=0, out=dst.numpy(),
+                            mode="clip")
+            ready = None
+            if self.on_card:
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(self.copy_stream):
+                    dev = [h.to(self.device, non_blocking=True)
+                           for h in host]
+                    ready = torch.cuda.Event()
+                    ready.record(self.copy_stream)
+            else:
+                dev = host
+            if track_reship:
+                self.reship_bytes += sum(int(h.nbytes) for h in host)
+            self.stage_s += time.perf_counter() - t0
+            values = dev[2] if self.config.needs_values else None
+            yield b, dev[0], dev[1], values, ready
+
+    def ready_on_compute(self, item):
+        """Orders the compute stream after the batch's copy, and marks the
+        copied tensors as used by it (they were allocated on the side
+        stream)."""
+        *tensors, ready = item[1:]
+        if ready is None:
+            return
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(ready)
+        for t in tensors:
+            if t is not None:
+                t.record_stream(compute)
+
+
+def _start_fetch(tensors, device):
+    """Starts copying ``tensors`` to the host: on the card into pinned
+    buffers, non_blocking on the compute stream, and returns ``(host
+    tensors, event)``; the fold waits on the event. On the CPU the
+    tensors are already on the host and the event is None."""
+    if device.type != "cuda":
+        return tensors, None
+    host = [None if t is None else
+            torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                t, non_blocking=True) for t in tensors]
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return host, done
+
+
+def _wait_compute(device) -> None:
+    """Waits for the work queued so far on the compute stream (not for the
+    side stream's copies)."""
+    if device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()
+
+
 def stream_partials_and_select(config, encoded, scales, keep_table,
                                sel_threshold, sel_scale, sel_min_count,
                                sel_rows_per_uid, rng_seed: Optional[int],
-                               device) -> Tuple[np.ndarray, Dict, Dict]:
-    """The streamed aggregation, serial, on ``device``. Returns
-    ``(keep bool [P_pad], part64, stats)``: ``part64`` holds the combined
-    int64 counts and float64 value columns ready for
-    ``torch_engine._host_release``; with percentiles
-    ``stats["percentile_values"]`` holds the walked [P_pad, Q] float32
-    values."""
-    if "VECTOR_SUM" in config.metrics:
-        raise NotImplementedError(
-            "streamed VECTOR_SUM is not ported yet (ROADMAP step 7)")
+                               device, checkpoint=None,
+                               executor: Optional[bool] = None,
+                               cache_bytes: Optional[int] = None
+                               ) -> Tuple[np.ndarray, Dict, Dict]:
+    """The streamed aggregation on ``device``. Returns ``(keep bool
+    [P_pad], part64, stats)``: ``part64`` holds the combined int64 counts
+    and float64 value columns (and VECTOR_SUM's [P_pad, D] float64
+    coordinates) ready for ``torch_engine._host_release``; with
+    percentiles ``stats["percentile_values"]`` holds the walked [P_pad, Q]
+    float32 values.
+
+    ``executor`` selects the overlapped ingest (``ingest/executor.py``):
+    None follows ``PIPELINEDP_TPU_INGEST_EXECUTOR`` (on unless 0). The
+    overlapped and serial runs release the same bits: the fold worker
+    keeps the float64 left fold and the checkpoint-after-fold order of the
+    serial loop.
+
+    ``cache_bytes`` is the pass-B device cache's budget
+    (``PIPELINEDP_TPU_STREAM_CACHE`` when None, 4 GiB by default; 0
+    disables): pass A keeps each shipped batch's device tensors while they
+    fit; on overflow the cache freezes and pass B re-reads the cached
+    prefix and re-ships only the suffix (``"hybrid"``); with no cache it
+    re-ships every batch (``"reship"``). The three sources are
+    bit-identical.
+
+    ``checkpoint`` (a ``resilience.checkpoint.CheckpointStore`` or a path)
+    saves ``(next_batch, accumulators)`` every ``PIPELINEDP_TPU_CKPT_EVERY``
+    folds (default 1), so that a killed run resumes bit for bit: the same
+    keys replay, the folded prefix is restored, and success clears the
+    store. It needs a fixed ``rng_seed``; a checkpoint of another run
+    raises ``CheckpointMismatch``."""
     device = torch.device(device)
+    use_executor = (ingest.executor_enabled() if executor is None
+                    else bool(executor))
     P_pad = te._pad_pow2(len(encoded.pk_vocab))
     n = encoded.n_rows
     chunk = chunk_target_rows(config)
@@ -259,14 +442,21 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     if config.percentiles:
         plan = plan_pass_b_sweeps(P_pad, len(config.percentiles), span,
                                   te._subhist_byte_cap())
+    ckpt_store = ckpt_mod.as_store(checkpoint)
+    if ckpt_store is not None and rng_seed is None:
+        raise ValueError(
+            "checkpointing requires a fixed rng_seed: resume must replay "
+            "the identical noise keys (the privacy budget is consumed at "
+            "noise draw, not at job success)")
 
     order, batch_rows = _batch_assignment(config, encoded, n_batches, seed)
     max_rows = int(batch_rows.max())
     layout = te._fixedpoint_layout(config)
+    vec_fx = te._vector_fx(config)
     # The lane plan is a per-batch bound: it depends on the largest batch,
     # which exceeds the chunk only where one unit owns that many rows.
     try:
-        fx_bits = te._fx_plan(max_rows)[0] if layout else 12
+        fx_bits = te._fx_plan(max_rows)[0] if layout or vec_fx else 12
     except NotImplementedError:
         raise NotImplementedError(
             f"the largest streaming batch holds {max_rows} rows — beyond "
@@ -276,36 +466,58 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
             "(contribution bounding must see them together)")
     names = _rank1_names(config, fx_bits)
 
-    def batches():
-        """The deterministic batch sequence on ``device``: (b, pid, pk,
-        values or None); pass A and every pass-B sweep read it alike."""
-        offset = 0
-        for b in range(n_batches):
-            cnt = int(batch_rows[b])
-            rows = (slice(offset, offset + cnt) if order is None
-                    else order[offset:offset + cnt])
-            offset += cnt
-            if cnt == 0:
-                continue
-            pid = torch.from_numpy(np.ascontiguousarray(
-                encoded.pid[rows])).to(device)
-            pk = torch.from_numpy(np.ascontiguousarray(
-                encoded.pk[rows])).to(device)
-            values = (torch.from_numpy(np.ascontiguousarray(
-                encoded.values[rows])).to(device)
-                if config.needs_values else None)
-            yield b, pid, pk, values
-
-    # Pass A: fetch and fold each batch's columns. The lanes fold into
-    # exact float64 step totals per batch; only counts live in ``acc``.
+    # The lanes fold into exact float64 step totals per batch; only the
+    # integer counts live in ``acc``.
     acc = {"count": np.zeros(P_pad, np.int64),
            "privacy_id_count_raw": np.zeros(P_pad, np.int64)}
     val_acc = {spec.name: np.zeros(P_pad, np.float64) for spec in layout}
+    vec_acc = None
     mid_acc = None
-    for b, pid, pk, values in batches():
-        part, nseg, qrows = te._partials(config, P_pad, pid, pk, values,
-                                         prng.fold_in(k_bound, b), fx_bits)
-        host = torch.stack([part[k] for k in names] + [nseg]).cpu().numpy()
+
+    # Resume: restore the folded prefix and skip it. The fold is a left
+    # fold, so the prefix sum and the rest give the uninterrupted run's
+    # float64 operations exactly.
+    start_batch = 0
+    ckpt_fp = None
+    if ckpt_store is not None:
+        ckpt_fp = ckpt_mod.run_fingerprint(
+            config, n, n_batches, seed, P_pad, fx_bits,
+            data=ckpt_mod.data_digest(encoded))
+        saved = ckpt_store.load_for(ckpt_fp)
+        if saved is not None:
+            start_batch = saved.next_batch
+            for name in acc:
+                acc[name] = saved.arrays[f"acc:{name}"]
+            for name in val_acc:
+                val_acc[name] = saved.arrays[f"val:{name}"]
+            vec_acc = saved.arrays.get("vec")
+            if "mid" in saved.arrays:
+                mid_acc = torch.from_numpy(saved.arrays["mid"]).to(device)
+
+    # The pass-B device cache. A resumed run never caches: the skipped
+    # prefix is absent, so a partial cache would drop those rows from
+    # pass B.
+    cache_cap = stream_cache_bytes() if cache_bytes is None else int(
+        cache_bytes)
+    cache: Optional[list] = ([] if config.percentiles and start_batch == 0
+                             and cache_cap > 0 else None)
+    cache_used = 0
+    cache_frozen = False
+    cache_upto = 0  # the first batch past the cached prefix
+    staging = _Staging(config, encoded, order, batch_rows, device)
+    # On the CPU a cached batch's tensors are the staging buffers, so a
+    # run that feeds the cache stages into fresh buffers; on the card the
+    # cache keeps device copies and the ring's pinned sets rotate.
+    ring = (None if cache is not None and device.type == "cpu"
+            else ingest.StagingRing(2))
+    t_fetch = t_fold = 0.0
+    n_saves = 0
+    ckpt_every = max(1, int(os.environ.get(_CKPT_EVERY_ENV) or 1))
+
+    def fold_host(host, vec):
+        """Folds one batch's fetched [C+1, P] block (and VECTOR_SUM's
+        [P, W] block) into the host accumulators."""
+        nonlocal vec_acc
         batch64 = {name: host[i].astype(np.int64)
                    for i, name in enumerate(names)}
         batch64["privacy_id_count_raw"] = host[-1].astype(np.int64)
@@ -314,15 +526,125 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         acc["privacy_id_count_raw"] += batch64["privacy_id_count_raw"]
         for spec in layout:
             val_acc[spec.name] += batch64[spec.name]
-        if config.percentiles:
-            mid = te._mid_histogram(P_pad, qrows)
+        if vec is not None:
+            # The batch's lane sums become exact float64 step totals with
+            # the batch's count (offset removal is linear); under f32 the
+            # batch's float32 sums add in float64 in batch order.
+            v64 = (te._fold_vector_fx_steps(config, vec, batch64["count"],
+                                            fx_bits) if vec_fx
+                   else vec.astype(np.float64))
+            vec_acc = v64 if vec_acc is None else vec_acc + v64
+
+    def save_ckpt(next_batch):
+        nonlocal n_saves
+        arrays = {f"acc:{k}": v for k, v in acc.items()}
+        arrays.update({f"val:{k}": v for k, v in val_acc.items()})
+        if vec_acc is not None:
+            arrays["vec"] = vec_acc
+        if mid_acc is not None:
+            arrays["mid"] = mid_acc.cpu().numpy()
+        ckpt_store.save(ckpt_mod.StreamCheckpoint(ckpt_fp, next_batch,
+                                                  arrays))
+        n_saves += 1
+
+    def fold_item(item):
+        """Waits for one launched batch's outputs and folds them, in batch
+        order: on the caller's thread (serial, one batch behind the
+        launch) or on the executor's fold worker. The mid histogram adds
+        at fold time, so a checkpoint after batch j holds no later
+        batch's histogram."""
+        nonlocal mid_acc, t_fetch, t_fold
+        b, host, vec, done, mid = item
+        t0 = time.perf_counter()
+        if done is not None:
+            done.synchronize()
+        if ring is not None:
+            ring.retire()
+        t1 = time.perf_counter()
+        fold_host(host.numpy(), None if vec is None else vec.numpy())
+        if mid is not None:
             mid_acc = mid if mid_acc is None else mid_acc.add_(mid)
+        t_fetch += t1 - t0
+        t_fold += time.perf_counter() - t1
+        if ckpt_store is not None and (b + 1) % ckpt_every == 0:
+            save_ckpt(b + 1)
+
+    def launch(item):
+        """Fault check and the batch's device work (asynchronous on the
+        card), always on the dispatch thread, so an injected
+        ``ChunkFailure`` severs the run at one batch in both modes."""
+        nonlocal cache_used, cache_frozen, cache_upto
+        b, pid, pk, values, _ = item
+        faults.check_chunk(b)
+        staging.ready_on_compute(item)
+        part, nseg, qrows = te._partials(config, P_pad, pid, pk, values,
+                                         prng.fold_in(k_bound, b), fx_bits)
+        packed = torch.stack([part[k] for k in names] + [nseg])
+        mid = te._mid_histogram(P_pad, qrows) if config.percentiles else None
+        (host, vec), done = _start_fetch([packed, part.get("vector_sum")],
+                                         device)
+        if cache is not None and not cache_frozen:
+            nbytes = sum(int(t.nbytes) for t in (pid, pk, values)
+                         if t is not None)
+            if cache_used + nbytes <= cache_cap:
+                cache_used += nbytes
+                cache.append((b, pid, pk, values, None))
+                cache_upto = b + 1
+            else:
+                # Overflow freezes the cache: the resident prefix keeps
+                # serving pass B and only the suffix re-ships.
+                cache_frozen = True
+        return b, host, vec, done, mid
+
+    t_loop0 = time.perf_counter()
+    if use_executor:
+        # Overlapped pass A: the stager prepares batch b+1 while the
+        # device computes batch b and the fold worker drains finished
+        # batches. Any failure cancels both workers and joins them before
+        # it propagates, so the checkpoint on disk is a clean prefix.
+        folder = ingest.OrderedFoldWorker(fold_item, depth=2)
+        try:
+            with ingest.BackgroundStager(
+                    lambda cancelled: staging.batches(start_batch, cancelled,
+                                                      ring),
+                    depth=1, name="stager-a") as stager:
+                for item in stager.items(poll=folder.raise_if_failed):
+                    folder.submit(launch(item))
+            folder.finish()
+        except BaseException:
+            folder.cancel()
+            raise
+    else:
+        # Serial pass A: fold one batch late, so batch b's copy and work
+        # are in flight while batch b-1's fetch waits.
+        pending = None
+        try:
+            for item in staging.batches(start_batch, ring=ring):
+                out = launch(item)
+                if pending is not None:
+                    fold_item(pending)
+                pending = out
+        except faults.FaultInjected:
+            # Let the previous batch's work finish before propagating;
+            # its result is not folded, so the checkpoint stays a clean
+            # prefix.
+            if pending is not None and pending[3] is not None:
+                pending[3].synchronize()
+            raise
+        if pending is not None:
+            fold_item(pending)
+    t_loop = time.perf_counter() - t_loop0
+    t_stage = staging.stage_s
+    busy_a = t_stage + t_fetch + t_fold
 
     part64: Dict[str, np.ndarray] = dict(acc)
     # One division by the scale over the combined step totals: the same
     # bits as a single batch's release, for any batching.
     for spec in layout:
         part64[spec.name] = val_acc[spec.name] / spec.scale
+    if vec_acc is not None:
+        part64["vector_sum"] = (vec_acc / te._vector_fx_scale(config)
+                                if vec_fx else vec_acc)
 
     if config.selection is None:
         keep = np.ones(P_pad, bool)
@@ -338,12 +660,40 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                 nseg.astype(np.int32)).to(device), keep_table, sel_threshold,
             sel_scale, sel_min_count, sel_rows_per_uid, k_sel)
         keep = keep_t.cpu().numpy()
-    stats = {"n_batches": n_batches}
-    if not config.percentiles:
-        return keep, part64, stats
+    stats = {"n_batches": n_batches, "chunk_rows": chunk, "fx_bits": fx_bits,
+             "max_batch_rows": max_rows, "t_stage": t_stage,
+             "t_device": t_fetch, "t_fold": t_fold, "t_total": t_loop,
+             "overlap_frac": (max(0.0, 1.0 - t_loop / busy_a)
+                              if busy_a > 0 else 0.0),
+             "executor": "overlapped" if use_executor else "serial",
+             "fold_wait_s": t_fetch + t_fold}
+    if ckpt_store is not None:
+        stats["resumed_from_batch"] = start_batch
+        stats["checkpoint_saves"] = n_saves
+    if config.percentiles:
+        stats.update(_pass_b(config, plan, P_pad, acc, mid_acc, scales,
+                             k_bound, k_noise, cache, cache_frozen,
+                             cache_upto, staging,
+                             use_executor, device))
+    stats["stage_s"] = staging.stage_s
+    if ckpt_store is not None:
+        # The run released its outputs: a later run on this path must not
+        # resume a finished one.
+        ckpt_store.clear()
+    return keep, part64, stats
 
-    # Pass B. The histograms accumulate in device int32, so a partition
-    # with 2^31 kept rows would wrap a bucket: guard on the host counts.
+
+def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
+            cache, cache_frozen, cache_upto, staging, use_executor,
+            device) -> Dict:
+    """The percentile walk's second pass: the top levels walk on the
+    summed mid histogram, then each sweep of the plan streams the batches
+    (the cached prefix from the device, the rest re-shipped) into its
+    packed [T, Pb, Qc, span] subtree histograms (K3 on the card), and the
+    bottom levels walk per tile."""
+    _, _, n_mid, span = quantile_tree.tree_constants()
+    # The histograms accumulate in device int32, so a partition with 2^31
+    # kept rows would wrap a bucket: guard on the host counts.
     if int(acc["count"].max(initial=0)) >= _TREE_ROWS_CAP:
         raise NotImplementedError(
             "streamed percentiles: a partition holds >= 2^31 kept rows — "
@@ -353,8 +703,34 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     lo, hi, target, leaf_lo, done = te._walk_top(
         config, P_pad, mid_acc.reshape(P_pad, n_mid), k_tree, scale)
     del mid_acc
+    prefix = cache or []
+    complete = cache is not None and not cache_frozen
     Q = len(config.percentiles)
     vals = torch.empty(P_pad, Q, dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+
+    def run_sweep(consume):
+        """One traversal of the batch stream: the cached prefix, then, past
+        it, the re-shipped batches through a ring of buffer sets (on the
+        executor's stager when it is on)."""
+        for item in prefix:
+            consume(item, None)
+        if complete:
+            return
+        ring_b = ingest.StagingRing(2)
+        if use_executor:
+            with ingest.BackgroundStager(
+                    lambda cancelled: staging.batches(
+                        cache_upto, cancelled, ring_b,
+                        track_reship=True),
+                    depth=1, name="stager-b") as stager_b:
+                for item in stager_b.items():
+                    consume(item, ring_b)
+        else:
+            for item in staging.batches(cache_upto, ring=ring_b,
+                                        track_reship=True):
+                consume(item, ring_b)
+
     for sweep in plan.sweeps:
         qn, p0_s = sweep[0][1], sweep[0][2]
         Pb = min(plan.p_blk, P_pad - p0_s)
@@ -364,11 +740,22 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                               device=device)
         sub = torch.zeros(len(sweep), Pb, qn, span, dtype=torch.int32,
                           device=device)
-        for b, pid, pk, values in batches():
+
+        def consume(item, ring_b, starts=starts, p_offs=p_offs, Pb=Pb,
+                    sub=sub):
+            b, pid, pk, values, _ = item
+            faults.check_pass_b_chunk(b)
+            staging.ready_on_compute(item)
             qpk, leaf, kept = te._bounded_qrows(
                 config, pid, pk, values, prng.fold_in(k_bound, b))
             te._subtree_counts_multi(qpk, leaf, kept, starts, p_offs, Pb,
                                      span, out=sub)
+            if ring_b is not None:
+                # The batch's buffers are free once its work has run.
+                _wait_compute(device)
+                ring_b.retire()
+
+        run_sweep(consume)
         for ti, (q0, _, p0) in enumerate(sweep):
             psl, qsl = slice(p0, p0 + Pb), slice(q0, q0 + qn)
             vals[psl, qsl] = te._walk_bottom(
@@ -379,8 +766,12 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     # The monotone step runs once over the full quantile list.
     quantiles = np.asarray([p / 100.0 for p in config.percentiles],
                            np.float32)
-    stats["percentile_values"] = te._monotone_in_q(
-        vals, quantiles).cpu().numpy()
-    stats.update(pass_b_source="reship", pass_b_sweeps=plan.n_sweeps,
-                 pass_b_tiles=plan.n_tiles)
-    return keep, part64, stats
+    values = te._monotone_in_q(vals, quantiles).cpu().numpy()
+    return {"percentile_values": values,
+            "pass_b_source": ("device_cache" if complete
+                              else "hybrid" if prefix else "reship"),
+            "pass_b_sweeps": plan.n_sweeps, "pass_b_tiles": plan.n_tiles,
+            "pass_b_tiles_per_sweep": plan.tiles_per_sweep,
+            "pass_b_cached_batches": len(prefix),
+            "pass_b_reshipped_bytes": staging.reship_bytes,
+            "pass_b_sweep_s": time.perf_counter() - t0}

@@ -32,13 +32,16 @@ walk follows XLA's CPU code op for op: sums and scans over the 16
 children are sequential float32 adds, and the three multiply-adds XLA
 contracts into one FMA go through ``prng.fma32``.
 
-This slice runs COUNT, PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE and
-PERCENTILE with per-value bounds, and VECTOR_SUM, in (l0, linf),
-total-cap (not VECTOR_SUM) or bounds-already-enforced mode, with public
-or private partitions, on one device. A table of more rows than one batch
-streams through ``streaming.py`` (serially, in two passes for
-PERCENTILE); streamed VECTOR_SUM and streamed ``select_partitions`` are
-not ported yet (ROADMAP step 7).
+The port runs COUNT, PRIVACY_ID_COUNT, SUM, MEAN, VARIANCE and
+PERCENTILE with per-value bounds, SUM with per-partition sum bounds
+(``min_sum_per_partition`` / ``max_sum_per_partition``: each (pid, pk)
+segment's float32 total, added in row order by kernel K4,
+``ops/kernels/segtotal.py``, is clipped and contributed once), and
+VECTOR_SUM, in (l0, linf), total-cap (not VECTOR_SUM) or
+bounds-already-enforced mode, with public or private partitions, on one
+device. A table of more rows than one batch streams through
+``streaming.py`` (in two passes for PERCENTILE), the aggregations and
+``select_partitions`` alike.
 
 One function builds every subtree histogram of the walk,
 ``_subtree_counts_multi`` (K3 on the card), single-batch and streamed.
@@ -67,7 +70,7 @@ import dataclasses
 import operator
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,7 +88,7 @@ from pipelinedp_tpu_torch.ops import prng
 from pipelinedp_tpu_torch.ops import quantile_tree
 from pipelinedp_tpu_torch.ops import segment as seg_ops
 from pipelinedp_tpu_torch.ops import vector_noise
-from pipelinedp_tpu_torch.ops.kernels import hist, segsum
+from pipelinedp_tpu_torch.ops.kernels import hist, segsum, segtotal
 
 #: VECTOR_SUM's accumulator when ``PIPELINEDP_TPU_VECTOR_ACCUMULATOR`` is
 #: unset: the module seam of the JAX package's ``vector_accumulator`` knob
@@ -215,15 +218,6 @@ def params_are_fusable(params: AggregateParams) -> bool:
         elif m.name not in FUSABLE_METRICS:
             return False
     return True
-
-
-def unported_reason(params: AggregateParams) -> Optional[str]:
-    """Why these fusable params are outside this slice (None when the
-    slice runs them)."""
-    if params.bounds_per_partition_are_set:
-        return ("min_sum_per_partition / max_sum_per_partition bounds "
-                "(ROADMAP §1: the per-partition-sum-bounds SUM)")
-    return None
 
 
 # ---------------------------------------------------------------------------
@@ -541,35 +535,52 @@ def _partials(config: FusedConfig, num_partitions: int, pid, pk, values,
     one device. Returns (columns dict of int32 [P], plus VECTOR_SUM's
     [P, W] column; the privacy-id-count column; the percentile row view
     ``_qrows`` of the bounded rows, or None without percentiles)."""
-    spk, masked, keep_row, seg_marker, svalues = _bound_rows(
-        config, pid, pk, values, key)
-    part, nseg = _reduce_per_pk(config, spk, masked, keep_row,
-                                num_partitions, seg_marker=seg_marker,
-                                fx_bits=fx_bits)
+    b = _bound_rows(config, pid, pk, values, key)
+    part, nseg = _reduce_per_pk(config, b.spk, b.masked, b.keep_row,
+                                num_partitions, seg_marker=b.seg_marker,
+                                fx_bits=fx_bits, contrib=b.contrib)
     if config.bounds_already_enforced:
         # Without pids every row counts as its own privacy unit.
         nseg = part["count"]
-    qrows = (_qrows(config, spk, svalues, keep_row) if config.percentiles
-             else None)
+    qrows = (_qrows(config, b.spk, b.svalues, b.keep_row)
+             if config.percentiles else None)
     return part, nseg, qrows
 
 
 def _bounded_qrows(config: FusedConfig, pid, pk, values, key):
     """The percentile row view alone, for the streamed pass B: the same
     bounding as ``_partials`` under the same key, without the reduction."""
-    spk, _, keep_row, _, svalues = _bound_rows(config, pid, pk, values, key)
-    return _qrows(config, spk, svalues, keep_row)
+    b = _bound_rows(config, pid, pk, values, key)
+    return _qrows(config, b.spk, b.svalues, b.keep_row)
 
 
-def _bound_rows(config: FusedConfig, pid, pk, values, key):
-    """Contribution bounding in row space: returns (pk, clipped values
-    zeroed outside the kept rows or None, kept-row mask, kept-segment
-    marker or None, the unclipped values or None), each [N] (values [N]
-    or [N, D]) in the bounding's sorted row order."""
-    if config.per_partition_bounds:
-        raise NotImplementedError(
-            "the per-partition-sum-bounds SUM is not ported yet (ROADMAP "
-            "§1): its per-segment float32 sum needs a deterministic order")
+class Bounded(NamedTuple):
+    """The bounded rows, each [N] (values [N] or [N, D]) in the bounding's
+    sorted row order: pk; the clipped values zeroed outside the kept rows
+    (or None); the kept-row mask; the kept-segment marker (None without
+    privacy ids); the first row of each (pid, pk) segment (None without
+    privacy ids); the unclipped values (or None); and, for the
+    per-partition-sum-bounds SUM, each contributing segment's clipped
+    float32 total on its marker row, zero elsewhere (or None)."""
+    spk: torch.Tensor
+    masked: Optional[torch.Tensor]
+    keep_row: torch.Tensor
+    seg_marker: Optional[torch.Tensor]
+    new_seg: Optional[torch.Tensor]
+    svalues: Optional[torch.Tensor]
+    contrib: Optional[torch.Tensor]
+
+
+def _clip_sum(config: FusedConfig, x):
+    """``jnp.clip(x, min_sum, max_sum)``: the Python-float bounds meet a
+    float32 array, so they round to float32 first."""
+    return torch.clamp(x, _f32(config.min_sum_per_partition),
+                       _f32(config.max_sum_per_partition))
+
+
+def _bound_rows(config: FusedConfig, pid, pk, values, key) -> Bounded:
+    """Contribution bounding in row space (``jax_engine._partials`` up to
+    the reduction); see ``Bounded``."""
     n = pid.shape[0]
     device = pid.device
 
@@ -578,7 +589,12 @@ def _bound_rows(config: FusedConfig, pid, pk, values, key):
         row_keep = torch.ones(n, dtype=torch.bool, device=device)
         masked = (_clip_values(config, values) if config.needs_values
                   else None)
-        return pk, masked, row_keep, None, values
+        contrib = None
+        if config.per_partition_bounds:
+            # One row = one segment: the per-segment sum clip is a row
+            # clip, and the clipped row is also the masked value.
+            masked = contrib = _clip_sum(config, masked)
+        return Bounded(pk, masked, row_keep, None, None, values, contrib)
 
     # Bounding streams: tie-breaks keyed by row position, the per-run
     # salt, and the total-cap sample bits.
@@ -629,10 +645,18 @@ def _bound_rows(config: FusedConfig, pid, pk, values, key):
         seg_marker = new_seg & keep_l0
 
     masked = None
+    contrib = None
     if config.needs_values:
         clipped = _clip_values(config, svalues)
         masked = torch.where(_expand(keep_row, clipped), clipped, 0.0)
-    return spk, masked, keep_row, seg_marker, svalues
+    if config.per_partition_bounds:
+        # Clip each (pid, pk) segment's float32 SUM, contributed once per
+        # segment, on its marker row. The totals must add each segment's
+        # rows in order, as the reference's scatter does: kernel K4.
+        tot = segtotal.segment_totals(masked.contiguous(), new_seg)
+        contrib = torch.where(seg_marker, _clip_sum(config, tot), 0.0)
+    return Bounded(spk, masked, keep_row, seg_marker, new_seg, svalues,
+                   contrib)
 
 
 # Fixed-point value accumulation: quantization grid (2^23 steps over the
@@ -723,13 +747,14 @@ def _clip_values(config: FusedConfig, values):
 
 
 def _lane_stack(config: FusedConfig, masked, keep_row, seg_marker=None,
-                fx_bits: int = 7):
+                fx_bits: int = 7, contrib=None):
     """The int32 [N, C] stack that ``_reduce_per_pk`` reduces, and the
     names of its value lanes: the kept-row count, the segment marker (when
-    given) and the fixed-point lanes of each value column. The value
-    arithmetic is float32, as in the JAX package: ``y * scale`` rounds
-    ``scale`` to float32 first (JAX's weak typing), and ``torch.round``
-    rounds half to even like ``jnp.round``."""
+    given) and the fixed-point lanes of each value column; the
+    per-partition-bounds ``sum`` column quantizes ``contrib`` on the
+    marker rows. The value arithmetic is float32, as in the JAX package:
+    ``y * scale`` rounds ``scale`` to float32 first (JAX's weak typing),
+    and ``torch.round`` rounds half to even like ``jnp.round``."""
     int_cols = [keep_row.to(torch.int32)]
     lane_names: List[str] = []
     if seg_marker is not None:
@@ -741,12 +766,17 @@ def _lane_stack(config: FusedConfig, masked, keep_row, seg_marker=None,
         raise NotImplementedError(
             f"{keep_row.shape[0]} rows overflow {fx_bits}-bit fixed-point "
             "lanes; pass a smaller fx_bits (see _fx_plan)")
-    if layout:
+    if any(spec.name != "sum" for spec in layout):
         middle = _f32(dp_computations.compute_middle(config.min_value,
                                                      config.max_value))
         centred = masked - middle
     for spec in layout:
-        if spec.name == "nsum":
+        mask = keep_row
+        if spec.name == "sum":  # per-partition-bound mode
+            y = contrib
+            if seg_marker is not None:
+                mask = seg_marker
+        elif spec.name == "nsum":
             y = centred
         else:  # nsumsq. A product with no add after it: no FMA to match.
             y = centred * centred
@@ -754,7 +784,7 @@ def _lane_stack(config: FusedConfig, masked, keep_row, seg_marker=None,
         # boundary can land one step past +-(2^23 - 1).
         q = torch.clamp(torch.round(y * _f32(spec.scale)),
                         -(_FX_STEPS - 1), _FX_STEPS - 1).to(torch.int32)
-        u = torch.where(keep_row, q + (_FX_OFFSET if spec.signed else 0), 0)
+        u = torch.where(mask, q + (_FX_OFFSET if spec.signed else 0), 0)
         for k in range(n_lanes):
             int_cols.append((u >> (k * fx_bits)) & ((1 << fx_bits) - 1))
             lane_names.append(f"{spec.name}_fx{k}")
@@ -777,7 +807,7 @@ def _vector_lanes(config: FusedConfig, masked, keep_row, fx_bits: int):
 
 
 def _reduce_per_pk(config: FusedConfig, pk_safe, masked, keep_row, P,
-                   seg_marker=None, fx_bits: int = 7):
+                   seg_marker=None, fx_bits: int = 7, contrib=None):
     """Per-pk accumulator columns straight from row space, as (columns
     dict, privacy-id-count column or None), all int32 [P]: the lane stack
     reduced by ONE ``segment_sum_lanes`` call (kernel K1 on the card).
@@ -787,7 +817,7 @@ def _reduce_per_pk(config: FusedConfig, pk_safe, masked, keep_row, P,
     package's float32 ``jax.ops.segment_sum``, which adds in another
     order."""
     stack, lane_names = _lane_stack(config, masked, keep_row, seg_marker,
-                                    fx_bits)
+                                    fx_bits, contrib)
     pk32 = pk_safe.to(torch.int32).contiguous()
     stacked = segsum.segment_sum_lanes(stack, pk32, P)
     part = {"count": stacked[:, 0]}
@@ -1288,10 +1318,21 @@ def _host_release(config: FusedConfig, specs, part, nseg,
                 part["count"], _release_noise_params(config,
                                                      specs["count"]), rng)
         if "SUM" in names:
-            # sum(x) = sum(x - mid) + count * mid, exactly, in float64.
-            middle = dp_computations.compute_middle(config.min_value,
-                                                    config.max_value)
-            raw_sum = part["nsum"] + part["count"].astype(np.float64) * middle
+            if config.per_partition_bounds:
+                raw_sum = part["sum"]
+                if config.selection is None:
+                    # Every public partition receives one empty
+                    # accumulator, whose clipped sum is clip(0, min_sum,
+                    # max_sum), as in the JAX package.
+                    raw_sum = raw_sum + float(
+                        np.clip(0.0, config.min_sum_per_partition,
+                                config.max_sum_per_partition))
+            else:
+                # sum(x) = sum(x - mid) + count * mid, exactly, in float64.
+                middle = dp_computations.compute_middle(config.min_value,
+                                                        config.max_value)
+                raw_sum = part["nsum"] + part["count"].astype(
+                    np.float64) * middle
             out["sum"] = dp_computations.compute_dp_sum(
                 raw_sum, _release_noise_params(config, specs["sum"]), rng)
     if "PRIVACY_ID_COUNT" in names:
@@ -1477,14 +1518,24 @@ class LazyFusedResult:
     protocol. Iterating again reuses the cached result.
 
     ``timings`` holds ``host_encode_s``, ``device_s`` (ends with a
-    synchronise on the card) and ``host_decode_s`` of the last run; a
-    streamed run adds ``stream_batches`` and, with percentiles,
-    ``stream_pass_b`` (the pass-B batch source, always ``"reship"``),
-    ``stream_pass_b_sweeps`` and ``stream_pass_b_tiles``."""
+    synchronise on the card) and ``host_decode_s`` of the last run. A
+    streamed run adds the JAX package's stream keys: ``stream_batches``;
+    pass A's ``stream_executor`` ("serial" or "overlapped"),
+    ``stream_t_stage``, ``stream_t_device`` (waiting for batch outputs),
+    ``stream_t_fold``, ``stream_t_total`` (the loop's wall),
+    ``stream_overlap_frac``, ``stream_stage_s`` (both passes) and
+    ``stream_fold_wait_s``; with a checkpoint store
+    ``stream_resumed_from`` and ``stream_checkpoint_saves``; with
+    percentiles ``stream_pass_b`` (the pass-B source: ``"device_cache"``,
+    ``"hybrid"`` or ``"reship"``), ``stream_pass_b_sweeps``,
+    ``stream_pass_b_tiles``, ``stream_pass_b_tiles_per_sweep``,
+    ``stream_pass_b_cached_batches``, ``stream_pass_b_reshipped_bytes``
+    and ``stream_pass_b_sweep_s``."""
 
     def __init__(self, rows, params: AggregateParams, config: FusedConfig,
                  data_extractors, public_partitions, specs,
-                 selection_spec, rng_seed: Optional[int], device):
+                 selection_spec, rng_seed: Optional[int], device,
+                 stream: Optional[Dict[str, Any]] = None):
         self._rows = rows
         self._params = params
         self._config = config
@@ -1494,6 +1545,7 @@ class LazyFusedResult:
         self._selection_spec = selection_spec
         self._rng_seed = rng_seed
         self._device = torch.device(device)
+        self._stream = dict(stream or {})
         self._cache = None
         self.timings: Optional[Dict[str, float]] = None
 
@@ -1632,15 +1684,23 @@ class LazyFusedResult:
         t0 = time.perf_counter()
         keep, part64, stats = streaming.stream_partials_and_select(
             config, encoded, scales, keep_table, thr, s_scale, min_count,
-            rows_per_uid, self._rng_seed, self._device)
+            rows_per_uid, self._rng_seed, self._device, **self._stream)
         _sync(self._device)
         self.timings["device_s"] = time.perf_counter() - t0
         self.timings["stream_batches"] = stats["n_batches"]
+        if "resumed_from_batch" in stats:
+            self.timings["stream_resumed_from"] = stats["resumed_from_batch"]
+            self.timings["stream_checkpoint_saves"] = stats[
+                "checkpoint_saves"]
+        for k in ("stage_s", "fold_wait_s", "t_stage", "t_fold", "t_device",
+                  "t_total", "overlap_frac", "executor"):
+            self.timings[f"stream_{k}"] = stats[k]
         if config.percentiles:
-            self.timings.update(
-                stream_pass_b=stats["pass_b_source"],
-                stream_pass_b_sweeps=stats["pass_b_sweeps"],
-                stream_pass_b_tiles=stats["pass_b_tiles"])
+            self.timings["stream_pass_b"] = stats["pass_b_source"]
+            for k in ("pass_b_sweeps", "pass_b_tiles",
+                      "pass_b_tiles_per_sweep", "pass_b_cached_batches",
+                      "pass_b_reshipped_bytes", "pass_b_sweep_s"):
+                self.timings[f"stream_{k}"] = stats[k]
 
         t0 = time.perf_counter()
         part64 = {k: v[:P] for k, v in part64.items()}
@@ -1700,13 +1760,16 @@ class LazySelectResult:
         P = len(encoded.pk_vocab)
         if P == 0:
             return []
-        from pipelinedp_tpu_torch import streaming
-        if streaming.should_stream(config, encoded.n_rows):
-            raise NotImplementedError(
-                f"{encoded.n_rows} rows exceed one batch: streamed "
-                "select_partitions is ROADMAP step 7")
         keep_table, thr, s_scale, min_count = selection_inputs(
             config, self._spec.eps, self._spec.delta, params.pre_threshold)
+        from pipelinedp_tpu_torch import streaming
+        if streaming.should_stream(config, encoded.n_rows):
+            # The stream with no metrics: only its keep vector is read,
+            # and the kept keys go out in ascending vocabulary order.
+            keep, _, _ = streaming.stream_partials_and_select(
+                config, encoded, np.zeros(1, np.float32), keep_table, thr,
+                s_scale, min_count, 1.0, self._rng_seed, self._device)
+            return [encoded.pk_vocab[i] for i in np.flatnonzero(keep[:P])]
         keep_pk, _, _ = _run_fused(config, encoded, _noise_scales(config, {}),
                                    keep_table, thr, s_scale, min_count, 1.0,
                                    self._rng_seed, self._device)
@@ -1745,11 +1808,13 @@ def build_fused_select_partitions(col, params, data_extractors,
 
 def build_fused_aggregation(col, params: AggregateParams, data_extractors,
                             public_partitions, budget_accountant,
-                            report_gen, rng_seed=None,
-                            device="cuda") -> LazyFusedResult:
+                            report_gen, rng_seed=None, device="cuda",
+                            stream=None) -> LazyFusedResult:
     """Engine entry point of the fused path: requests budgets (the same
     requests, in the same order, as the JAX package), registers report
-    stages, returns the lazy result."""
+    stages, returns the lazy result. ``stream`` holds the keyword options
+    of ``streaming.stream_partials_and_select`` (``checkpoint``,
+    ``executor``, ``cache_bytes``)."""
     public = public_partitions is not None
     config = FusedConfig.from_params(params, public)
     specs = request_budgets(config, params, budget_accountant)
@@ -1792,4 +1857,4 @@ def build_fused_aggregation(col, params: AggregateParams, data_extractors,
         "device pass")
     return LazyFusedResult(col, params, config, data_extractors,
                            public_partitions, specs, selection_spec,
-                           rng_seed, device)
+                           rng_seed, device, stream)

@@ -297,25 +297,13 @@ def test_torch_backend_without_cuda_raises():
 
 @pytest.mark.parametrize("params", [
     _params(metrics=[M.PERCENTILE(50)], min_value=0.0, max_value=1e-35),
-    pdp.AggregateParams(metrics=[M.VECTOR_SUM], vector_size=3,
-                        vector_max_norm=1.0, max_partitions_contributed=1,
-                        max_contributions_per_partition=1),
-    pdp.AggregateParams(metrics=[M.SUM], max_partitions_contributed=1,
-                        max_contributions_per_partition=1,
-                        min_sum_per_partition=0.0,
-                        max_sum_per_partition=5.0),
-], ids=["percentile", "vector_sum", "sum_per_partition_bounds"])
-def test_unported_params_raise(params, monkeypatch):
+], ids=["percentile"])
+def test_unported_params_raise(params):
     """Params of later slices raise. PERCENTILE itself is ported; what
     stays unported of it is a range so small that its float32 leaf
     constant overflows, which the JAX package sends to its host path
-    (ROADMAP step 11). VECTOR_SUM is ported; what stays unported of it is
-    a table larger than one batch (streamed VECTOR_SUM, ROADMAP step 7),
-    shown here with the batch cut to 50 rows."""
+    (ROADMAP step 11)."""
     pid, pk, values = _data(0, n=100)
-    if params.vector_size:
-        values = np.zeros((100, params.vector_size), np.float32)
-        monkeypatch.setenv("PIPELINEDP_TPU_STREAM_CHUNK", "50")
     acc = pdt.NaiveBudgetAccountant(total_epsilon=EPS, total_delta=DELTA)
     engine = pdt.DPEngine(acc, pdt.TorchBackend("cpu", rng_seed=0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

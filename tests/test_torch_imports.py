@@ -35,7 +35,9 @@ def test_port_has_files():
     assert os.path.join(REPO, "chip_smoke.py") in files
     for module in ("ops/vector_noise.py", "ops/counter_rng.py",
                    "ops/kernels/segsum.py", "ops/kernels/hist.py",
-                   "ops/quantile_tree.py", "streaming.py"):
+                   "ops/kernels/segtotal.py", "ops/quantile_tree.py",
+                   "streaming.py", "ingest/executor.py",
+                   "resilience/checkpoint.py", "resilience/faults.py"):
         assert os.path.join(REPO, "pipelinedp_tpu_torch", module) in files
     assert len(files) > 10
 
