@@ -71,10 +71,15 @@ Phases, one line each; any failure raises and exits non-zero:
     percentiles;
 12. K4 vs plain (after phase 4, on its data): ``segment_totals`` on the
     card against its plain version, bit for bit, on the flagship's
-    bounded rows under per-partition sum bounds and on a hot-segment
-    stack (one (user, partition) pair of 2^20 rows), each timed beside
-    the plain version and one float32 ``index_add_`` (the library
-    yardstick; its bits differ), K1 timed on the per-partition lane stack;
+    bounded rows under per-partition sum bounds, on a hot-segment stack
+    (one (user, partition) pair of 2^20 rows), on the mid-length stack
+    (25M rows in segments of 65-1024 rows), each timed beside the plain
+    version and one float32 ``index_add_`` (the library yardstick; its
+    bits differ) with its bound (the larger of the bytes and the longest
+    segment's add chain), and on every layout of
+    ``segtotal.seam_layout`` (segments over the seams of the kernel's
+    tiled fold), aligned and as an offset view; K1 timed on the
+    per-partition lane stack;
 13. the per-partition-sum-bounds SUM, GPU vs CPU: 1M rows, COUNT+SUM
     with totals clipped to [0, 20], in the three bounding modes: the same
     kept keys and float64 releases, K4 launched on the card where
@@ -145,6 +150,8 @@ CAP_ENV = "PIPELINEDP_TPU_SUBHIST_CAP"
 KERNEL_SOURCES = ("segsum_lanes", "segsum_wide", "hist_bin", "segtotal")
 # ``bench.py``'s ``bench_streaming`` at its default ``--stream-rows``.
 STREAM_ROWS = 150_000_000
+# K4's hot segment: one (user, partition) pair of 2^20 rows.
+HOT_ROWS = 1 << 20
 RECORD = {"phases": {}}
 
 
@@ -1135,11 +1142,12 @@ def bounded_rows(columns, params_kw, seed):
         enc.n_rows)[0]
 
 
-def time_segtotal(values, new_seg, plain_reps=5):
+def time_segtotal(values, new_seg, max_sm_mhz, plain_reps=5):
     """K4 against its plain version, bit for bit, and the median ms of K4,
     the plain version and one float32 ``index_add_`` over the segment
     ordinals (the library yardstick: per-segment totals, in no fixed order,
-    so not K4's bits), with the bound for these inputs."""
+    so not K4's bits), with the bound for these inputs: the larger of the
+    bytes over the memory rate and the longest segment's add chain."""
     from pipelinedp_tpu_torch.ops.kernels import segtotal
     got = segtotal.segment_totals(values, new_seg)
     t0 = time.perf_counter()
@@ -1164,11 +1172,14 @@ def time_segtotal(values, new_seg, plain_reps=5):
                                                             values)
 
     n = values.shape[0]
-    # Each value and flag read once, each total written once; one float32
-    # add per row.
+    longest = int(lens.max())
+    # Each value and flag read once, each total written once. The adds of
+    # a segment form one chain of dependent float32 adds, about 4 cycles
+    # each at the card's top SM clock, so the longest segment takes at
+    # least its chain.
     bytes_moved = n * 4 + n * 1 + n * 4
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = n / SCALAR_OPS_PER_S * 1e3
+    chain_ms = longest * 4 / (max_sm_mhz * 1e6) * 1e3
     return dict(
         max_abs_err=max_abs_err,
         ms=cuda_ms(lambda: segtotal.segment_totals(values, new_seg)),
@@ -1176,50 +1187,97 @@ def time_segtotal(values, new_seg, plain_reps=5):
                   cuda_ms(lambda: segtotal.segment_totals_plain(
                       values, new_seg), reps=plain_reps, warm=1)),
         library_ms=cuda_ms(library),
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bound_bytes=bytes_moved, rows=n, segments=n_seg,
-        longest_segment=int(lens.max()),
+        bound_ms=max(bytes_ms, chain_ms),
+        bound_by="bytes" if bytes_ms >= chain_ms else "operations",
+        bytes_ms=bytes_ms, chain_ms=chain_ms, bound_bytes=bytes_moved,
+        rows=n, segments=n_seg, longest_segment=longest,
         rows_in_segments_over_64=int(lens[lens > 64].sum()))
+
+
+def mid_stack(n=FLAGSHIP["rows"], seed=46):
+    """The mid-length stack: ``n`` rows cut into segments of lengths drawn
+    uniformly from 65-1024 rows (many rows per (user, partition), such as
+    one user's transactions at one merchant), float32 values uniform in
+    [0, 10), from one numpy generator."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(65, 1025, n // 65 + 1)
+    starts = np.concatenate([[0], np.cumsum(lengths)])
+    new_seg = np.zeros(n, bool)
+    new_seg[starts[starts < n]] = True
+    values = rng.uniform(0.0, 10.0, n).astype(np.float32)
+    dev = torch.device("cuda")
+    return torch.from_numpy(values).to(dev), torch.from_numpy(new_seg).to(dev)
+
+
+def segtotal_seams():
+    """K4 against its plain version, bit for bit, on every layout of
+    ``segtotal.seam_layout`` with normal and order-sensitive values,
+    aligned and as a view one row in."""
+    from pipelinedp_tpu_torch.ops.kernels import segtotal
+    checked = []
+    for name in segtotal.SEAM_LAYOUTS:
+        for order_sensitive in (False, True):
+            values, new_seg = segtotal.seam_layout(name, order_sensitive)
+            for offset in (0, 1):
+                v = torch.from_numpy(values).cuda()[offset:]
+                f = torch.from_numpy(new_seg).cuda()[offset:]
+                got = segtotal.segment_totals(v, f)
+                want = segtotal.segment_totals_plain(v, f)
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (
+                    f"K4 differs from its plain version on {name} "
+                    f"(order-sensitive {order_sensitive}, offset {offset})")
+                checked.append(f"{name}/{order_sensitive}/{offset}")
+    return checked
 
 
 def phase_segtotal_kernel(columns, max_sm_mhz):
     """K4 against its plain version on the flagship stack with
-    per-partition bounds and on a hot-segment stack (one (user, partition)
-    pair with 2^20 rows), timed; K1 timed on the flagship's per-partition
+    per-partition bounds, on a hot-segment stack (one (user, partition)
+    pair with 2^20 rows), on the mid-length stack and on the seam layouts,
+    timed on the three stacks; K1 timed on the flagship's per-partition
     lane stack."""
     import pipelinedp_tpu_torch as pdt
     from pipelinedp_tpu_torch import torch_engine as te
     params = sum_bounds_params(pdt)
     config, b, P, fx_bits = bounded_rows(columns, params, FLAGSHIP["seed"])
     masked = b.masked.contiguous()
-    flagship = time_segtotal(masked, b.new_seg)
+    flagship = time_segtotal(masked, b.new_seg, max_sm_mhz)
     stack, _ = te._lane_stack(config, b.masked, b.keep_row, b.seg_marker,
                               fx_bits, b.contrib)
     k1 = time_kernel(stack, b.spk.to(torch.int32).contiguous(), P)
     del b, masked, stack
-    # The hot segment: 3M flagship-like rows and one more user with 2^20
-    # rows in partition 0, all kept (Linf 2^21), so the segment's values
-    # are its raw values.
-    hot_rows = 1 << 20
+    hot_values, hot_new_seg = hot_stack()
+    hot_rec = time_segtotal(hot_values, hot_new_seg, max_sm_mhz,
+                            plain_reps=1)
+    assert hot_rec["longest_segment"] == HOT_ROWS
+    del hot_values, hot_new_seg
+    mid_values, mid_new_seg = mid_stack()
+    mid_rec = time_segtotal(mid_values, mid_new_seg, max_sm_mhz,
+                            plain_reps=1)
+    del mid_values, mid_new_seg
+    seams = segtotal_seams()
+    log("segtotal_kernel", kernel="segment_totals", flagship=flagship,
+        flagship_k1=k1, hot_segment=hot_rec, mid_length=mid_rec,
+        seams_identical=seams, max_sm_mhz=max_sm_mhz)
+    return flagship
+
+
+def hot_stack():
+    """The hot segment: 3M flagship-like rows and one more user with
+    HOT_ROWS rows in partition 0, all kept (Linf 2^21), bounded as the
+    per-partition SUM bounds them, so the segment's values are its raw
+    values."""
+    import pipelinedp_tpu_torch as pdt
     base = zipf_columns(3_000_000, 20_000, 5_000, seed=43)
     rng = np.random.default_rng(44)
-    hot = (np.concatenate([base[0], np.full(hot_rows, 20_000)]),
-           np.concatenate([base[1], np.zeros(hot_rows, np.int64)]),
-           np.concatenate([base[2], rng.uniform(0.0, 10.0, hot_rows)]))
+    hot = (np.concatenate([base[0], np.full(HOT_ROWS, 20_000)]),
+           np.concatenate([base[1], np.zeros(HOT_ROWS, np.int64)]),
+           np.concatenate([base[2], rng.uniform(0.0, 10.0, HOT_ROWS)]))
     hot_params = sum_bounds_params(pdt, max_partitions_contributed=4,
                                    max_contributions_per_partition=1 << 21)
     _, hb, _, _ = bounded_rows(hot, hot_params, 45)
-    hot_rec = time_segtotal(hb.masked.contiguous(), hb.new_seg,
-                            plain_reps=1)
-    assert hot_rec["longest_segment"] == hot_rows
-    # The longest segment's adds form one chain of dependent float32 adds:
-    # at least about 4 cycles each at the card's top SM clock.
-    hot_rec["add_chain_floor_ms"] = hot_rows * 4 / (max_sm_mhz * 1e6) * 1e3
-    del hb
-    log("segtotal_kernel", kernel="segment_totals", flagship=flagship,
-        flagship_k1=k1, hot_segment=hot_rec, max_sm_mhz=max_sm_mhz)
-    return flagship
+    return hb.masked.contiguous(), hb.new_seg
 
 
 def phase_sum_bounds_gpu_vs_cpu():

@@ -36,9 +36,23 @@ import torch
 #: Kernel launches since the last reset (the CPU path never counts).
 LAUNCHES: Dict[str, int] = {"segment_totals": 0}
 
-#: ``kShort`` of ``csrc/segtotal.cu``: the longest segment its first
-#: launch folds; longer ones go to a list for a warp each.
-SHORT_ROWS = 64
+#: ``kTile`` of ``csrc/segtotal.cu``: the rows of one block of its first
+#: launch. At most one segment a tile goes to the second launch, so the
+#: scratch holds one entry per tile.
+TILE_ROWS = 2048
+
+#: Rows a thread of the first launch holds (``kRows``), and so the rows
+#: of one of its warps; and the rows after its tile a block of the first
+#: launch reads (``kSpill``): a segment that runs past its tile's end and
+#: ends within them is finished there, a longer one goes to the second
+#: launch. With TILE_ROWS, the seams of the kernel's fold.
+THREAD_ROWS = 8
+WARP_ROWS = 32 * THREAD_ROWS
+SPILL_ROWS = 64
+
+#: The layouts of ``seam_layout``.
+SEAM_LAYOUTS = ("thread", "warp", "tile", "tile_last_row", "two_tiles",
+                "spill", "mid_length")
 
 
 def reset_launches() -> None:
@@ -85,6 +99,57 @@ def segment_totals_plain(values: torch.Tensor,
     return by_segment[seg_ord]
 
 
+def _order_values(n: int, rng: np.random.Generator) -> np.ndarray:
+    """Small values with a 1e8 and, three rows later, a -1e8 every seven
+    rows: the running value keeps returning near 0, and each small value
+    added while it is near 1e8 rounds away, so a total depends on where
+    each add happens."""
+    values = rng.choice(np.float32([1.0, 0.37, 2.5]), n)
+    big = np.arange(int(rng.integers(0, 3)), n - 3, 7)
+    values[big] = np.float32(1e8)
+    values[big + 3] = np.float32(-1e8)
+    return values
+
+
+def seam_layout(name: str, order_sensitive: bool = False):
+    """``(values, new_seg)`` as numpy arrays: segments laid over the seams
+    of the CUDA kernel's tiled fold, for holding it to the plain version.
+    ``thread``, ``warp``, ``tile``: lengths one below, at and one above
+    that many rows; ``tile_last_row``: segments starting on a tile's last
+    row (one ends there, one runs into the next tile); ``two_tiles``:
+    segments spanning exactly two tiles, tile-aligned and not;
+    ``mid_length``: 40 lengths drawn from 65-1024 rows. Values are
+    standard normal times 10, or order-sensitive (``_order_values``)."""
+    rng = np.random.default_rng(30 + SEAM_LAYOUTS.index(name))
+    around = {"thread": THREAD_ROWS, "warp": WARP_ROWS, "tile": TILE_ROWS}
+    if name in around:
+        r = around[name]
+        lengths = [r - 1, r, r + 1] * 4 + [1, r + 1, r - 1, r]
+    elif name == "tile_last_row":
+        lengths = [TILE_ROWS - 1, 1, TILE_ROWS - 1, TILE_ROWS + 1,
+                   TILE_ROWS - 1, 5, 40]
+    elif name == "two_tiles":
+        lengths = [TILE_ROWS, 2 * TILE_ROWS, TILE_ROWS - 3, 2 * TILE_ROWS,
+                   10]
+    elif name == "spill":
+        lengths, pos = [], 0
+        for past in (SPILL_ROWS - 1, SPILL_ROWS, SPILL_ROWS + 1) * 2:
+            fill = (pos // TILE_ROWS + 1) * TILE_ROWS - 10 - pos
+            lengths += [fill, 10 + past]
+            pos += fill + 10 + past
+        lengths.append(7)
+    else:
+        lengths = list(rng.integers(65, 1025, 40))
+    n = int(np.sum(lengths))
+    if order_sensitive:
+        values = _order_values(n, rng)
+    else:
+        values = (rng.standard_normal(n) * 10).astype(np.float32)
+    new_seg = np.zeros(n, bool)
+    new_seg[np.cumsum([0] + lengths[:-1])] = True
+    return values, new_seg
+
+
 def _check(values: torch.Tensor, new_seg: torch.Tensor) -> None:
     if values.dtype != torch.float32:
         raise TypeError(f"segment_totals takes float32 values, got "
@@ -104,6 +169,27 @@ def _check(values: torch.Tensor, new_seg: torch.Tensor) -> None:
                          f"{values.device}")
 
 
+_LAUNCH = []
+
+
+def _launcher():
+    """``segtotal_launch`` of the built ``csrc/segtotal.cu``, loaded once:
+    the call per launch is then a ctypes call and nothing more."""
+    if not _LAUNCH:
+        from pipelinedp_tpu_torch.ops.kernels import _build
+        lib = _build.load("segtotal")
+        lib.segtotal_tile_rows.restype = ctypes.c_int
+        if lib.segtotal_tile_rows() != TILE_ROWS:
+            raise RuntimeError("csrc/segtotal.cu's tile differs from "
+                               "TILE_ROWS")
+        fn = lib.segtotal_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LAUNCH.append(fn)
+    return _LAUNCH[0]
+
+
 def segment_totals(values: torch.Tensor,
                    new_seg: torch.Tensor) -> torch.Tensor:
     """Each row's float32 segment total, ``[N]``: ``values`` float32
@@ -112,28 +198,27 @@ def segment_totals(values: torch.Tensor,
     _check(values, new_seg)
     if values.device.type == "cpu":
         return segment_totals_plain(values, new_seg)
-    from pipelinedp_tpu_torch.ops.kernels import _build
-    fn = _build.load("segtotal").segtotal_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     n = values.shape[0]
-    # The kernel's cp.async copies read 16-byte pieces of values and
-    # 8-byte pieces of new_seg; an offset view is copied to fresh storage
-    # (the caching allocator aligns every block) before the launch.
+    # The kernel reads values in 16-byte and new_seg in 8-byte pieces; an
+    # offset view is copied to fresh storage (the caching allocator aligns
+    # every block) before the launch.
     if values.data_ptr() % 16:
         values = values.clone()
     if new_seg.data_ptr() % 8:
         new_seg = new_seg.clone()
-    with torch.cuda.device(values.device):
-        out = torch.empty(n, dtype=torch.float32, device=values.device)
-        # The starts of segments longer than SHORT_ROWS, and their count.
-        long_starts = torch.empty(n // SHORT_ROWS + 1, dtype=torch.int64,
-                                  device=values.device)
-        n_long = torch.zeros(1, dtype=torch.int32, device=values.device)
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(values.data_ptr(), new_seg.data_ptr(), out.data_ptr(),
-                 long_starts.data_ptr(), n_long.data_ptr(), n, stream)
+    device = values.device
+    tiles = (n + TILE_ROWS - 1) // TILE_ROWS
+    # One allocation: the totals, then in whole int64 words the scratch:
+    # each tile's first start, the starts of the segments the second
+    # launch folds, and their count (an int32, which the launch zeroes).
+    out_words = (n + 1) // 2
+    buf = torch.empty(out_words + 2 * tiles + 1, dtype=torch.int64,
+                      device=device)
+    out = buf.view(torch.float32)[:n]
+    with torch.cuda.device(device):
+        err = _launcher()(values.data_ptr(), new_seg.data_ptr(),
+                          out.data_ptr(), out.data_ptr() + 8 * out_words, n,
+                          torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"segtotal launch failed: CUDA error {err}")
     LAUNCHES["segment_totals"] += 1

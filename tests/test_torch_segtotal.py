@@ -7,9 +7,12 @@ On the CPU: the plain version against the JAX package's
 bit, on random inputs and on inputs whose float32 sum depends on the order
 of the adds; the order claim itself (XLA's CPU scatter folds each segment
 left to right); a run of ``-0.0``; every row its own segment; the
-wrapper's dispatch and checks. On the card (``cuda`` marker): the CUDA
-kernel against the plain version, bit for bit, with short and long
-segments.
+wrapper's dispatch and checks; segment layouts at the seams of the CUDA
+kernel's tiled fold (lengths around a thread's, a warp's and a tile's
+rows, a segment on a tile's last row, one spanning two tiles, mid-length
+segments), with values whose totals depend on the order. On the card
+(``cuda`` marker): the CUDA kernel against the plain version, bit for bit,
+with short and long segments and on those layouts.
 """
 
 import numpy as np
@@ -177,7 +180,28 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         segtotal.segment_totals(values, flags)
 
 
+LAYOUTS = segtotal.SEAM_LAYOUTS
+
+
+@pytest.mark.parametrize("order_sensitive", [False, True],
+                         ids=["normal", "order_sensitive"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_plain_matches_jax_at_the_kernel_seams(layout, order_sensitive):
+    values, new_seg = segtotal.seam_layout(layout, order_sensitive)
+    got = _plain(values, new_seg)
+    np.testing.assert_array_equal(_bits(got), _bits(_jax_totals(values,
+                                                                new_seg)))
+    if order_sensitive:
+        # The values do make the order matter: folded right to left, some
+        # segment's total differs.
+        backwards = _fold(values[::-1], np.roll(new_seg, -1)[::-1])[::-1]
+        assert (_bits(backwards) != _bits(got)).any()
+
+
 def _cuda_case(case):
+    if case.startswith("seams_"):
+        name, _, kind = case[len("seams_"):].partition("/")
+        return segtotal.seam_layout(name, kind == "order_sensitive")
     if case == "random_short":
         return _random_case(7, 100_000, 2)
     if case == "random_mixed":
@@ -209,7 +233,11 @@ def _cuda_case(case):
 @pytest.mark.parametrize("case", ["random_short", "random_mixed",
                                   "order_sensitive", "own_segment",
                                   "hot_segment", "long_segments",
-                                  "long_to_the_end"])
+                                  "long_to_the_end"] + [
+                                      f"seams_{name}/{kind}"
+                                      for name in LAYOUTS
+                                      for kind in ("normal",
+                                                   "order_sensitive")])
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset_view"])
 def test_cuda_kernel_matches_plain(case, offset):
     if not torch.cuda.is_available():
