@@ -104,17 +104,41 @@ Phases, one line each; any failure raises and exits non-zero:
     rows, COUNT+SUM+MEAN, three batches of the default chunk), serial and
     overlapped: bit for bit the same release, with each wall and its
     stage / device / fold split;
-20. a ``kernels`` JSON line per kernel (K1-K4), then the card line, then
+20. K5 vs plain: ``segmented_sums`` on the card against its plain
+    version, bit for bit, on config 5's count stack (``[n, Cc * 5]``, the
+    first chunk of phase 22) and selection-moment stack (``[n, Cc * 3]``),
+    on a one-key stack of the same rows (the add chain's case), each timed
+    beside the plain version and one float32 ``index_add_`` (the library
+    yardstick; its bits differ) with its bound, and on every layout of
+    ``segkeyed.seam_layout``, aligned and one row in;
+21. the utility-analysis sweep, GPU vs CPU: config 5's data over 64
+    configs of its grid (a chunk of 64 on the card, of 32 on the CPU), a
+    mixed-mechanism sweep with public partitions (two empty) and
+    per-partition rows, and the fused dataset histograms and ``tune`` on
+    config 5's data: every field bit for bit;
+22. BASELINE config 5 at its spec (``bench_analysis_sweep``:
+    ``zipf_dataset(500k, 20k, 1000, seed=1)``, the 100 x 100 (l0, linf)
+    grid of 10,000 configs, COUNT, Laplace, truncated-geometric
+    selection): wall, configs/s, configs x rows / s, the chunking, K5's
+    and K4's device time from CUDA events, the peak memory, with the
+    kernel counts zeroed just before and read just after;
+23. the sweep killed at config chunk 3 and resumed from its ``.sweep``
+    checkpoint under ``build/``: bit for bit the unbroken sweep;
+24. ``bench_utility_megasweep``'s shape (1M rows, 2000 partitions) at
+    K = 16, 64, 256: walked (width 1) and batched (width K) bit for bit,
+    configs/s of each;
+25. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
     the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
-after phase 4 and of config 4 after phase 10: CUDA-event times of each
-device stage, and the device busy share and top operators from
-``torch.profiler``; and one more overlapped 150M-row run under the
-profiler in phase 19. ``--out DIR`` writes the phase records
-(``chip_smoke.json``) and the profiler tables (``flagship_profile.txt``,
-``config4_profile.txt``, ``config4_streamed_profile.txt``,
-``stream150_profile.txt``) into DIR.
+after phase 4, of config 4 after phase 10 and of config 5's sweep after
+phase 22: CUDA-event times of each device stage, and the device busy
+share and top operators from ``torch.profiler``; and one more overlapped
+150M-row run under the profiler in phase 19. ``--out DIR`` writes the
+phase records (``chip_smoke.json``) and the profiler tables
+(``flagship_profile.txt``, ``config4_profile.txt``,
+``config4_streamed_profile.txt``, ``stream150_profile.txt``,
+``config5_profile.txt``) into DIR.
 
 It exits non-zero, and prints no result, without a CUDA device.
 """
@@ -147,11 +171,21 @@ VECTOR_PARTITIONS = 2048
 CONFIG4 = dict(rows=10_000_000, users=200_000, partitions=100_000, seed=4)
 CHUNK_ENV = "PIPELINEDP_TPU_STREAM_CHUNK"
 CAP_ENV = "PIPELINEDP_TPU_SUBHIST_CAP"
-KERNEL_SOURCES = ("segsum_lanes", "segsum_wide", "hist_bin", "segtotal")
+KERNEL_SOURCES = ("segsum_lanes", "segsum_wide", "hist_bin", "segtotal",
+                  "segkeyed")
 # ``bench.py``'s ``bench_streaming`` at its default ``--stream-rows``.
 STREAM_ROWS = 150_000_000
 # K4's hot segment: one (user, partition) pair of 2^20 rows.
 HOT_ROWS = 1 << 20
+# BASELINE config 5: ``bench.py``'s ``bench_analysis_sweep`` at its spec,
+# ``zipf_dataset(500_000, 20_000, 1_000, seed=1)`` over the 100 x 100
+# (l0, linf) grid.
+CONFIG5 = dict(rows=500_000, users=20_000, partitions=1_000, seed=1)
+CONFIG5_CONFIGS = 10_000
+# ``bench.py``'s ``bench_utility_megasweep`` at 1M rows.
+MEGASWEEP = dict(rows=1_000_000, users=40_000, partitions=2_000, seed=23)
+MEGASWEEP_WIDTHS = (16, 64, 256)
+SWEEP_BATCH_ENV = "PIPELINEDP_TPU_SWEEP_CONFIG_BATCH"
 RECORD = {"phases": {}}
 
 
@@ -1318,13 +1352,16 @@ def phase_sum_bounds_gpu_vs_cpu():
 
 
 def _launch_counts():
-    from pipelinedp_tpu_torch.ops.kernels import hist, segsum, segtotal
-    return dict(segsum.LAUNCHES, **hist.LAUNCHES, **segtotal.LAUNCHES)
+    from pipelinedp_tpu_torch.ops.kernels import (hist, segkeyed, segsum,
+                                                  segtotal)
+    return dict(segsum.LAUNCHES, **hist.LAUNCHES, **segtotal.LAUNCHES,
+                **segkeyed.LAUNCHES)
 
 
 def _reset_launches():
-    from pipelinedp_tpu_torch.ops.kernels import hist, segsum, segtotal
-    for mod in (segsum, hist, segtotal):
+    from pipelinedp_tpu_torch.ops.kernels import (hist, segkeyed, segsum,
+                                                  segtotal)
+    for mod in (segsum, hist, segtotal, segkeyed):
         mod.reset_launches()
 
 
@@ -1568,6 +1605,494 @@ def phase_kill_resume(columns, reference):
         **out)
 
 
+def sweep_options(tan, pdt, n_cfg):
+    """``bench.py``'s config-5 grid: ``n_cfg`` (l0, linf) pairs of a
+    square grid, COUNT, Laplace, eps = 1, delta = 1e-6, truncated-geometric
+    selection."""
+    side = int(round(np.sqrt(n_cfg)))
+    pairs = [(a, b) for a in range(1, side + 1)
+             for b in range(1, n_cfg // side + 1)]
+    multi = tan.MultiParameterConfiguration(
+        max_partitions_contributed=[a for a, _ in pairs],
+        max_contributions_per_partition=[b for _, b in pairs])
+    params = pdt.AggregateParams(
+        metrics=[pdt.Metrics.COUNT], noise_kind=pdt.NoiseKind.LAPLACE,
+        max_partitions_contributed=4, max_contributions_per_partition=2)
+    return len(pairs), tan.UtilityAnalysisOptions(
+        epsilon=1.0, delta=1e-6, aggregate_params=params,
+        multi_param_configuration=multi)
+
+
+def run_sweep(columns, options, device, width=None, public=None,
+              per_partition=False, checkpoint=None):
+    """One ``perform_utility_analysis`` through ``TorchBackend(device)``
+    with the chunk width pinned to ``width`` (None: the static formula):
+    (lazy result, [AggregateMetrics], per-partition rows or None, wall
+    seconds with the device synchronised)."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    if width is None:
+        os.environ.pop(SWEEP_BATCH_ENV, None)
+    else:
+        os.environ[SWEEP_BATCH_ENV] = str(width)
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tan.perform_utility_analysis(
+            pdt.ArrayDataset(*columns),
+            pdt.TorchBackend(device=device, checkpoint=checkpoint), options,
+            pdt.DataExtractors(), public_partitions=public,
+            return_per_partition=per_partition)
+        lazy, rows = out if per_partition else (out, None)
+        result = list(lazy)[0]
+        rows = dict(rows) if rows is not None else None
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return lazy, result, rows, time.perf_counter() - t0
+    finally:
+        os.environ.pop(SWEEP_BATCH_ENV, None)
+
+
+def sweep_bits(result):
+    """Every float field of every config's AggregateMetrics, as float64
+    bits (error metrics of each analysed metric, then selection)."""
+    import dataclasses
+    out = []
+    for m in result:
+        for part in (m.count_metrics, m.sum_metrics,
+                     m.privacy_id_count_metrics,
+                     m.partition_selection_metrics):
+            if part is None:
+                continue
+            for v in dataclasses.astuple(part):
+                if isinstance(v, (float, list)):
+                    out += list(np.asarray(v, np.float64).ravel())
+    return np.asarray(out, np.float64).view(np.uint64)
+
+
+def _assert_sweeps_identical(a, b, what):
+    assert len(a) == len(b), f"{what}: {len(a)} vs {len(b)} configs"
+    ab, bb = sweep_bits(a), sweep_bits(b)
+    assert ab.shape == bb.shape and bool((ab == bb).all()), (
+        f"{what}: {int((ab != bb).sum())} fields differ")
+    assert np.isfinite(ab.view(np.float64)).all(), f"{what}: non-finite"
+
+
+def _assert_pp_rows_identical(a, b, what):
+    import dataclasses
+    assert [str(k) for k in a] == [str(k) for k in b], what
+    for k in a:
+        for x, y in zip(a[k], b[k]):
+            if isinstance(x, float):
+                assert np.float64(x).view(np.uint64) == np.float64(
+                    y).view(np.uint64), (what, k)
+            else:
+                fx = [v for v in dataclasses.astuple(x)
+                      if isinstance(v, float)]
+                fy = [v for v in dataclasses.astuple(y)
+                      if isinstance(v, float)]
+                assert (np.asarray(fx).view(np.uint64) ==
+                        np.asarray(fy).view(np.uint64)).all(), (what, k)
+
+
+class _EventClock:
+    """CUDA events around every call of the given functions while active
+    (``targets``: (owner, attribute, label) triples): the summed device
+    milliseconds between each call's start and end, per label, read after
+    the run."""
+
+    def __init__(self, targets):
+        self._targets = targets
+        self.events = {label: [] for _, _, label in targets}
+        self._saved = []
+
+    def __enter__(self):
+        for owner, attr, label in self._targets:
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+
+            def timed(*args, _fn=fn, _label=label, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*args, **kwargs)
+                end.record()
+                self.events[_label].append((start, end))
+                return out
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {label: sum(s.elapsed_time(e) for s, e in ev)
+                for label, ev in self.events.items()}
+
+    def calls(self):
+        return {label: len(ev) for label, ev in self.events.items()}
+
+
+def _kernel_clock():
+    from pipelinedp_tpu_torch.ops.kernels import segkeyed, segtotal
+    return _EventClock([(segkeyed, "segmented_sums", "segmented_sums"),
+                        (segtotal, "segment_totals", "segment_totals")])
+
+
+def capture_k5_stacks(columns, n_cfg):
+    """The K5 inputs of one config-5 chunk as the main path builds them:
+    the [n, Cc * 3] selection moments and the [n, Cc * 5] count stack,
+    with their key layout (captured from the wrapper's calls)."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    from pipelinedp_tpu_torch.ops.kernels import segkeyed
+    captured = []
+    real = segkeyed.segmented_sums
+
+    def spy(values, layout):
+        captured.append((values.clone(), layout))
+        return real(values, layout)
+    segkeyed.segmented_sums = spy
+    try:
+        _, options = sweep_options(tan, pdt, n_cfg)
+        run_sweep(columns, options, "cuda")
+    finally:
+        segkeyed.segmented_sums = real
+    (moments, layout), (count, _) = captured[:2]
+    return count, moments, layout
+
+
+def time_segkeyed(values, layout, max_sm_mhz):
+    """K5 against its plain version, bit for bit, and the median ms of K5,
+    the plain version (one call) and one float32 ``index_add_`` over the
+    keys (the library yardstick: per-key column totals in no fixed order,
+    so not K5's bits), with the bound for these inputs: the larger of the
+    bytes over the memory rate and the longest key's add chain."""
+    from pipelinedp_tpu_torch.ops.kernels import segkeyed
+    got = segkeyed.segmented_sums(values, layout)
+    t0 = time.perf_counter()
+    want = segkeyed.segmented_sums_plain(values, layout)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff = got.view(torch.int32) != want.view(torch.int32)
+    assert not bool(diff.any()), (
+        f"K5 differs from its plain version at {int(diff.sum())} elements")
+    max_abs_err = float((got - want).abs().max())
+    n, W = values.shape
+    P = layout.P
+    keys = torch.repeat_interleave(
+        torch.arange(P, device=values.device),
+        torch.diff(layout.offsets))
+    keys_by_row = torch.empty_like(keys)
+    keys_by_row[layout.order.long()] = keys
+
+    def library():
+        return torch.zeros(P, W, dtype=torch.float32,
+                           device=values.device).index_add_(
+                               0, keys_by_row, values)
+
+    longest = int(torch.diff(layout.offsets).max())
+    # Each value read once, the row order read once, each total written
+    # once; a key's rows are one chain of dependent float32 adds, about 4
+    # cycles each at the card's top SM clock.
+    bytes_moved = n * W * 4 + n * 4 + P * W * 4
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    chain_ms = longest * 4 / (max_sm_mhz * 1e6) * 1e3
+    return dict(
+        max_abs_err=max_abs_err,
+        ms=cuda_ms(lambda: segkeyed.segmented_sums(values, layout)),
+        plain_ms=plain_s * 1e3, library_ms=cuda_ms(library),
+        bound_ms=max(bytes_ms, chain_ms),
+        bound_by="bytes" if bytes_ms >= chain_ms else "operations",
+        bytes_ms=bytes_ms, chain_ms=chain_ms, bound_bytes=bytes_moved,
+        shape=[n, W], keys=P, longest_key_rows=longest)
+
+
+def segkeyed_seams():
+    """K5 against its plain version on every ``segkeyed.seam_layout``
+    layout, normal and order-sensitive values, aligned and one row in."""
+    from pipelinedp_tpu_torch.ops.kernels import segkeyed
+    checked = []
+    for name in segkeyed.SEAM_LAYOUTS:
+        for order_sensitive in (False, True):
+            values, keys, P = segkeyed.seam_layout(name, order_sensitive)
+            for offset in (0, 1):
+                v = torch.from_numpy(values).cuda()[offset:]
+                k = torch.from_numpy(keys).cuda()[offset:]
+                layout = segkeyed.key_layout(k.contiguous(), P)
+                got = segkeyed.segmented_sums(v, layout)
+                want = segkeyed.segmented_sums_plain(v, layout)
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)), (
+                    f"K5 differs from its plain version on {name} "
+                    f"(order-sensitive {order_sensitive}, offset {offset})")
+                checked.append(f"{name}/{order_sensitive}/{offset}")
+    return checked
+
+
+def phase_segkeyed_kernel(c5_columns, max_sm_mhz):
+    """K5 against its plain version, timed, on config 5's count stack and
+    selection-moment stack (the first chunk of the main path), on a one-key
+    stack of the same rows (the add chain's case) and on the seam
+    layouts."""
+    from pipelinedp_tpu_torch.ops.kernels import segkeyed
+    count, moments, layout = capture_k5_stacks(c5_columns, 132)
+    rec_count = time_segkeyed(count, layout, max_sm_mhz)
+    rec_moments = time_segkeyed(moments, layout, max_sm_mhz)
+    one_key = segkeyed.key_layout(
+        torch.zeros(count.shape[0], dtype=torch.int32, device="cuda"),
+        layout.P)
+    rec_one = time_segkeyed(moments, one_key, max_sm_mhz)
+    seams = segkeyed_seams()
+    log("segkeyed_kernel", kernel="segmented_sums", count_stack=rec_count,
+        moment_stack=rec_moments, one_key_stack=rec_one,
+        seams_identical=seams, max_sm_mhz=max_sm_mhz)
+    return rec_count
+
+
+def phase_sweep_gpu_vs_cpu(c5_columns):
+    """The sweep on the card against the CPU, bit for bit: config 5's data
+    over 64 configs of its grid (one chunk of 64 on the card, chunks of 32
+    on the CPU); a mixed-mechanism sweep with public partitions (two
+    empty) and per-partition rows; and the fused dataset histograms and
+    ``tune`` on config 5's data."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    from pipelinedp_tpu_torch.ops.kernels import segkeyed
+    _, options = sweep_options(tan, pdt, 64)
+    segkeyed.reset_launches()
+    _, gpu, _, gpu_s = run_sweep(c5_columns, options, "cuda", width=64)
+    k5 = segkeyed.LAUNCHES["segmented_sums"]
+    _, cpu, _, cpu_s = run_sweep(c5_columns, options, "cpu", width=32)
+    assert segkeyed.LAUNCHES["segmented_sums"] == k5, "the CPU launched K5"
+    assert k5 == 2, f"64 configs in one chunk launch K5 twice, not {k5}"
+    _assert_sweeps_identical(gpu, cpu, "config 5, 64 configs")
+
+    small = zipf_columns(50_000, 3_000, 300, seed=51)
+    public = list(range(302))  # keys 300 and 301 hold no row
+    S, N = pdt.PartitionSelectionStrategy, pdt.NoiseKind
+    mixed = tan.UtilityAnalysisOptions(
+        epsilon=1.5, delta=1e-6,
+        aggregate_params=pdt.AggregateParams(
+            metrics=[pdt.Metrics.COUNT, pdt.Metrics.SUM,
+                     pdt.Metrics.PRIVACY_ID_COUNT],
+            max_partitions_contributed=3,
+            max_contributions_per_partition=2, min_sum_per_partition=0.0,
+            max_sum_per_partition=8.0),
+        multi_param_configuration=tan.MultiParameterConfiguration(
+            max_partitions_contributed=[1, 3, 5, 8],
+            max_contributions_per_partition=[2, 2, 1, 3],
+            noise_kind=[N.LAPLACE, N.GAUSSIAN, N.GAUSSIAN, N.LAPLACE]))
+    _, g_mixed, g_rows, _ = run_sweep(small, mixed, "cuda", public=public,
+                                      per_partition=True)
+    _, c_mixed, c_rows, _ = run_sweep(small, mixed, "cpu", public=public,
+                                      per_partition=True)
+    _assert_sweeps_identical(g_mixed, c_mixed, "mixed public")
+    _assert_pp_rows_identical(g_rows, c_rows, "mixed public rows")
+    assert len(g_rows) == 302
+
+    def extractors():
+        return pdt.DataExtractors()
+
+    ds = pdt.ArrayDataset(*c5_columns)
+    g_hist = list(tan.compute_dataset_histograms(
+        ds, extractors(), pdt.TorchBackend("cuda")))[0]
+    c_hist = list(tan.compute_dataset_histograms(
+        pdt.ArrayDataset(*c5_columns), extractors(),
+        pdt.TorchBackend("cpu")))[0]
+    for name in ("l0_contributions_histogram",
+                 "linf_contributions_histogram",
+                 "count_per_partition_histogram",
+                 "count_privacy_id_per_partition"):
+        a = [(b.lower, b.count, b.sum, b.max)
+             for b in getattr(g_hist, name).bins]
+        b_ = [(b.lower, b.count, b.sum, b.max)
+              for b in getattr(c_hist, name).bins]
+        assert a == b_, f"histogram {name} differs"
+        assert a, f"histogram {name} is empty"
+    tune_opts = tan.TuneOptions(
+        epsilon=1.0, delta=1e-6,
+        aggregate_params=pdt.AggregateParams(
+            metrics=[pdt.Metrics.COUNT], noise_kind=pdt.NoiseKind.LAPLACE,
+            max_partitions_contributed=1,
+            max_contributions_per_partition=1),
+        function_to_minimize=tan.MinimizingFunction.ABSOLUTE_ERROR,
+        parameters_to_tune=tan.ParametersToTune(
+            max_partitions_contributed=True,
+            max_contributions_per_partition=True))
+    tuned = {}
+    for device, hist in (("cuda", g_hist), ("cpu", c_hist)):
+        t0 = time.perf_counter()
+        tuned[device] = (list(tan.tune(
+            pdt.ArrayDataset(*c5_columns), pdt.TorchBackend(device), hist,
+            tune_opts, extractors()))[0], time.perf_counter() - t0)
+    g_tune, c_tune = tuned["cuda"][0], tuned["cpu"][0]
+    assert g_tune.index_best == c_tune.index_best
+    _assert_sweeps_identical(g_tune.utility_analysis_results,
+                             c_tune.utility_analysis_results, "tune")
+    best = g_tune.utility_analysis_results[g_tune.index_best]
+    log("sweep_gpu_vs_cpu", identical=True, config5_configs=64,
+        config5_gpu_s=gpu_s, config5_cpu_s=cpu_s, k5_launches=k5,
+        mixed_public_partitions=len(g_rows),
+        tune_candidates=g_tune.utility_analysis_parameters.size,
+        tune_best=dict(
+            l0=best.input_aggregate_params.max_partitions_contributed,
+            linf=best.input_aggregate_params.max_contributions_per_partition),
+        tune_gpu_s=tuned["cuda"][1], tune_cpu_s=tuned["cpu"][1])
+
+
+def phase_config5(c5_columns):
+    """BASELINE config 5 at its spec on the card (500k rows, the 100 x 100
+    grid of 10,000 configs), with every kernel count zeroed just before
+    and read just after; K5's and K4's device time from CUDA events."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    n_cfg, options = sweep_options(tan, pdt, CONFIG5_CONFIGS)
+    assert n_cfg == CONFIG5_CONFIGS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with _kernel_clock() as clock:
+        lazy, result, _, wall_s = run_sweep(c5_columns, options, "cuda")
+    kernel_ms = clock.ms()
+    launches = _launch_counts()
+    assert len(result) == n_cfg
+    bits = sweep_bits(result).view(np.float64)
+    assert np.isfinite(bits).all(), "config 5 released a non-finite field"
+    assert launches["segmented_sums"] == 2 * lazy.n_chunks, launches
+    assert launches["segment_totals"] == 1, launches
+    assert launches["segment_sum_lanes"] >= 1, launches
+    errs = np.asarray([m.count_metrics.error_expected for m in result])
+    log("config5", data=CONFIG5, configs=n_cfg, wall_s=wall_s,
+        configs_per_s=n_cfg / wall_s,
+        config_rows_per_s=n_cfg * CONFIG5["rows"] / wall_s,
+        chunk=lazy.chunk, chunks=lazy.n_chunks, launches=launches,
+        k5_ms=kernel_ms["segmented_sums"],
+        k4_ms=kernel_ms["segment_totals"],
+        k5_share=kernel_ms["segmented_sums"] / (wall_s * 1e3),
+        k4_share=kernel_ms["segment_totals"] / (wall_s * 1e3),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        error_expected_range=[float(errs.min()), float(errs.max())])
+    return dict(launches=launches, result=result, wall_s=wall_s)
+
+
+def phase_config5_breakdown(c5_columns, out_dir):
+    """Where config 5's sweep spends its time (``--profile``): 1,056
+    configs (eight chunks of 132) with CUDA events around each stage
+    (stage A, the key layout, each chunk, and inside the chunks K5, the
+    keep probability and the error quantiles), host clocks around the
+    encode and the packing, then one chunk under ``torch.profiler``: the
+    device busy share and the top operators."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    from pipelinedp_tpu_torch.analysis import torch_sweep as ts
+    from pipelinedp_tpu_torch.ops.kernels import segkeyed
+    _, options = sweep_options(tan, pdt, 1056)
+    targets = [(ts.LazySweepResult, "_stage_a", "stage_a"),
+               (segkeyed, "key_layout", "key_layout"),
+               (ts, "_sweep_chunk_body", "chunks"),
+               (segkeyed, "segmented_sums", "k5"),
+               (ts, "_keep_probability", "keep_probability"),
+               (ts, "_error_quantiles", "error_quantiles"),
+               (ts, "_concat_fetch", "fetch")]
+    host = {}
+
+    def host_timed(owner, attr):
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host[attr] = host.get(attr, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(owner, attr, timed)
+        return fn
+
+    saved = [(ts.LazySweepResult, a, host_timed(ts.LazySweepResult, a))
+             for a in ("_encode", "_pack")]
+    try:
+        with _EventClock(targets) as clock:
+            lazy, _, _, wall_s = run_sweep(c5_columns, options, "cuda",
+                                           width=132)
+        stages_ms = clock.ms()
+        calls = clock.calls()
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    _, one_chunk = sweep_options(tan, pdt, 132)
+    run_sweep(c5_columns, one_chunk, "cuda", width=132)
+    profile = _profiled(
+        lambda: run_sweep(c5_columns, one_chunk, "cuda", width=132),
+        os.path.join(out_dir, "config5_profile.txt") if out_dir else None)
+    log("config5_breakdown", configs=1056, chunk=lazy.chunk,
+        chunks=lazy.n_chunks, wall_s=wall_s, stage_ms=stages_ms,
+        stage_calls=calls,
+        host_s={k.lstrip("_"): v for k, v in host.items()},
+        one_chunk_profile=profile)
+
+
+def phase_megasweep():
+    """``bench_utility_megasweep``'s shape (1M rows, 40k users, 2000
+    partitions, seed 23) at K = 16, 64 and 256: walked (width 1) against
+    batched (width K), bit for bit per config, with configs/s of each
+    leg."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    columns = zipf_columns(MEGASWEEP["rows"], MEGASWEEP["users"],
+                           MEGASWEEP["partitions"], MEGASWEEP["seed"])
+    out = {}
+    for k in MEGASWEEP_WIDTHS:
+        n_cfg, options = sweep_options(tan, pdt, k)
+        _, batched, _, batched_s = run_sweep(columns, options, "cuda",
+                                             width=n_cfg)
+        _, walked, _, walked_s = run_sweep(columns, options, "cuda",
+                                           width=1)
+        _assert_sweeps_identical(batched, walked, f"megasweep K={k}")
+        out[f"K{k}"] = dict(configs=n_cfg, batched_s=batched_s,
+                            walked_s=walked_s,
+                            batched_configs_per_s=n_cfg / batched_s,
+                            walked_configs_per_s=n_cfg / walked_s)
+    log("megasweep", data=MEGASWEEP, identical=True, **out)
+
+
+def phase_sweep_kill_resume(c5_columns):
+    """Config 5's data over 1,024 configs in chunks of 132, killed at
+    config chunk 3 by the port's ``FaultPlan`` and resumed from its
+    ``.sweep`` checkpoint under ``build/``: the bits of the unbroken
+    sweep."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    from pipelinedp_tpu_torch.resilience import (ChunkFailure, FaultPlan,
+                                                 injected_faults)
+    _, options = sweep_options(tan, pdt, 1024)
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "config5_sweep.ckpt")
+    if os.path.exists(path + ".sweep"):
+        os.unlink(path + ".sweep")
+    _, unbroken, _, unbroken_s = run_sweep(c5_columns, options, "cuda",
+                                           width=132)
+    try:
+        with injected_faults(FaultPlan(fail_sweep_config_chunks=(3,))):
+            run_sweep(c5_columns, options, "cuda", width=132,
+                      checkpoint=path)
+    except ChunkFailure:
+        pass
+    else:
+        raise AssertionError("the kill at config chunk 3 did not fire")
+    assert os.path.exists(path + ".sweep"), "no sweep checkpoint survived"
+    lazy, resumed, _, resumed_s = run_sweep(c5_columns, options, "cuda",
+                                            width=132, checkpoint=path)
+    assert lazy._resumed_from_chunk == 3
+    assert not os.path.exists(path + ".sweep"), "success must clear it"
+    _assert_sweeps_identical(resumed, unbroken, "resumed sweep")
+    log("sweep_kill_resume", configs=1024, chunk=132, killed_at_chunk=3,
+        identical=True, unbroken_s=unbroken_s, resumed_s=resumed_s)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1629,6 +2154,18 @@ def main() -> int:
     RECORD["stream150_data_gen_s"] = time.perf_counter() - t0
     phase_stream150(columns, args.profile, args.out)
     del columns
+    t0 = time.perf_counter()
+    c5_columns = zipf_columns(CONFIG5["rows"], CONFIG5["users"],
+                              CONFIG5["partitions"], CONFIG5["seed"])
+    RECORD["config5_data_gen_s"] = time.perf_counter() - t0
+    k5 = phase_segkeyed_kernel(c5_columns, max_sm_mhz)
+    phase_sweep_gpu_vs_cpu(c5_columns)
+    config5 = phase_config5(c5_columns)
+    if args.profile:
+        phase_config5_breakdown(c5_columns, args.out)
+    phase_sweep_kill_resume(c5_columns)
+    del c5_columns
+    phase_megasweep()
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
@@ -1665,7 +2202,19 @@ def main() -> int:
         "launches": sum_bounds["launches"]["segment_totals"],
         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"]}]
+        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"]}, {
+        # Port-only: it replaces the XLA segment_sum of the sweep's
+        # per-metric stack (jax_sweep.py:517) and selection moments
+        # (:656); its library call is a float32 index_add_, whose bits
+        # differ. Timed on config 5's count stack.
+        "name": "segmented_sums", "route": "cuda",
+        "source": "pipelinedp_tpu_torch/csrc/segkeyed.cu",
+        "replaces": "pipelinedp_tpu/analysis/jax_sweep.py:517",
+        "port_only": True, "parity": "bit-equal",
+        "launches": config5["launches"]["segmented_sums"],
+        "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}]
     RECORD["kernels"] = kernels
     RECORD["total_s"] = time.perf_counter() - t_start
     if args.out:

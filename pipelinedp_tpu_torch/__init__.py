@@ -10,8 +10,12 @@ with a pass-B device cache and checkpoint and resume) and
 ``select_partitions`` on a CUDA device, with hand-written CUDA kernels for
 the per-partition segment sums of the scalar lanes and of VECTOR_SUM's
 coordinate lanes, for the quantile walk's subtree histograms, and for the
-ordered per-segment totals of the per-partition-bounds SUM. The package
-imports torch, numpy and scipy, never JAX.
+ordered per-segment totals of the per-partition-bounds SUM. The
+utility analysis (``pipelinedp_tpu_torch.analysis``:
+``perform_utility_analysis``, ``compute_dataset_histograms``, ``tune``)
+runs the JAX package's fused multi-configuration sweep on the device,
+with a hand-written kernel for its ordered keyed float32 sums. The
+package imports torch, numpy and scipy, never JAX.
 
     import pipelinedp_tpu_torch as pdt
     accountant = pdt.NaiveBudgetAccountant(total_epsilon=1, total_delta=1e-6)

@@ -3,7 +3,7 @@
 Modelled on ``pipelinedp_tpu/backends/jax_backend.py``: a marker that
 tells ``DPEngine`` to lower fusable aggregations to the fused device path
 (``torch_engine``), plus the options that path reads, the streaming ones
-included. It has no mesh (multi-GPU is ROADMAP step 8), no health probe
+included. It has no mesh (multi-GPU is ROADMAP step 5), no health probe
 and no compile cache.
 """
 
@@ -44,7 +44,7 @@ class TorchBackend:
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh is not ported to pipelinedp_tpu_torch yet "
-                "(multi-GPU, and streaming on a mesh, are ROADMAP step 8)")
+                "(multi-GPU, and streaming on a mesh, are ROADMAP step 5)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

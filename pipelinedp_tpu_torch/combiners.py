@@ -2,7 +2,7 @@
 with a custom ``__reduce__`` so instances survive pickling across workers.
 
 Port of the helper of ``pipelinedp_tpu/combiners.py`` that the fused
-release uses; the host combiners themselves are ROADMAP step 11.
+release uses; the host combiners themselves are ROADMAP step 2.
 """
 
 from __future__ import annotations

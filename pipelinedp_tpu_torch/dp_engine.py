@@ -6,7 +6,7 @@ slice runs: fusable params on a ``TorchBackend`` go to
 ``torch_engine.build_fused_aggregation`` (``dp_engine.py:294-306`` of the
 JAX package) and ``build_fused_select_partitions``. Everything else —
 non-fusable params, custom combiners, a backend without the fused path —
-raises ``NotImplementedError``: the generic host path is ROADMAP step 11.
+raises ``NotImplementedError``: the generic host path is ROADMAP step 2.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class DataExtractors:
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to pipelinedp_tpu_torch yet; the generic "
-        "host path is ROADMAP step 11")
+        "host path is ROADMAP step 2")
 
 
 class DPEngine:

@@ -5,6 +5,9 @@ first use (``_build.py``)."""
 
 from pipelinedp_tpu_torch.ops.kernels.hist import (subtree_counts_multi,
                                                    subtree_counts_multi_plain)
+from pipelinedp_tpu_torch.ops.kernels.segkeyed import (key_layout,
+                                                       segmented_sums,
+                                                       segmented_sums_plain)
 from pipelinedp_tpu_torch.ops.kernels.segsum import (segment_sum_lanes,
                                                      segment_sum_lanes_plain,
                                                      segment_sum_wide,
@@ -12,7 +15,8 @@ from pipelinedp_tpu_torch.ops.kernels.segsum import (segment_sum_lanes,
 from pipelinedp_tpu_torch.ops.kernels.segtotal import (segment_totals,
                                                        segment_totals_plain)
 
-__all__ = ["segment_sum_lanes", "segment_sum_lanes_plain",
+__all__ = ["key_layout", "segmented_sums", "segmented_sums_plain",
+           "segment_sum_lanes", "segment_sum_lanes_plain",
            "segment_sum_wide", "segment_sum_wide_plain",
            "segment_totals", "segment_totals_plain",
            "subtree_counts_multi", "subtree_counts_multi_plain"]

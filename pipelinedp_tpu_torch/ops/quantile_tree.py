@@ -4,7 +4,7 @@ Port of the constants of ``pipelinedp_tpu/ops/quantile_tree.py`` that the
 fused walk reads: a tree of height 4 and branching factor 16 (the C++
 ``QuantileTree`` defaults), so 16^4 = 65536 leaves. The host
 ``QuantileTree`` accumulator is not on the fused path and is not ported
-(ROADMAP step 11).
+(ROADMAP step 2).
 """
 
 from __future__ import annotations

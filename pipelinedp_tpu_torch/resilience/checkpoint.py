@@ -1,4 +1,5 @@
-"""Budget-safe checkpoint and resume of the streamed aggregation.
+"""Budget-safe checkpoint and resume of the streamed aggregation and of
+the utility-analysis sweep.
 
 The stream's per-batch state is a pure monoid fold: integer count
 accumulators (int64), folded fixed-point value columns (float64, each fold
@@ -12,6 +13,13 @@ privacy budget. Resuming therefore requires the fingerprint of the run
 that wrote the checkpoint: resuming another (config, data, seed) would
 replay the wrong keys, and silently starting again would draw noise twice.
 
+The utility-analysis sweep (``analysis/torch_sweep.py``) uses the same
+store for its completed-chunk prefix: each configuration's outputs are a
+pure function of (data, config), so ``(next chunk, the prefix's [C]
+fields)`` resumes a killed sweep bit for bit (``sweep_fingerprint``). It
+writes a ``.sweep`` sibling of the backend's checkpoint path, so it never
+meets a stream's checkpoint.
+
 The store is one ``.npz`` file written atomically (a temporary file, then
 ``os.replace``), so a kill during a write leaves the previous checkpoint
 whole.
@@ -22,7 +30,7 @@ port's ``FusedConfig``. A checkpoint written by the port is resumed by
 the port; the port makes no promise to resume a file written by the JAX
 package, and refuses one with ``CheckpointMismatch``. The mesh fields of
 the JAX package's checkpoint (the saved batch assignment an elastic
-reshard adopts, the reshard history) wait for multi-GPU, ROADMAP step 8.
+reshard adopts, the reshard history) wait for multi-GPU, ROADMAP step 5.
 """
 
 from __future__ import annotations
@@ -92,6 +100,30 @@ def run_fingerprint(config, n_rows: int, n_batches: int, seed: int,
         # The val: columns hold exact fixed-point step totals; the scale
         # division happens at release.
         "fold": "pipelinedp_tpu_torch-fx-steps-v1",
+    }, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def sweep_fingerprint(spec_repr: str, n_configs: int, chunk: int,
+                      num_partitions: int, data: str = "",
+                      arrays=()) -> str:
+    """Identity of one utility-analysis sweep (``analysis/torch_sweep.py``):
+    everything that decides the chunk boundaries and each chunk's
+    arithmetic (the static spec, the chunking, the per-config parameter
+    vectors, digested) and the ``data_digest``. Each configuration's
+    outputs are a pure function of (data, config), so a resumed prefix and
+    the recomputed rest equal the unbroken run bit for bit."""
+    h = hashlib.blake2b(digest_size=16)
+    for arr in arrays:
+        _digest_array(h, np.asarray(arr))
+    blob = json.dumps({
+        "kind": "pipelinedp_tpu_torch-analysis-sweep-v1",
+        "spec": spec_repr,
+        "n_configs": int(n_configs),
+        "chunk": int(chunk),
+        "num_partitions": int(num_partitions),
+        "vectors": h.hexdigest(),
+        "data": data,
     }, sort_keys=True)
     return hashlib.sha256(blob.encode()).hexdigest()
 

@@ -8,12 +8,16 @@ sites:
   ``b`` (kills a streamed run mid-flight);
 * ``check_pass_b_chunk(b)``: the same for batch ``b`` of a percentile
   pass-B sweep (pass A reuses the batch indices and survives, so the kill
-  lands mid-sweep).
+  lands mid-sweep);
+* ``check_sweep_config_chunk(k)``: raise ``ChunkFailure`` when the
+  utility-analysis sweep (``analysis/torch_sweep.py``) reaches config
+  chunk ``k``, between the ``.sweep`` checkpoint of the chunks before it
+  and the chunk's dispatch.
 
 A plan installs in process, with the ``injected_faults(plan)`` context
-manager. A port of the chunk sites of
+manager. A port of the chunk and sweep sites of
 ``pipelinedp_tpu/resilience/faults.py``; its other sites (serve, sketch,
-sweep, coordinator, mesh) and its ``PIPELINEDP_TPU_FAULTS`` transport to
+coordinator, mesh) and its ``PIPELINEDP_TPU_FAULTS`` transport to
 subprocess harnesses belong to later ROADMAP steps.
 """
 
@@ -40,6 +44,9 @@ class FaultPlan:
     #: batch indices whose percentile pass-B dispatch raises
     #: ``ChunkFailure``.
     fail_pass_b_chunks: Tuple[int, ...] = ()
+    #: utility-analysis sweep config-chunk indices whose dispatch raises
+    #: ``ChunkFailure``.
+    fail_sweep_config_chunks: Tuple[int, ...] = ()
 
 
 _plan: Optional[FaultPlan] = None
@@ -76,3 +83,10 @@ def check_pass_b_chunk(index: int) -> None:
     if plan is not None and index in plan.fail_pass_b_chunks:
         raise ChunkFailure(
             f"injected failure at pass-B sweep batch {index}")
+
+
+def check_sweep_config_chunk(index: int) -> None:
+    plan = _plan
+    if plan is not None and index in plan.fail_sweep_config_chunks:
+        raise ChunkFailure(
+            f"injected failure at sweep config chunk {index}")

@@ -44,7 +44,7 @@ a single batch; the JAX package's streamed run releases the same values
 as the port's for the same seed, bit for bit.
 
 Streaming on a mesh, and the elastic reshards of a mesh that loses a
-device, wait for multi-GPU (ROADMAP step 8).
+device, wait for multi-GPU (ROADMAP step 5).
 """
 
 from __future__ import annotations

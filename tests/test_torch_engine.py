@@ -302,7 +302,7 @@ def test_unported_params_raise(params):
     """Params of later slices raise. PERCENTILE itself is ported; what
     stays unported of it is a range so small that its float32 leaf
     constant overflows, which the JAX package sends to its host path
-    (ROADMAP step 11)."""
+    (ROADMAP step 2)."""
     pid, pk, values = _data(0, n=100)
     acc = pdt.NaiveBudgetAccountant(total_epsilon=EPS, total_delta=DELTA)
     engine = pdt.DPEngine(acc, pdt.TorchBackend("cpu", rng_seed=0))

@@ -37,7 +37,12 @@ def test_port_has_files():
                    "ops/kernels/segsum.py", "ops/kernels/hist.py",
                    "ops/kernels/segtotal.py", "ops/quantile_tree.py",
                    "streaming.py", "ingest/executor.py",
-                   "resilience/checkpoint.py", "resilience/faults.py"):
+                   "resilience/checkpoint.py", "resilience/faults.py",
+                   "ops/xla_math.py", "ops/kernels/segkeyed.py",
+                   "sampling_utils.py", "analysis/torch_sweep.py",
+                   "analysis/utility_analysis.py",
+                   "analysis/parameter_tuning.py",
+                   "analysis/histograms.py"):
         assert os.path.join(REPO, "pipelinedp_tpu_torch", module) in files
     assert len(files) > 10
 

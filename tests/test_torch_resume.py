@@ -9,7 +9,10 @@ checkpoint of another run is refused. The three pass-B sources
 (``device_cache``, ``hybrid``, ``reship``) are bit-identical, the hybrid
 one with multi-tile sweeps too, and each reports its source and the bytes
 it re-shipped (the pattern of ``tests/test_faults.py`` and
-``tests/test_pass_b.py``).
+``tests/test_pass_b.py``). The utility-analysis sweep killed at a config
+chunk (``check_sweep_config_chunk``) resumes from its ``.sweep`` checkpoint
+and equals the unbroken sweep bit for bit; a checkpoint of another sweep is
+refused.
 """
 
 import os
@@ -152,13 +155,15 @@ def test_checkpoint_every_two_folds(tmp_path, monkeypatch):
     assert_bit_identical(resumed, baseline)
 
 
-@pytest.mark.parametrize("site", ["chunk", "pass_b"])
+@pytest.mark.parametrize("site", ["chunk", "pass_b", "sweep"])
 def test_fault_plan_is_cleared_after_its_block(site):
     """``injected_faults`` installs its plan for the block only."""
-    plan = (FaultPlan(fail_chunks=(2,)) if site == "chunk"
-            else FaultPlan(fail_pass_b_chunks=(2,)))
-    check = (faults.check_chunk if site == "chunk"
-             else faults.check_pass_b_chunk)
+    plan = {"chunk": FaultPlan(fail_chunks=(2,)),
+            "pass_b": FaultPlan(fail_pass_b_chunks=(2,)),
+            "sweep": FaultPlan(fail_sweep_config_chunks=(2,))}[site]
+    check = {"chunk": faults.check_chunk,
+             "pass_b": faults.check_pass_b_chunk,
+             "sweep": faults.check_sweep_config_chunk}[site]
     with injected_faults(plan):
         check(1)
         with pytest.raises(ChunkFailure):
@@ -272,3 +277,82 @@ def test_cache_knob_default_and_env(monkeypatch):
     ds = make_ds(seed=7)
     _, t = run_torch(ds, PERCENTILES, public=list(range(12)))
     assert t["stream_pass_b"] == "reship"
+
+
+# ---------------------------------------------------------------------------
+# The utility-analysis sweep's chunk-prefix checkpoint
+# ---------------------------------------------------------------------------
+
+
+def _sweep(checkpoint=None, l0s=(1, 2, 3, 4, 5, 6, 7)):
+    from pipelinedp_tpu_torch import analysis
+    rng = np.random.default_rng(17)
+    ds = pdt.ArrayDataset(rng.integers(0, 300, 3000),
+                          rng.integers(0, 20, 3000), rng.uniform(0, 5, 3000))
+    options = analysis.UtilityAnalysisOptions(
+        epsilon=1.0, delta=1e-6,
+        aggregate_params=pdt.AggregateParams(
+            metrics=[pdt.Metrics.COUNT], max_partitions_contributed=2,
+            max_contributions_per_partition=2),
+        multi_param_configuration=analysis.MultiParameterConfiguration(
+            max_partitions_contributed=list(l0s),
+            max_contributions_per_partition=[2] * len(l0s)))
+    res = analysis.perform_utility_analysis(
+        ds, pdt.TorchBackend("cpu", checkpoint=checkpoint), options,
+        pdt.DataExtractors())
+    return res, list(res)[0]
+
+
+def _sweep_bits(result):
+    """Every float of every config's count and selection metrics, as
+    float64 bits."""
+    import dataclasses
+    out = []
+    for m in result:
+        for part in (m.count_metrics, m.partition_selection_metrics):
+            for v in dataclasses.astuple(part):
+                if isinstance(v, (float, list)):
+                    out += list(np.asarray(v, np.float64).ravel())
+    return np.asarray(out, np.float64).view(np.uint64)
+
+
+@pytest.mark.parametrize("kill_at", [1, 3])
+def test_killed_sweep_resumes_bit_identical(kill_at, tmp_path, monkeypatch):
+    monkeypatch.setenv("PIPELINEDP_TPU_SWEEP_CONFIG_BATCH", "2")
+    _, baseline = _sweep()
+    path = str(tmp_path / "sweep.ckpt")
+    with injected_faults(FaultPlan(fail_sweep_config_chunks=(kill_at,))):
+        with pytest.raises(ChunkFailure):
+            _sweep(checkpoint=path)
+    store = CheckpointStore(path + ".sweep")
+    assert store.load().next_batch == kill_at
+    assert not os.path.exists(path), "the sweep writes a sibling file"
+    lazy, resumed = _sweep(checkpoint=path)
+    assert lazy._resumed_from_chunk == kill_at
+    assert not store.exists(), "a finished sweep clears its checkpoint"
+    np.testing.assert_array_equal(_sweep_bits(resumed),
+                                  _sweep_bits(baseline))
+
+
+def test_sweep_checkpoint_every_two_chunks(tmp_path, monkeypatch):
+    monkeypatch.setenv("PIPELINEDP_TPU_SWEEP_CONFIG_BATCH", "2")
+    monkeypatch.setenv("PIPELINEDP_TPU_CKPT_EVERY", "2")
+    _, baseline = _sweep()
+    path = str(tmp_path / "sweep.ckpt")
+    with injected_faults(FaultPlan(fail_sweep_config_chunks=(3,))):
+        with pytest.raises(ChunkFailure):
+            _sweep(checkpoint=path)
+    assert CheckpointStore(path + ".sweep").load().next_batch == 2
+    _, resumed = _sweep(checkpoint=path)
+    np.testing.assert_array_equal(_sweep_bits(resumed),
+                                  _sweep_bits(baseline))
+
+
+def test_other_sweep_checkpoint_is_refused(tmp_path, monkeypatch):
+    monkeypatch.setenv("PIPELINEDP_TPU_SWEEP_CONFIG_BATCH", "2")
+    path = str(tmp_path / "sweep.ckpt")
+    with injected_faults(FaultPlan(fail_sweep_config_chunks=(2,))):
+        with pytest.raises(ChunkFailure):
+            _sweep(checkpoint=path)
+    with pytest.raises(CheckpointMismatch):
+        _sweep(checkpoint=path, l0s=(1, 2, 3, 4, 5, 6, 8))

@@ -274,10 +274,10 @@ def test_guards_fire(monkeypatch):
 
 @pytest.mark.parametrize("unported", ["mesh"])
 def test_not_in_slice_raises(unported):
-    """A mesh waits for multi-GPU (ROADMAP step 8); the other options of
+    """A mesh waits for multi-GPU (ROADMAP step 5); the other options of
     the JAX backend's stream are ported (``test_torch_ingest.py``,
     ``test_torch_resume.py``, ``test_torch_stream_vector.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP step 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP step 5"):
         pdt.TorchBackend("cpu", **{unported: object()})
 
 
