@@ -30,8 +30,9 @@ Phases, one line each; any failure raises and exits non-zero:
    shared-memory limit, P = 65536, lane-maximum columns) and on the lane
    stacks of the three VECTOR_SUM widths below, where the kernel, the
    plain version, one ``index_add_`` (the library yardstick) and K1 on
-   the same stack are timed, and on a dense zipf(1.3) stack at D = 64
-   over 65536 partitions, past the shared-memory limit, where K2 takes
+   the same stack (with its bound and library call) are timed, and on a
+   dense zipf(1.3) stack at D = 64 over 65536 partitions, past the
+   shared-memory limit, where K2 takes
    K1's kernel; the design each launch took (``segsum.wide_tile``, the
    kernel library's ``segsum_wide_tile``) is logged; the ``kernels`` line
    reports the D = 64 stack;
@@ -106,11 +107,14 @@ Phases, one line each; any failure raises and exits non-zero:
     stage / device / fold split;
 20. K5 vs plain: ``segmented_sums`` on the card against its plain
     version, bit for bit, on config 5's count stack (``[n, Cc * 5]``, the
-    first chunk of phase 22) and selection-moment stack (``[n, Cc * 3]``),
-    on a one-key stack of the same rows (the add chain's case), each timed
-    beside the plain version and one float32 ``index_add_`` (the library
+    first chunk of phase 22: the marker rows in key order) and
+    selection-moment stack (``[n, Cc * 3]``), on a one-key stack of the
+    same rows (the add chain's case) and on the count stack of every row
+    in key order (``[500k, 660]``, the rows K5 v1 read), each timed beside
+    the plain version and one float32 ``index_add_`` (the library
     yardstick; its bits differ) with its bound, and on every layout of
-    ``segkeyed.seam_layout``, aligned and one row in;
+    ``segkeyed.seam_layout``, with and without dropped rows, aligned and
+    one float in;
 21. the utility-analysis sweep, GPU vs CPU: config 5's data over 64
     configs of its grid (a chunk of 64 on the card, of 32 on the CPU), a
     mixed-mechanism sweep with public partitions (two empty) and
@@ -648,8 +652,7 @@ def phase_wide_kernel(vector_data):
                    nonzero_row_share=float(
                        (lanes != 0).any(dim=1).float().mean()),
                    **time_kernel(lanes, spk, P, "segment_sum_wide"))
-        rec["k1_same_stack_ms"] = cuda_ms(
-            lambda: segsum.segment_sum_lanes(lanes, spk, P))
+        rec["k1_same_stack"] = time_kernel(lanes, spk, P)
         stacks[f"D={d}"] = rec
         del lanes, spk, got, want
     # Past the shared-memory limit: a dense zipf(1.3) stack at D = 64 over
@@ -1742,25 +1745,35 @@ def _kernel_clock():
                         (segtotal, "segment_totals", "segment_totals")])
 
 
-def capture_k5_stacks(columns, n_cfg):
+def capture_k5_stacks(columns, n_cfg, every_row=False):
     """The K5 inputs of one config-5 chunk as the main path builds them:
     the [n, Cc * 3] selection moments and the [n, Cc * 5] count stack,
-    with their key layout (captured from the wrapper's calls)."""
+    with their key layout (captured from the wrapper's calls). The rows
+    are the marker rows in key order, or with ``every_row`` every row in
+    key order, as the sweep folds them when a value rules compaction out
+    (``torch_sweep._k5_rows``)."""
     import pipelinedp_tpu_torch as pdt
     from pipelinedp_tpu_torch import analysis as tan
     from pipelinedp_tpu_torch.ops.kernels import segkeyed
     captured = []
     real = segkeyed.segmented_sums
+    real_layout = segkeyed.key_layout
 
     def spy(values, layout):
         captured.append((values.clone(), layout))
         return real(values, layout)
+
+    def every_row_layout(keys, P, keep=None):
+        return real_layout(keys, P)
     segkeyed.segmented_sums = spy
+    if every_row:
+        segkeyed.key_layout = every_row_layout
     try:
         _, options = sweep_options(tan, pdt, n_cfg)
         run_sweep(columns, options, "cuda")
     finally:
         segkeyed.segmented_sums = real
+        segkeyed.key_layout = real_layout
     (moments, layout), (count, _) = captured[:2]
     return count, moments, layout
 
@@ -1783,22 +1796,19 @@ def time_segkeyed(values, layout, max_sm_mhz):
     max_abs_err = float((got - want).abs().max())
     n, W = values.shape
     P = layout.P
-    keys = torch.repeat_interleave(
-        torch.arange(P, device=values.device),
-        torch.diff(layout.offsets))
-    keys_by_row = torch.empty_like(keys)
-    keys_by_row[layout.order.long()] = keys
+    lens = torch.diff(layout.offsets)
+    keys = torch.repeat_interleave(torch.arange(P, device=values.device),
+                                   lens)
 
     def library():
         return torch.zeros(P, W, dtype=torch.float32,
-                           device=values.device).index_add_(
-                               0, keys_by_row, values)
+                           device=values.device).index_add_(0, keys, values)
 
-    longest = int(torch.diff(layout.offsets).max())
-    # Each value read once, the row order read once, each total written
-    # once; a key's rows are one chain of dependent float32 adds, about 4
-    # cycles each at the card's top SM clock.
-    bytes_moved = n * W * 4 + n * 4 + P * W * 4
+    longest = int(lens.max())
+    # Each value read once, the offsets and the walk read once, each total
+    # written once; a key's rows are one chain of dependent float32 adds,
+    # about 4 cycles each at the card's top SM clock.
+    bytes_moved = n * W * 4 + (P + 1) * 8 + P * 4 + P * W * 4
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     chain_ms = longest * 4 / (max_sm_mhz * 1e6) * 1e3
     return dict(
@@ -1808,35 +1818,50 @@ def time_segkeyed(values, layout, max_sm_mhz):
         bound_ms=max(bytes_ms, chain_ms),
         bound_by="bytes" if bytes_ms >= chain_ms else "operations",
         bytes_ms=bytes_ms, chain_ms=chain_ms, bound_bytes=bytes_moved,
-        shape=[n, W], keys=P, longest_key_rows=longest)
+        shape=[n, W], keys=P, longest_key_rows=longest,
+        ring="tma" if segkeyed.takes_tiles(n, W, values.data_ptr())
+        else "cp.async 4-byte")
 
 
 def segkeyed_seams():
     """K5 against its plain version on every ``segkeyed.seam_layout``
-    layout, normal and order-sensitive values, aligned and one row in."""
+    layout, normal and order-sensitive values, every row and every third
+    row dropped (``keep``), aligned and as a view one float in (an
+    unaligned base)."""
     from pipelinedp_tpu_torch.ops.kernels import segkeyed
     checked = []
     for name in segkeyed.SEAM_LAYOUTS:
         for order_sensitive in (False, True):
             values, keys, P = segkeyed.seam_layout(name, order_sensitive)
-            for offset in (0, 1):
-                v = torch.from_numpy(values).cuda()[offset:]
-                k = torch.from_numpy(keys).cuda()[offset:]
-                layout = segkeyed.key_layout(k.contiguous(), P)
-                got = segkeyed.segmented_sums(v, layout)
-                want = segkeyed.segmented_sums_plain(v, layout)
-                assert torch.equal(got.view(torch.int32),
-                                   want.view(torch.int32)), (
-                    f"K5 differs from its plain version on {name} "
-                    f"(order-sensitive {order_sensitive}, offset {offset})")
-                checked.append(f"{name}/{order_sensitive}/{offset}")
+            k = torch.from_numpy(keys).cuda()
+            for dropped in (False, True):
+                keep = (torch.arange(len(keys), device="cuda") % 3 != 0
+                        if dropped else None)
+                layout = segkeyed.key_layout(k, P, keep)
+                rows = torch.from_numpy(values).cuda().index_select(
+                    0, layout.order)
+                for offset in (0, 1):
+                    buf = torch.empty(rows.numel() + offset, device="cuda")
+                    v = buf[offset:].view(rows.shape)
+                    v.copy_(rows)
+                    got = segkeyed.segmented_sums(v, layout)
+                    want = segkeyed.segmented_sums_plain(v, layout)
+                    assert torch.equal(got.view(torch.int32),
+                                       want.view(torch.int32)), (
+                        f"K5 differs from its plain version on {name} "
+                        f"(order-sensitive {order_sensitive}, rows dropped "
+                        f"{dropped}, offset {offset})")
+                    checked.append(
+                        f"{name}/{order_sensitive}/{dropped}/{offset}")
     return checked
 
 
 def phase_segkeyed_kernel(c5_columns, max_sm_mhz):
     """K5 against its plain version, timed, on config 5's count stack and
-    selection-moment stack (the first chunk of the main path), on a one-key
-    stack of the same rows (the add chain's case) and on the seam
+    selection-moment stack (the first chunk of the main path: the marker
+    rows in key order), on a one-key stack of the same rows (the add
+    chain's case), on the count stack of every row in key order (the
+    bytes K5 v1 read, without the compaction), and on the seam
     layouts."""
     from pipelinedp_tpu_torch.ops.kernels import segkeyed
     count, moments, layout = capture_k5_stacks(c5_columns, 132)
@@ -1846,10 +1871,16 @@ def phase_segkeyed_kernel(c5_columns, max_sm_mhz):
         torch.zeros(count.shape[0], dtype=torch.int32, device="cuda"),
         layout.P)
     rec_one = time_segkeyed(moments, one_key, max_sm_mhz)
+    del count, moments
+    every, _, every_layout = capture_k5_stacks(c5_columns, 132,
+                                               every_row=True)
+    rec_every = time_segkeyed(every, every_layout, max_sm_mhz)
+    del every, _
     seams = segkeyed_seams()
     log("segkeyed_kernel", kernel="segmented_sums", count_stack=rec_count,
         moment_stack=rec_moments, one_key_stack=rec_one,
-        seams_identical=seams, max_sm_mhz=max_sm_mhz)
+        every_row_count_stack=rec_every, seams_identical=seams,
+        max_sm_mhz=max_sm_mhz)
     return rec_count
 
 

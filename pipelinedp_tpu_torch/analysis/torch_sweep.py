@@ -75,6 +75,10 @@ _PP_BYTE_CAP = 256 << 20
 #: Environment pin of the chunk width (the JAX package's
 #: ``sweep_config_batch`` knob): > 0 pins it (1 is the walked mode).
 _CONFIG_BATCH_ENV = "PIPELINEDP_TPU_SWEEP_CONFIG_BATCH"
+# While every SUM value outside the marker rows and every SUM bound lies
+# within this magnitude, K5's stacks are +-0.0 on those rows (see
+# ``_k5_rows``).
+_ZERO_ROW_LIMIT = 2.0**62
 
 _MIXED = "mixed"  # static sentinel: per-config mechanisms in this chunk
 
@@ -417,7 +421,8 @@ def _metric_chunk(metric_name, x_u, marker, layout, p_u, bounds_lo,
                   is_gauss=None, per_partition=False):
     """Stage B+C for one metric over one config chunk: the [Cc] aggregate
     accumulator fields (and with ``per_partition`` the unreduced [P, Cc]
-    blocks). The [n, Cc, 5] stack goes through K5 in row order."""
+    blocks). The [n, Cc, 5] stack goes through K5 in the layout's key
+    order."""
     Cc = bounds_lo.shape[0]
     n = x_u.shape[0]
     x = x_u[:, None]  # [n, 1]
@@ -749,6 +754,29 @@ _METRIC_ORDER = [(Metrics.SUM, "sum", am.AggregateMetricType.SUM),
                   am.AggregateMetricType.PRIVACY_ID_COUNT)]
 
 
+def _k5_rows(marker: torch.Tensor, sum_u: torch.Tensor,
+             vectors: Dict[str, np.ndarray]) -> Optional[torch.Tensor]:
+    """The rows K5 must fold: ``marker``, or None for every row.
+
+    On a row outside ``marker`` every column of both K5 stacks is +-0.0
+    (``_metric_chunk`` and ``_sweep_chunk_body`` multiply them by the
+    marker, or select 0), as long as each product stays finite: ``(c -
+    x) * 0`` and ``((c * c) * p) * ...`` with ``x`` the row's value and
+    ``c`` its clip to a config's bounds. A fold from +0.0 never holds
+    -0.0 and adding +-0.0 changes nothing else, so dropping those rows
+    keeps every total's bits. Counts are small integers; SUM's values and
+    bounds within ``_ZERO_ROW_LIMIT`` keep ``c - x`` and ``c * c`` finite.
+    A NaN, an infinity or a larger value turns a product into NaN, which
+    the JAX package's fold carries: then K5 folds every row. One check a
+    sweep."""
+    bounds = np.concatenate([vectors["min_sum"], vectors["max_sum"]])
+    if not np.all(np.abs(bounds) <= _ZERO_ROW_LIMIT):
+        return None
+    if not bool((marker | (torch.abs(sum_u) <= _ZERO_ROW_LIMIT)).all()):
+        return None
+    return marker
+
+
 def _chunk_width(C: int, n_pad: int, P_pad: int) -> int:
     """Configs per chunk: the pin of ``PIPELINEDP_TPU_SWEEP_CONFIG_BATCH``
     when set above 0 (1 is the walked mode), else the widest chunk whose
@@ -900,7 +928,15 @@ class LazySweepResult:
 
         marker, pk_safe, count_u, sum_u, npart_u, users_in = self._stage_a(
             encoded, P, P_pad)
-        layout = segkeyed.key_layout(pk_safe, P_pad)
+        # One key order for the whole sweep: the per-row inputs of every
+        # chunk's K5 stacks go into it once, so each key's rows are one
+        # contiguous range (users_in and the chunk width keep stage A's
+        # rows).
+        layout = segkeyed.key_layout(pk_safe, P_pad,
+                                     keep=_k5_rows(marker, sum_u, vectors))
+        marker, count_u, sum_u, npart_u = (
+            a.index_select(0, layout.order)
+            for a in (marker, count_u, sum_u, npart_u))
 
         noise_rows = np.stack([
             _noise_stds(m, all_params, self._budgets)

@@ -171,7 +171,11 @@ _MIN_NORM = float(np.array(0x00800000, np.uint32).view(np.float32))
 
 
 def xla_log(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 ``log`` (Cephes), for finite ``x > 0``."""
+    """XLA's CPU float32 ``log`` (Cephes), with its special cases: zero
+    and subnormal inputs (its executables treat subnormals as zero) give
+    -inf, +inf gives +inf, and a negative or NaN input the NaN whose bits
+    are all set (XLA ORs an all-ones mask into the result)."""
+    raw = x
     x = torch.clamp_min(x, _MIN_NORM)
     xb = x.view(torch.int32)
     e = 1.0 + ((xb >> 23) - 0x7F).float()
@@ -193,7 +197,14 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     y = fma32(y, x3, _LOG_Q1 * e)
     t = fma32(torch.full_like(t, -0.5), x2, t)
     t = t + y
-    return fma32(torch.full_like(t, _LOG_Q2), e, t)
+    out = fma32(torch.full_like(t, _LOG_Q2), e, t)
+    out = torch.where(raw == math.inf, raw, out)
+    # Made on the tensor's device: a host tensor would cost a copy and a
+    # stream synchronisation on every call.
+    all_ones_nan = torch.full_like(out, -1, dtype=torch.int32).view(
+        torch.float32)
+    out = torch.where((raw < 0) | torch.isnan(raw), all_ones_nan, out)
+    return torch.where(torch.abs(raw) < _MIN_NORM, -math.inf, out)
 
 
 _LOG1P_NUM = tuple(_f32(v) for v in (

@@ -178,6 +178,16 @@ def test_xla_log_bit_equal(lo, hi):
     np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
 
 
+def test_xla_log_special_values_bit_equal():
+    """Zeros, subnormals (treated as zero), negatives, NaN and infinities
+    give jitted ``jnp.log``'s bits: -inf, the all-ones NaN, +inf."""
+    x = np.float32([0.0, -0.0, 1e-40, -1e-40, 1e-38, -1.0, np.nan, -np.nan,
+                    np.inf, -np.inf, 2.0, np.finfo(np.float32).tiny])
+    a = np.asarray(jax.jit(jnp.log)(x))
+    b = prng.xla_log(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
 @pytest.mark.parametrize("lo,hi", [(-0.999999, -0.42), (-0.42, 0.42),
                                    (0.42, 3.0)])
 def test_xla_log1p_bit_equal(lo, hi):

@@ -1,8 +1,10 @@
-"""Times the segment-sum kernels K1 and K2 and the ordered segment-total
-kernel K4 of two checkouts of the port against each other on one NVIDIA
-GPU, in turns, on chip_smoke.py's stacks.
+"""Times the segment-sum kernels K1 and K2, the ordered segment-total
+kernel K4 and the ordered keyed sum K5 of two checkouts of the port
+against each other on one NVIDIA GPU, in turns, on chip_smoke.py's
+stacks.
 
-    python3 tools/segsum_ab.py OLD_ROOT NEW_ROOT [--only K4] [--out DIR]
+    python3 tools/segsum_ab.py OLD_ROOT NEW_ROOT [--only K1|K2|K4|K5]
+        [--out DIR]
 
 Each ROOT is the root of a checkout of this repository (for example one
 unpacked from ``git archive <rev>``). Each checkout runs in a process of
@@ -12,8 +14,13 @@ process makes every stack from fixed seeds with this file's
 checkout's wrapper (``segsum.segment_sum_lanes``, ``segment_sum_wide``
 or ``segtotal.segment_totals``) bit for bit to the plain version on it,
 and times the wrapper: the median of 21 warm runs, CUDA events, the
-output's allocation and scratch included. ``--only K1|K2|K4`` keeps one
-kernel's stacks. It prints one JSON line per stack, with
+output's allocation and scratch included. ``--only K1|K2|K4|K5`` keeps one
+kernel's stacks. K5 runs only under ``--only K5``: each checkout's K5 on
+the count and moment stacks that its own main path builds for config 5's
+first chunk of 132 configs (``segkeyed.segmented_sums``, held to the
+checkout's plain version), then each checkout's config-5 sweep (10,000
+configs) once: its wall and K5's summed device time in it (CUDA events).
+It prints one JSON line per stack, with
 both checkouts' two times and the ratio of their means, and with
 ``--out`` writes them to ``DIR/segsum_ab.json``.
 
@@ -90,6 +97,41 @@ def k4_stacks(cs):
     del b, columns
     yield "K4 hot 2^20-row segment", *cs.hot_stack()
     yield "K4 mid-length stack", *cs.mid_stack()
+
+
+def k5_records(cs):
+    """K5 on config 5's first-chunk stacks as this checkout's main path
+    builds them, then this checkout's config-5 sweep (its wall and K5's
+    device milliseconds in it)."""
+    import pipelinedp_tpu_torch as pdt
+    import torch
+    from pipelinedp_tpu_torch import analysis as tan
+    from pipelinedp_tpu_torch.ops.kernels import segkeyed
+    columns = cs.zipf_columns(cs.CONFIG5["rows"], cs.CONFIG5["users"],
+                              cs.CONFIG5["partitions"], cs.CONFIG5["seed"])
+    count, moments, layout = cs.capture_k5_stacks(columns, 132)
+    records = []
+    for name, values in (("K5 config-5 count stack", count),
+                         ("K5 config-5 moment stack", moments)):
+        want = segkeyed.segmented_sums_plain(values, layout)
+        got = segkeyed.segmented_sums(values, layout)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+            f"K5 wrong on {name}")
+        ms = cs.cuda_ms(lambda: segkeyed.segmented_sums(values, layout))
+        records.append(dict(stack=name, shape=list(values.shape), ms=ms))
+    del count, moments, want, got
+    n_cfg, options = cs.sweep_options(tan, pdt, cs.CONFIG5_CONFIGS)
+    with cs._kernel_clock() as clock:
+        lazy, _, _, wall_s = cs.run_sweep(columns, options, "cuda")
+    assert lazy.n_chunks == 76 and lazy.chunk == 132, (lazy.n_chunks,
+                                                       lazy.chunk)
+    records.append(dict(stack="config 5 wall (10,000 configs)",
+                        shape=[cs.CONFIG5["rows"], n_cfg],
+                        ms=wall_s * 1e3))
+    records.append(dict(stack="config 5 K5 device time (152 launches)",
+                        shape=[2 * lazy.n_chunks],
+                        ms=clock.ms()["segmented_sums"]))
+    return records
 
 
 def segtotal_detail(root, path):
@@ -195,6 +237,8 @@ def time_checkout(root, only=None, detail=None):
     assert segsum.__file__.startswith(os.path.abspath(root)), segsum.__file__
     # VECTOR_SUM's stacks are the fixed-point lanes, as chip_smoke.py sets.
     os.environ["PIPELINEDP_TPU_VECTOR_ACCUMULATOR"] = "fx"
+    if only == "K5":
+        return k5_records(cs)
     records = []
     k1k2 = () if only == "K4" else stacks(cs, segsum)
     for name, fn, cols, pk, P in k1k2:
@@ -232,7 +276,8 @@ def main():
     parser.add_argument("old", nargs="?")
     parser.add_argument("new", nargs="?")
     parser.add_argument("--out", default=None)
-    parser.add_argument("--only", default=None, choices=["K1", "K2", "K4"],
+    parser.add_argument("--only", default=None,
+                        choices=["K1", "K2", "K4", "K5"],
                         help="time only that kernel's stacks")
     parser.add_argument("--k4-detail", action="store_true",
                         help="K4's device times per launch, its SASS and "
