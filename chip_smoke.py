@@ -131,7 +131,28 @@ Phases, one line each; any failure raises and exits non-zero:
 24. ``bench_utility_megasweep``'s shape (1M rows, 2000 partitions) at
     K = 16, 64, 256: walked (width 1) and batched (width K) bit for bit,
     configs/s of each;
-25. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
+25. the generic host path, in four parts: (a) routing on the card:
+    fusable params on ``TorchBackend()`` give the fused path's lazy
+    result, while a COUNT + PERCENTILE(50) over a range of 1e-35 (too small
+    for the fused walk's float32 leaf constant) and a custom combiner take
+    the host graph and release the same bits on ``TorchBackend()``,
+    ``TorchBackend("cpu")`` and ``LocalBackend()`` under one host seed,
+    and ``select_partitions`` on ``LocalBackend`` keeps the same keys here
+    and in a spawned process that sees no card; (b) the host oracle on the
+    flagship's first 250,000 rows (COUNT + SUM + PRIVACY_ID_COUNT, eps
+    1e12, public keys, L0 and Linf at the rows' maxima) against the fused
+    path (K1): counts equal after rounding, sums within
+    ``1e-5 |sum| + 1e-3``; (c) the JAX bench's host-oracle spot check, 3
+    configs on 20,000 rows of config 5's data, host graph against the
+    fused sweep (K4, K1, K5), ``error_expected`` within ``max(5%, 0.5)``,
+    and ``return_per_partition`` past a shrunken ``_PP_BYTE_CAP`` on
+    ``TorchBackend()``, which takes the host graph and equals the CPU run
+    bit for bit; (d) ``LocalBackend``'s rates at the JAX bench's sizes
+    (the flagship at 250,000 rows, config 4 at 50,000, the sweep's unit
+    rate on 8 nominal configs x 20,000 rows; best of 2 on the host, of 3
+    on the card) beside the fused path's on the same rows and phases 4,
+    10 and 22's full-size cells, with the ratios and the host CPU's model;
+26. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
     the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
@@ -1627,11 +1648,11 @@ def sweep_options(tan, pdt, n_cfg):
 
 
 def run_sweep(columns, options, device, width=None, public=None,
-              per_partition=False, checkpoint=None):
+              per_partition=False, checkpoint=None, backend=None):
     """One ``perform_utility_analysis`` through ``TorchBackend(device)``
-    with the chunk width pinned to ``width`` (None: the static formula):
-    (lazy result, [AggregateMetrics], per-partition rows or None, wall
-    seconds with the device synchronised)."""
+    (or ``backend``) with the chunk width pinned to ``width`` (None: the
+    static formula): (lazy result, [AggregateMetrics], per-partition rows
+    or None, wall seconds with the device synchronised)."""
     import pipelinedp_tpu_torch as pdt
     from pipelinedp_tpu_torch import analysis as tan
     if width is None:
@@ -1642,9 +1663,10 @@ def run_sweep(columns, options, device, width=None, public=None,
         if device == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
+        if backend is None:
+            backend = pdt.TorchBackend(device=device, checkpoint=checkpoint)
         out = tan.perform_utility_analysis(
-            pdt.ArrayDataset(*columns),
-            pdt.TorchBackend(device=device, checkpoint=checkpoint), options,
+            pdt.ArrayDataset(*columns), backend, options,
             pdt.DataExtractors(), public_partitions=public,
             return_per_partition=per_partition)
         lazy, rows = out if per_partition else (out, None)
@@ -2124,6 +2146,352 @@ def phase_sweep_kill_resume(c5_columns):
         identical=True, unbroken_s=unbroken_s, resumed_s=resumed_s)
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the generic host path
+# ---------------------------------------------------------------------------
+
+# The JAX bench's LocalBackend sizes (``bench.py:2786``, ``:2856``,
+# ``:436-465``): 250,000 rows of the flagship, 50,000 of config 4, and the
+# sweep's host unit rate on 8 nominal configs x 20,000 rows of config 5.
+HOST_FLAGSHIP_ROWS = 250_000
+HOST_CONFIG4_ROWS = 50_000
+HOST_SWEEP_ROWS = 20_000
+# Best of 2 on the host (best of 3 would take config 4's host leg alone
+# past two minutes); best of 3 on the card.
+HOST_REPEATS = 2
+CARD_REPEATS = 3
+
+
+def _engine_release(pdt, backend, columns, params_kw, public=None, eps=1.0,
+                    delta=1e-6, seed=None):
+    """One ``DPEngine.aggregate`` on ``backend`` (an ``ArrayDataset`` of
+    ``columns``), with the host RNG seeded first when ``seed`` is given:
+    (rows, the lazy result, wall seconds with the card synchronised)."""
+    from pipelinedp_tpu_torch.ops import noise
+    if seed is not None:
+        noise.seed_host_rng(seed)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=eps, total_delta=delta)
+    engine = pdt.DPEngine(acc, backend)
+    result = engine.aggregate(pdt.ArrayDataset(*columns),
+                              pdt.AggregateParams(**params_kw),
+                              pdt.DataExtractors(), public_partitions=public)
+    acc.compute_budgets()
+    rows = list(result)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return rows, result, time.perf_counter() - t0
+
+
+def _release_bits(rows):
+    """(keys, float64 bits of every released value) of a release."""
+    keys = [k for k, _ in rows]
+    vals = np.asarray([np.asarray(tuple(m), np.float64) for _, m in rows],
+                      np.float64)
+    return keys, vals.view(np.uint64)
+
+
+def _noisy_count_combiner(pdt):
+    """A user's custom combiner: a noisy count on the host RNG."""
+    from pipelinedp_tpu_torch.aggregate_params import MechanismType
+    from pipelinedp_tpu_torch.ops import noise
+
+    class NoisyCount(pdt.CustomCombiner):
+
+        def request_budget(self, budget_accountant):
+            self._spec = budget_accountant.request_budget(
+                MechanismType.LAPLACE)
+
+        def create_accumulator(self, values):
+            return len(list(values))
+
+        def merge_accumulators(self, a, b):
+            return a + b
+
+        def compute_metrics(self, acc):
+            return acc + noise.np_laplace(2.0 / self._spec.eps)
+
+        def explain_computation(self):
+            return lambda: "noisy count"
+
+    return NoisyCount()
+
+
+def _host_select(seed):
+    """``select_partitions`` on ``LocalBackend`` over phase 25's rows with
+    the host RNG seeded: the kept keys. Runs in this process and in a
+    spawned process that sees no card."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.ops import noise
+    rng = np.random.default_rng(seed)
+    rows = list(zip(rng.integers(0, 3000, 20_000).tolist(),
+                    (rng.zipf(1.3, 20_000) % 500).tolist()))
+    noise.seed_host_rng(seed)
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    result = pdt.DPEngine(acc, pdt.LocalBackend()).select_partitions(
+        rows, pdt.SelectPartitionsParams(max_partitions_contributed=2),
+        pdt.DataExtractors(privacy_id_extractor=lambda r: r[0],
+                           partition_extractor=lambda r: r[1]))
+    acc.compute_budgets()
+    return list(result), torch.cuda.is_available()
+
+
+def phase_host_routing():
+    """25a. Routing on the card: fusable params on ``TorchBackend()`` give
+    the fused path's lazy result; a percentile range under the fused
+    walk's float32 limit and a custom combiner take the host graph, and
+    release the same bits on ``TorchBackend()``, ``TorchBackend("cpu")``
+    and ``LocalBackend()`` under one host seed; ``select_partitions`` on
+    ``LocalBackend`` keeps the same keys here and in a process without
+    the card."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import torch_engine as te
+    columns = zipf_columns(1_000, 400, 10, seed=61)
+    fused_rows, fused, _ = _engine_release(
+        pdt, pdt.TorchBackend(rng_seed=0), columns, flagship_params(pdt))
+    assert isinstance(fused, te.LazyFusedResult), type(fused)
+    assert fused_rows, "the fused flagship kept nothing"
+    tiny = dict(metrics=[pdt.Metrics.COUNT, pdt.Metrics.PERCENTILE(50)],
+                max_partitions_contributed=2,
+                max_contributions_per_partition=2, min_value=0.0,
+                max_value=1e-35)
+    tiny_cols = (columns[0], columns[1], columns[2] * 1e-36)
+    backends = {"cuda": lambda: pdt.TorchBackend(rng_seed=0),
+                "cpu": lambda: pdt.TorchBackend("cpu", rng_seed=0),
+                "local": pdt.LocalBackend}
+    released = {}
+    for case, kw in (("tiny_range", dict(params_kw=tiny)),
+                     ("custom_combiner", dict(params_kw=None))):
+        for name, make in backends.items():
+            params = kw["params_kw"] or dict(
+                max_partitions_contributed=2,
+                max_contributions_per_partition=2,
+                custom_combiners=[_noisy_count_combiner(pdt)])
+            rows, result, wall = _engine_release(
+                pdt, make(), tiny_cols if case == "tiny_range" else columns,
+                params, seed=62)
+            assert not isinstance(result, te.LazyFusedResult), (case, name)
+            released[(case, name)] = (_release_bits(rows), wall)
+        ref = released[(case, "cuda")][0]
+        assert ref[0], f"{case}: nothing released"
+        for name in ("cpu", "local"):
+            got = released[(case, name)][0]
+            assert got[0] == ref[0] and np.array_equal(got[1], ref[1]), (
+                f"{case}: {name} differs from the card's backend")
+    here, card_visible = _host_select(63)
+    assert card_visible
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        with ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            there, there_visible = pool.submit(_host_select, 63).result()
+    finally:
+        if saved is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES")
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+    assert not there_visible, "the spawned process saw the card"
+    assert here == there and here, "select_partitions depends on the card"
+    log("host_routing", fused_flagship_kept=len(fused_rows),
+        tiny_range_kept=len(released[("tiny_range", "cuda")][0][0]),
+        custom_combiner_kept=len(released[("custom_combiner",
+                                           "cuda")][0][0]),
+        identical=True, select_partitions_kept=len(here),
+        walls_s={f"{c}/{n}": w for (c, n), (_, w) in released.items()})
+
+
+def phase_host_oracle(prefix):
+    """25b. The host oracle against the fused path on the flagship's
+    first 250,000 rows: COUNT + SUM + PRIVACY_ID_COUNT, Laplace, eps 1e12,
+    delta 1e-2, the prefix's keys public and L0, Linf at the prefix's
+    maxima (neither path samples). Counts and privacy-id counts equal
+    after rounding; sums within the fused path's 24-bit fixed point,
+    ``|d| <= 1e-5 |sum| + 1e-3``."""
+    import pipelinedp_tpu_torch as pdt
+    pids, pks, _ = prefix
+    pairs, per_pair = np.unique(np.stack([pids, pks]), axis=1,
+                                return_counts=True)
+    l0 = int(np.unique(pairs[0], return_counts=True)[1].max())
+    linf = int(per_pair.max())
+    public = np.unique(pks).tolist()
+    params = dict(metrics=[pdt.Metrics.COUNT, pdt.Metrics.SUM,
+                           pdt.Metrics.PRIVACY_ID_COUNT],
+                  noise_kind=pdt.NoiseKind.LAPLACE,
+                  max_partitions_contributed=l0,
+                  max_contributions_per_partition=linf, min_value=0.0,
+                  max_value=10.0)
+    host, _, host_s = _engine_release(pdt, pdt.LocalBackend(), prefix,
+                                      params, public, eps=1e12, delta=1e-2,
+                                      seed=64)
+    _reset_launches()
+    fused, _, fused_s = _engine_release(pdt, pdt.TorchBackend(rng_seed=0),
+                                        prefix, params, public, eps=1e12,
+                                        delta=1e-2)
+    launches = _launch_counts()
+    assert launches["segment_sum_lanes"] >= 1, "K1 never launched"
+    host, fused = dict(host), dict(fused)
+    assert sorted(host) == sorted(fused) == sorted(public)
+    worst = 0.0
+    for k, h in host.items():
+        f = fused[k]
+        assert round(h.count) == round(f.count), (k, h, f)
+        assert round(h.privacy_id_count) == round(f.privacy_id_count), k
+        d = abs(h.sum - f.sum)
+        assert d <= 1e-5 * abs(h.sum) + 1e-3, (k, h.sum, f.sum)
+        worst = max(worst, d / (1e-5 * abs(h.sum) + 1e-3))
+    log("host_oracle", rows=len(pks), partitions=len(public), l0=l0,
+        linf=linf, counts_equal=True, sum_tolerance="1e-5*|sum| + 1e-3",
+        sum_worst_share_of_tolerance=worst, host_s=host_s, fused_s=fused_s,
+        launches=launches)
+
+
+def small_sweep_options(tan, pdt, n_cfg):
+    """``bench.py``'s ``sweep_options`` below 1,000 configs: l0 caps
+    ``unique(geomspace(1, 60, n_cfg))`` at Linf 2, COUNT, Laplace,
+    eps = 1, delta = 1e-6."""
+    caps = np.unique(np.geomspace(1, 60, n_cfg).astype(int))
+    multi = tan.MultiParameterConfiguration(
+        max_partitions_contributed=caps.tolist(),
+        max_contributions_per_partition=[2] * len(caps))
+    params = pdt.AggregateParams(
+        metrics=[pdt.Metrics.COUNT], noise_kind=pdt.NoiseKind.LAPLACE,
+        max_partitions_contributed=4, max_contributions_per_partition=2)
+    return len(caps), tan.UtilityAnalysisOptions(
+        epsilon=1.0, delta=1e-6, aggregate_params=params,
+        multi_param_configuration=multi)
+
+
+def phase_host_sweep_oracle(c5_slice):
+    """25c. The JAX bench's host-oracle spot check (``bench.py:452-465``):
+    3 configs on 20,000 rows of config 5's data, the host graph on
+    ``LocalBackend`` against the fused sweep on the card, ``error_expected``
+    within ``max(5%, 0.5)``; then ``return_per_partition`` past a shrunken
+    ``_PP_BYTE_CAP`` on ``TorchBackend()``, which takes the host graph and
+    equals the CPU run bit for bit."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    from pipelinedp_tpu_torch.analysis import torch_sweep
+    from pipelinedp_tpu_torch.ops import noise
+    n_cfg, options = small_sweep_options(tan, pdt, 3)
+    noise.seed_host_rng(65)
+    _, host, _, host_s = run_sweep(c5_slice, options, "cuda",
+                                   backend=pdt.LocalBackend())
+    _reset_launches()
+    lazy, fused, _, fused_s = run_sweep(c5_slice, options, "cuda")
+    launches = _launch_counts()
+    assert isinstance(lazy, torch_sweep.LazySweepResult)
+    for name in ("segment_totals", "segment_sum_lanes", "segmented_sums"):
+        assert launches[name] >= 1, f"{name} never launched: {launches}"
+    assert len(host) == len(fused) == n_cfg
+    diffs = []
+    for h, f in zip(host, fused):
+        hv, fv = h.count_metrics.error_expected, f.count_metrics.error_expected
+        assert abs(hv - fv) <= max(0.05 * abs(hv), 0.5), (hv, fv)
+        diffs.append([hv, fv])
+    small = tuple(c[:5_000] for c in c5_slice)
+    saved = torch_sweep._PP_BYTE_CAP
+    torch_sweep._PP_BYTE_CAP = 64
+    try:
+        _reset_launches()
+        noise.seed_host_rng(66)
+        _, g_res, g_rows, g_s = run_sweep(small, options, "cuda",
+                                          per_partition=True)
+        assert _launch_counts()["segmented_sums"] == 0, (
+            "past the byte cap the sweep must take the host graph")
+        noise.seed_host_rng(66)
+        _, c_res, c_rows, _ = run_sweep(small, options, "cpu",
+                                        per_partition=True)
+    finally:
+        torch_sweep._PP_BYTE_CAP = saved
+    _assert_sweeps_identical(g_res, c_res, "byte-capped host fallback")
+    _assert_pp_rows_identical(g_rows, c_rows, "byte-capped rows")
+    assert g_rows
+    log("host_sweep_oracle", rows=len(c5_slice[1]), configs=n_cfg,
+        error_expected_host_fused=diffs, tolerance="max(5%, 0.5)",
+        host_s=host_s, fused_s=fused_s, launches=launches,
+        byte_cap_rows=len(small[1]), byte_cap_partitions=len(g_rows),
+        byte_cap_identical=True, byte_cap_s=g_s)
+
+
+def host_cpu() -> dict:
+    """The host CPU as ``/proc/cpuinfo`` names its first processor (a
+    virtual machine may report its model name as unknown; the family and
+    model numbers still identify the part)."""
+    fields = {"vendor_id": "vendor", "cpu family": "family",
+              "model": "model", "model name": "model_name"}
+    out = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            key = key.strip()
+            if not key:
+                break
+            if key in fields:
+                out[fields[key]] = value.strip()
+    return out
+
+
+def _best(fn, repeats):
+    return min(fn() for _ in range(repeats))
+
+
+def phase_host_rates(flag_prefix, c4_prefix, c5_slice):
+    """25d. Host rates beside the card's, as the JAX bench measures them
+    (best of ``HOST_REPEATS`` on the host, of ``CARD_REPEATS`` on the
+    card after a warm run): ``LocalBackend`` rows/s of the flagship params
+    at 250,000 rows and of config 4 at 50,000 (the host ``QuantileTree``),
+    and the host sweep's configs x rows / s on 8 nominal configs x 20,000
+    rows; each beside the fused path on the same rows and the full-size
+    cell of phases 4, 10 and 22, with the ratios (the port's first
+    ``vs LocalBackend`` figures)."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    phases = RECORD["phases"]
+    out = {}
+    for name, cols, params, full in (
+            ("flagship", flag_prefix, flagship_params(pdt),
+             phases["flagship"]["rows_per_s"]),
+            ("config4", c4_prefix, config4_params(pdt),
+             phases["config4"]["single"]["rows_per_s"])):
+        n = len(cols[1])
+        host_s = _best(lambda: _engine_release(
+            pdt, pdt.LocalBackend(), cols, params)[2], HOST_REPEATS)
+        card = pdt.TorchBackend(rng_seed=0)
+        _engine_release(pdt, card, cols, params)
+        card_s = _best(lambda: _engine_release(pdt, card, cols, params)[2],
+                       CARD_REPEATS)
+        out[name] = dict(rows=n, host_rows_per_s=n / host_s,
+                         card_rows_per_s=n / card_s,
+                         card_vs_host=host_s / card_s,
+                         full_size_card_rows_per_s=full,
+                         full_size_vs_host=full / (n / host_s),
+                         host_s=host_s, card_s=card_s)
+    n_cfg, options = small_sweep_options(tan, pdt, 8)
+    n = len(c5_slice[1])
+    host_s = _best(lambda: run_sweep(c5_slice, options, "cuda",
+                                     backend=pdt.LocalBackend())[3],
+                   HOST_REPEATS)
+    run_sweep(c5_slice, options, "cuda")
+    card_s = _best(lambda: run_sweep(c5_slice, options, "cuda")[3],
+                   CARD_REPEATS)
+    full = phases["config5"]["config_rows_per_s"]
+    out["sweep"] = dict(rows=n, configs=n_cfg,
+                        host_config_rows_per_s=n_cfg * n / host_s,
+                        card_config_rows_per_s=n_cfg * n / card_s,
+                        card_vs_host=host_s / card_s,
+                        full_size_card_config_rows_per_s=full,
+                        full_size_vs_host=full / (n_cfg * n / host_s),
+                        host_s=host_s, card_s=card_s)
+    log("host_rates", host_cpu=host_cpu(),
+        host_cores=os.cpu_count(), host_repeats=HOST_REPEATS,
+        card_repeats=CARD_REPEATS, **out)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2152,6 +2520,7 @@ def main() -> int:
     k4 = phase_segtotal_kernel(columns, max_sm_mhz)
     phase_sum_bounds_gpu_vs_cpu()
     sum_bounds = phase_sum_bounds_full(columns)
+    flag_prefix = tuple(c[:HOST_FLAGSHIP_ROWS].copy() for c in columns)
     del columns
     # VECTOR_SUM under the fixed-point accumulator, set as the JAX bench
     # sets it.
@@ -2178,6 +2547,7 @@ def main() -> int:
     phase_select_streamed(columns)
     phase_pass_b_sources(columns, c4_rows)
     phase_kill_resume(columns, c4_rows)
+    c4_prefix = tuple(c[:HOST_CONFIG4_ROWS].copy() for c in columns)
     del columns, c4_rows
     phase_streamed_percentile()
     t0 = time.perf_counter()
@@ -2195,8 +2565,15 @@ def main() -> int:
     if args.profile:
         phase_config5_breakdown(c5_columns, args.out)
     phase_sweep_kill_resume(c5_columns)
+    c5_slice = tuple(c[:HOST_SWEEP_ROWS].copy() for c in c5_columns)
     del c5_columns
     phase_megasweep()
+    t0 = time.perf_counter()
+    phase_host_routing()
+    phase_host_oracle(flag_prefix)
+    phase_host_sweep_oracle(c5_slice)
+    phase_host_rates(flag_prefix, c4_prefix, c5_slice)
+    RECORD["host_path_s"] = time.perf_counter() - t0
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",

@@ -14,8 +14,15 @@ ordered per-segment totals of the per-partition-bounds SUM. The
 utility analysis (``pipelinedp_tpu_torch.analysis``:
 ``perform_utility_analysis``, ``compute_dataset_histograms``, ``tune``)
 runs the JAX package's fused multi-configuration sweep on the device,
-with a hand-written kernel for its ordered keyed float32 sums. The
-package imports torch, numpy and scipy, never JAX.
+with a hand-written kernel for its ordered keyed float32 sums.
+
+The generic host path runs the rest, where the JAX package runs it: the
+host backends (``LocalBackend``, ``MultiProcLocalBackend``,
+``SparkRDDBackend``), custom combiners (subclasses of ``CustomCombiner``),
+non-fusable percentile params, and the host analysis graph;
+``TorchBackend`` is a ``LocalBackend`` and falls back to it exactly where
+``JaxBackend`` does. The package imports torch, numpy and scipy, never
+JAX.
 
     import pipelinedp_tpu_torch as pdt
     accountant = pdt.NaiveBudgetAccountant(total_epsilon=1, total_delta=1e-6)
@@ -32,11 +39,21 @@ from pipelinedp_tpu_torch.aggregate_params import (AggregateParams, Metrics,
                                                    SelectPartitionsParams)
 from pipelinedp_tpu_torch.backends import TorchBackend
 from pipelinedp_tpu_torch.budget_accounting import NaiveBudgetAccountant
+from pipelinedp_tpu_torch.combiners import Combiner, CustomCombiner
 from pipelinedp_tpu_torch.dp_engine import DataExtractors, DPEngine
+from pipelinedp_tpu_torch.pipeline_backend import (Annotator, BeamBackend,
+                                                   LocalBackend,
+                                                   MultiProcLocalBackend,
+                                                   PipelineBackend,
+                                                   SparkRDDBackend,
+                                                   register_annotator)
 from pipelinedp_tpu_torch.torch_engine import ArrayDataset
 
 __all__ = [
-    "AggregateParams", "ArrayDataset", "DataExtractors", "DPEngine",
-    "Metrics", "NaiveBudgetAccountant", "NoiseKind", "NormKind",
-    "PartitionSelectionStrategy", "SelectPartitionsParams", "TorchBackend",
+    "AggregateParams", "Annotator", "ArrayDataset", "BeamBackend",
+    "Combiner", "CustomCombiner", "DataExtractors", "DPEngine",
+    "LocalBackend", "Metrics", "MultiProcLocalBackend",
+    "NaiveBudgetAccountant", "NoiseKind", "NormKind",
+    "PartitionSelectionStrategy", "PipelineBackend", "SelectPartitionsParams",
+    "SparkRDDBackend", "TorchBackend", "register_annotator",
 ]

@@ -1,8 +1,8 @@
-"""Utility analysis and parameter tuning on the device: the fused sweep of
-``pipelinedp_tpu/analysis`` (capability parity with the reference's
-``analysis/`` package). Simulates, without running real DP repeatedly, the
-error a parameter set would produce, for many configurations in one
-pass."""
+"""Utility analysis and parameter tuning: ``pipelinedp_tpu/analysis`` on
+the port (capability parity with the reference's ``analysis/`` package).
+Simulates, without running real DP repeatedly, the error a parameter set
+would produce, for many configurations in one pass: the fused sweep on a
+``TorchBackend``'s device, the host analysis graph elsewhere."""
 
 from pipelinedp_tpu_torch.analysis.data_structures import (
     MultiParameterConfiguration,
@@ -32,7 +32,10 @@ from pipelinedp_tpu_torch.analysis.parameter_tuning import (
     UtilityAnalysisRun,
     tune,
 )
+from pipelinedp_tpu_torch.analysis.pre_aggregation import preaggregate
 from pipelinedp_tpu_torch.analysis.utility_analysis import (
     perform_utility_analysis,
-    preaggregate,
+)
+from pipelinedp_tpu_torch.analysis.utility_analysis_engine import (
+    UtilityAnalysisEngine,
 )

@@ -1,16 +1,20 @@
-"""Dataset-shape histograms for parameter tuning: the data classes of
-``pipelinedp_tpu/analysis/histograms.py`` and its fused branch. L0
-(partitions per privacy id), Linf (rows per (pid, pk)), count per
-partition and privacy ids per partition, with a binning that keeps 3
-leading digits, computed on the backend's device
-(``torch_sweep.fused_dataset_histograms``). The host graph is ROADMAP
-step 2 here and raises."""
+"""Dataset-shape histograms for parameter tuning. A copy of
+``pipelinedp_tpu/analysis/histograms.py`` (capability parity with the
+reference's ``analysis/histograms.py``): L0 (partitions per privacy id),
+Linf (rows per (pid, pk)), count per partition and privacy ids per
+partition, with a binning that keeps 3 leading digits. On a backend with
+the fused path they are computed on its device
+(``torch_sweep.fused_dataset_histograms``); elsewhere, and always for
+pre-aggregated rows, by the host graph of backend ops."""
 
 from __future__ import annotations
 
 import enum
+import operator
 from dataclasses import dataclass
 from typing import List
+
+from pipelinedp_tpu_torch.dp_engine import DataExtractors
 
 
 @dataclass
@@ -90,22 +94,164 @@ def _to_bin_lower(n: int) -> int:
     return n // round_base * round_base
 
 
-def compute_dataset_histograms(col, data_extractors, backend):
-    """All four histograms; returns a 1-element collection with
-    DatasetHistograms, computed on ``backend.device``."""
-    from pipelinedp_tpu_torch.analysis import torch_sweep
-    if not getattr(backend, "supports_fused_aggregation", False):
-        raise torch_sweep._not_ported(
-            f"dataset histograms on {type(backend).__name__} (the host "
-            "graph)", 2)
-    return torch_sweep.fused_dataset_histograms(col, data_extractors,
-                                                backend.device)
+def _compute_frequency_histogram(col, backend, name: HistogramType,
+                                 deduplicate: bool = False):
+    """count_per_element -> bin -> reduce_per_key -> sorted Histogram
+    (reference :128-173); 1-element output collection."""
+    col = backend.count_per_element(col, "Frequency of elements")
+    if deduplicate:
+        col = backend.map_tuple(
+            col, lambda element, frequency:
+            (element, int(round(frequency / element))), "Deduplicate")
+    col = backend.map_tuple(
+        col, lambda n, f:
+        (_to_bin_lower(n),
+         FrequencyBin(lower=_to_bin_lower(n), count=f, sum=f * n, max=n)),
+        "To FrequencyBin")
+    col = backend.reduce_per_key(col, operator.add, "Combine FrequencyBins")
+    col = backend.values(col, "To FrequencyBin")
+    col = backend.to_list(col, "To 1 element collection")
+
+    def bins_to_histogram(bins):
+        bins.sort(key=lambda b: b.lower)
+        return Histogram(name, bins)
+
+    return backend.map(col, bins_to_histogram, "To histogram")
+
+
+def _list_to_contribution_histograms(
+        histograms: List[Histogram]) -> DatasetHistograms:
+    by_type = {h.name: h for h in histograms}
+    return DatasetHistograms(
+        by_type.get(HistogramType.L0_CONTRIBUTIONS),
+        by_type.get(HistogramType.LINF_CONTRIBUTIONS),
+        by_type.get(HistogramType.COUNT_PER_PARTITION),
+        by_type.get(HistogramType.COUNT_PRIVACY_ID_PER_PARTITION))
+
+
+def _to_dataset_histograms(histogram_list, backend):
+    histograms = backend.flatten(histogram_list,
+                                 "Histograms to one collection")
+    histograms = backend.to_list(histograms, "Histograms to List")
+    return backend.map(histograms, _list_to_contribution_histograms,
+                       "To DatasetHistograms")
+
+
+def _compute_l0_contributions_histogram(col_distinct, backend):
+    """# of privacy ids contributing to 1, 2, ... partitions."""
+    col = backend.keys(col_distinct, "Drop partition id")
+    col = backend.count_per_element(col,
+                                    "Compute partitions per privacy id")
+    col = backend.values(col, "Drop privacy id")
+    return _compute_frequency_histogram(col, backend,
+                                        HistogramType.L0_CONTRIBUTIONS)
+
+
+def _compute_linf_contributions_histogram(col, backend):
+    """# of (pid, pk) pairs with 1, 2, ... rows."""
+    col = backend.count_per_element(
+        col, "Contributions per (privacy_id, partition)")
+    col = backend.values(col, "Drop privacy id")
+    return _compute_frequency_histogram(col, backend,
+                                        HistogramType.LINF_CONTRIBUTIONS)
+
+
+def _compute_partition_count_histogram(col, backend):
+    """# of partitions with total row count 1, 2, ..."""
+    col = backend.values(col, "Drop privacy keys")
+    col = backend.count_per_element(col, "Count per partition")
+    col = backend.values(col, "Drop partition key")
+    return _compute_frequency_histogram(col, backend,
+                                        HistogramType.COUNT_PER_PARTITION)
+
+
+def _compute_partition_privacy_id_count_histogram(col_distinct, backend):
+    """# of partitions with 1, 2, ... distinct privacy ids."""
+    col = backend.values(col_distinct, "Drop privacy key")
+    col = backend.count_per_element(col, "Privacy ids per partition")
+    col = backend.values(col, "Drop partition key")
+    return _compute_frequency_histogram(
+        col, backend, HistogramType.COUNT_PRIVACY_ID_PER_PARTITION)
+
+
+def compute_dataset_histograms(col, data_extractors: DataExtractors,
+                               backend) -> "collection":
+    """All four histograms in one pass graph; returns a 1-element
+    collection with DatasetHistograms (reference :319-361). On a backend
+    with the fused path the whole computation runs on its device
+    (``torch_sweep.fused_dataset_histograms``)."""
+    if getattr(backend, "supports_fused_aggregation", False):
+        from pipelinedp_tpu_torch.analysis import torch_sweep
+        return torch_sweep.fused_dataset_histograms(col, data_extractors,
+                                                    backend.device)
+    from pipelinedp_tpu_torch import torch_engine
+    if isinstance(col, torch_engine.ArrayDataset):
+        col, data_extractors = torch_engine.array_dataset_to_rows(
+            col, data_extractors)
+    col = backend.map(
+        col, lambda row: (data_extractors.privacy_id_extractor(row),
+                          data_extractors.partition_extractor(row)),
+        "Extract (privacy_id, partition_key)")
+    col = backend.to_multi_transformable_collection(col)
+    col_distinct = backend.distinct(col, "Distinct (pid, pk)")
+    col_distinct = backend.to_multi_transformable_collection(col_distinct)
+
+    return _to_dataset_histograms([
+        _compute_l0_contributions_histogram(col_distinct, backend),
+        _compute_linf_contributions_histogram(col, backend),
+        _compute_partition_count_histogram(col, backend),
+        _compute_partition_privacy_id_count_histogram(
+            col_distinct, backend),
+    ], backend)
+
+
+# --- Pre-aggregated variants (reference :369-513): rows are
+# (partition_key, (count, sum, n_partitions)). ---
+
+
+def _compute_l0_histogram_preaggregated(col, backend):
+    col = backend.map_tuple(col, lambda _, x: x[2], "Extract n_partitions")
+    return _compute_frequency_histogram(col, backend,
+                                        HistogramType.L0_CONTRIBUTIONS,
+                                        deduplicate=True)
+
+
+def _compute_linf_histogram_preaggregated(col, backend):
+    col = backend.map_tuple(col, lambda _, x: x[0], "Extract count")
+    return _compute_frequency_histogram(col, backend,
+                                        HistogramType.LINF_CONTRIBUTIONS)
+
+
+def _compute_partition_count_histogram_preaggregated(col, backend):
+    col = backend.map_tuple(col, lambda pk, x: (pk, x[0]),
+                            "Extract (pk, count)")
+    col = backend.sum_per_key(col, "Sum counts per partition")
+    col = backend.values(col, "Drop partition key")
+    return _compute_frequency_histogram(col, backend,
+                                        HistogramType.COUNT_PER_PARTITION)
+
+
+def _compute_partition_privacy_id_count_histogram_preaggregated(
+        col, backend):
+    col = backend.keys(col, "Partition keys")
+    col = backend.count_per_element(col, "Privacy ids per partition")
+    col = backend.values(col, "Drop partition key")
+    return _compute_frequency_histogram(
+        col, backend, HistogramType.COUNT_PRIVACY_ID_PER_PARTITION)
 
 
 def compute_dataset_histograms_on_preaggregated_data(
         col, data_extractors, backend):
-    """Histograms over pre-aggregated rows: a host graph in the JAX
-    package, not ported."""
-    from pipelinedp_tpu_torch.analysis import torch_sweep
-    raise torch_sweep._not_ported(
-        "dataset histograms on pre-aggregated data (the host graph)", 2)
+    """Histograms over pre-aggregated rows (reference :369-513)."""
+    col = backend.map(
+        col, lambda row: (data_extractors.partition_extractor(row),
+                          data_extractors.preaggregate_extractor(row)),
+        "Extract (partition_key, preaggregate)")
+    col = backend.to_multi_transformable_collection(col)
+    return _to_dataset_histograms([
+        _compute_l0_histogram_preaggregated(col, backend),
+        _compute_linf_histogram_preaggregated(col, backend),
+        _compute_partition_count_histogram_preaggregated(col, backend),
+        _compute_partition_privacy_id_count_histogram_preaggregated(
+            col, backend),
+    ], backend)

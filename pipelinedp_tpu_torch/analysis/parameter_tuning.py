@@ -1,9 +1,10 @@
 """Parameter tuning: candidate bounds from contribution-histogram
-quantiles, one utility-analysis sweep on the device, argmin RMSE. A copy
-of ``pipelinedp_tpu/analysis/parameter_tuning.py`` on the port's sweep
+quantiles, one utility-analysis sweep, argmin RMSE. A copy of
+``pipelinedp_tpu/analysis/parameter_tuning.py`` on the port's modules
 (capability parity with the reference's ``analysis/parameter_tuning.py``).
 The candidate search and the argmin run on the host; the sweep runs on
-the backend's device."""
+the backend's device where ``perform_utility_analysis`` takes the fused
+path, and as the host analysis graph elsewhere."""
 
 from __future__ import annotations
 
@@ -174,25 +175,13 @@ def tune(col, backend,
     else:
         ua_result = result
     use_public = public_partitions is not None
-    tuned = _LazyMap(
+    tuned = backend.map(
         ua_result, lambda r: _convert_utility_analysis_to_tune_result(
-            r, options, candidates, use_public, contribution_histograms))
+            r, options, candidates, use_public, contribution_histograms),
+        "To Tune result")
     if return_utility_analysis_per_partition:
         return tuned, ua_per_partition
     return tuned
-
-
-class _LazyMap:
-    """``fn`` over a lazy collection, applied on iteration (what the JAX
-    package's ``backend.map`` gives on its fused backend)."""
-
-    def __init__(self, col, fn: Callable):
-        self._col = col
-        self._fn = fn
-
-    def __iter__(self):
-        for x in self._col:
-            yield self._fn(x)
 
 
 def _check_tune_args(options: TuneOptions):

@@ -26,11 +26,12 @@ trees, and the keyed sums add in row order. So walked (one config per
 chunk) and batched sweeps are bit-identical, the CPU and the card agree
 bit for bit, and on the CPU the port equals ``jax_sweep``.
 
-Not ported here: the TPU lane alignment and the fitted-plan chunk sizing
-of the JAX package (``_lane_align``, ``_plan_chunk``), its compile cache
-and its observability plane (ROADMAP step 7), the mesh (step 5) and the
-host analysis graph that the JAX package falls back to (step 2): those
-raise ``NotImplementedError`` naming their step.
+Per-partition rows past ``_PP_BYTE_CAP`` run the host analysis graph on
+the sweep's backend, as the JAX package's do. Not ported here: the TPU
+lane alignment and the fitted-plan chunk sizing of the JAX package
+(``_lane_align``, ``_plan_chunk``), its compile cache and its
+observability plane (ROADMAP step 7), and the mesh (step 5), which
+raises ``NotImplementedError`` naming its step.
 """
 
 from __future__ import annotations
@@ -69,8 +70,8 @@ _MAX_TABLE = 1 << 16
 _CHUNK_CAP = 512
 # Row-broadcast budget per chunk: n_pad * chunk <= this.
 _CHUNK_ROW_BUDGET = 1 << 26
-# Byte budget of the per-partition [P, C] blocks; past it the JAX package
-# falls back to the host graph, which is ROADMAP step 2 here.
+# Byte budget of the per-partition [P, C] blocks; past it the sweep runs
+# the host analysis graph instead (the same rows, at Python speed).
 _PP_BYTE_CAP = 256 << 20
 #: Environment pin of the chunk width (the JAX package's
 #: ``sweep_config_batch`` knob): > 0 pins it (1 is the walked mode).
@@ -103,7 +104,7 @@ def _not_ported(what: str, step: int) -> NotImplementedError:
 def sweep_is_supported(options: data_structures.UtilityAnalysisOptions,
                        data_extractors, return_per_partition: bool) -> bool:
     """The JAX package's gates of the fused path; what fails them runs the
-    host graph there (ROADMAP step 2 here)."""
+    host analysis graph, in both packages."""
     params = options.aggregate_params
     if (params.max_partitions_contributed is None or
             params.max_contributions_per_partition is None):
@@ -811,7 +812,7 @@ class LazySweepResult:
     first iteration, after ``compute_budgets()``."""
 
     def __init__(self, col, options, data_extractors, public_partitions,
-                 budgets, selection_budget, device,
+                 budgets, selection_budget, device, backend,
                  return_per_partition=False, checkpoint=None):
         self._col = col
         self._options = options
@@ -821,6 +822,7 @@ class LazySweepResult:
         self._selection_budget = selection_budget
         self._device = torch.device(device)
         self._return_per_partition = return_per_partition
+        self._backend = backend  # host-graph fallback past _PP_BYTE_CAP
         self._checkpoint = checkpoint  # budget-safe chunk-prefix resume
         #: chunk index the last _execute resumed from.
         self._resumed_from_chunk: Optional[int] = None
@@ -837,6 +839,17 @@ class LazySweepResult:
         if self._cache is None:
             self._cache = [self._execute()]
         yield from self._cache
+
+    def _host_fallback(self):
+        """Per-partition sweeps past the fetch budget run the host
+        analysis graph on the backend instead (the same rows, at Python
+        speed), as the JAX package's do."""
+        from pipelinedp_tpu_torch.analysis import utility_analysis as ua
+        res, pp = ua._host_analysis(
+            self._col, self._backend, self._options, self._extractors,
+            self._public, return_per_partition=True)
+        self._pp_rows = list(pp)
+        return list(res)[0]
 
     def _encode(self):
         options = self._options
@@ -922,9 +935,7 @@ class LazySweepResult:
             pp_bytes = (P_pad * (C + _CHUNK_CAP) *
                         (5 * len(metric_names) + 1) * 4)
             if pp_bytes > _PP_BYTE_CAP:
-                raise _not_ported(
-                    f"return_per_partition past the {_PP_BYTE_CAP}-byte "
-                    "fetch cap (the host analysis graph)", 2)
+                return self._host_fallback()
 
         marker, pk_safe, count_u, sum_u, npart_u, users_in = self._stage_a(
             encoded, P, P_pad)
@@ -1240,14 +1251,15 @@ def _concat_fetch(chunk_outs, metric_names, C):
 
 
 def build_fused_sweep(col, options, data_extractors, public_partitions,
-                      budget_accountant, device="cuda", mesh=None,
-                      return_per_partition=False,
+                      budget_accountant, backend, device="cuda",
+                      mesh=None, return_per_partition=False,
                       checkpoint=None) -> LazySweepResult:
     """Requests the budgets the host analysis engine would and returns the
-    lazy sweep on ``device``. ``checkpoint`` (a path or
-    ``resilience.checkpoint.CheckpointStore``) enables budget-safe
-    chunk-prefix resume through a ``<path>.sweep`` sibling file; the save
-    cadence follows ``PIPELINEDP_TPU_CKPT_EVERY``."""
+    lazy sweep on ``device``. With ``return_per_partition``, past
+    ``_PP_BYTE_CAP`` the rows come from the host analysis graph on
+    ``backend``. ``checkpoint`` (a path or ``resilience.checkpoint.CheckpointStore``)
+    enables budget-safe chunk-prefix resume through a ``<path>.sweep``
+    sibling file; the save cadence follows ``PIPELINEDP_TPU_CKPT_EVERY``."""
     if mesh is not None:
         raise _not_ported("the utility-analysis sweep on a mesh", 5)
     params = options.aggregate_params
@@ -1262,5 +1274,6 @@ def build_fused_sweep(col, options, data_extractors, public_partitions,
             mechanism_type, weight=params.budget_weight)
     return LazySweepResult(col, options, data_extractors,
                            public_partitions, budgets, selection_budget,
-                           device, return_per_partition=return_per_partition,
+                           device, backend,
+                           return_per_partition=return_per_partition,
                            checkpoint=checkpoint)

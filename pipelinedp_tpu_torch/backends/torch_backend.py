@@ -1,10 +1,14 @@
 """TorchBackend — the execution plane of the port on a CUDA device.
 
-Modelled on ``pipelinedp_tpu/backends/jax_backend.py``: a marker that
-tells ``DPEngine`` to lower fusable aggregations to the fused device path
-(``torch_engine``), plus the options that path reads, the streaming ones
-included. It has no mesh (multi-GPU is ROADMAP step 5), no health probe
-and no compile cache.
+Modelled on ``pipelinedp_tpu/backends/jax_backend.py``: a
+``LocalBackend`` that tells ``DPEngine`` to lower fusable aggregations to
+the fused device path (``torch_engine``), plus the options that path
+reads, the streaming ones included. Everything the fused path does not
+take (custom combiners, a percentile range too small for its float32 leaf
+constant, the host analysis graphs, a user's own ``map``) runs on the
+host generators it inherits, exactly where ``JaxBackend`` runs them. It
+has no mesh (multi-GPU is ROADMAP step 5), no health probe and no compile
+cache.
 """
 
 from __future__ import annotations
@@ -13,9 +17,12 @@ from typing import Optional
 
 import torch
 
+from pipelinedp_tpu_torch.pipeline_backend import LocalBackend
 
-class TorchBackend:
-    """Runs the fused aggregation path on ``device``.
+
+class TorchBackend(LocalBackend):
+    """Runs the fused aggregation path on ``device``, and the host path
+    of ``LocalBackend`` for the rest.
 
     Attributes:
       device: the torch device of the device path: ``"cuda"`` (the
@@ -59,7 +66,3 @@ class TorchBackend:
         self.checkpoint = checkpoint
         self.ingest_executor = ingest_executor
         self.stream_cache = stream_cache
-
-    def annotate(self, col, stage_name: str = None, **kwargs):
-        """No annotators in this slice: returns ``col`` unchanged."""
-        return col

@@ -11,7 +11,7 @@ satisfies the total (eps, delta).
 
 Port copy of the JAX package's ``budget_accounting.py`` with the naive
 accountant only: ``PLDBudgetAccountant`` raises ``NotImplementedError``
-until ROADMAP step 12 ports the PLD engine. ``MechanismSpec`` values are
+until ROADMAP step 4 ports the PLD engine. ``MechanismSpec`` values are
 read when the lazy result runs, after ``compute_budgets()``.
 """
 
@@ -451,11 +451,11 @@ class PLDBudgetAccountant(BudgetAccountant):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "PLDBudgetAccountant is not ported to pipelinedp_tpu_torch yet "
-            "(ROADMAP step 12: PLD and secure noise); use "
+            "(ROADMAP step 4: PLD and secure noise); use "
             "NaiveBudgetAccountant")
 
     def request_budget(self, *args, **kwargs) -> MechanismSpec:
-        raise NotImplementedError("ROADMAP step 12")
+        raise NotImplementedError("ROADMAP step 4")
 
     def _compute_budgets(self) -> None:
-        raise NotImplementedError("ROADMAP step 12")
+        raise NotImplementedError("ROADMAP step 4")

@@ -25,6 +25,8 @@ _ENUM_FIELDS = {
 
 def _field_value(name: str, value):
     if name in _ENUM_FIELDS and value is not None:
+        if isinstance(value, (list, tuple)):
+            return [_ENUM_FIELDS[name][v.name] for v in value]
         return _ENUM_FIELDS[name][value.name]
     if name == "metrics":
         return [ap.Metric(m.name, m.parameter) for m in value]
@@ -40,6 +42,38 @@ def params_from_reference(p):
     kwargs = {f.name: _field_value(f.name, getattr(p, f.name))
               for f in dataclasses.fields(cls) if hasattr(p, f.name)}
     return cls(**kwargs)
+
+
+def options_from_reference(o):
+    """The port's ``UtilityAnalysisOptions`` or ``TuneOptions`` with the
+    field values of ``o`` (the params through ``params_from_reference``,
+    a ``MultiParameterConfiguration``'s per-config enums by ``.name``)."""
+    from pipelinedp_tpu_torch.analysis import (data_structures,
+                                               parameter_tuning)
+
+    def same(cls, src, **fields):
+        kwargs = {f.name: getattr(src, f.name)
+                  for f in dataclasses.fields(cls) if hasattr(src, f.name)}
+        kwargs.update(fields)
+        return cls(**kwargs)
+
+    fields = dict(aggregate_params=params_from_reference(o.aggregate_params))
+    if hasattr(o, "function_to_minimize"):
+        fn = o.function_to_minimize
+        if hasattr(fn, "name"):
+            fn = parameter_tuning.MinimizingFunction[fn.name]
+        fields.update(function_to_minimize=fn,
+                      parameters_to_tune=same(
+                          parameter_tuning.ParametersToTune,
+                          o.parameters_to_tune))
+        return same(parameter_tuning.TuneOptions, o, **fields)
+    multi = o.multi_param_configuration
+    if multi is not None:
+        cls = data_structures.MultiParameterConfiguration
+        fields["multi_param_configuration"] = cls(**{
+            f.name: _field_value(f.name, getattr(multi, f.name))
+            for f in dataclasses.fields(cls) if hasattr(multi, f.name)})
+    return same(data_structures.UtilityAnalysisOptions, o, **fields)
 
 
 def dataset_from_arrays(privacy_ids, partition_keys,

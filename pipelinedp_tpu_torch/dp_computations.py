@@ -12,7 +12,7 @@ calibration helpers (which are pure host arithmetic).
 
 Port copy: the same host float64 mechanisms as the JAX package, so the
 port's release draws the same noise from the same ``rng``. The hardened
-native samplers are not ported yet (ROADMAP step 12):
+native samplers are not ported yet (ROADMAP step 4):
 ``ops.noise.set_secure_host_noise(True)`` raises, so the plain NumPy
 draws below are the only release path.
 """

@@ -8,7 +8,7 @@ the analytic Gaussian mechanism of Balle & Wang 2018) is closed-form host
 NumPy, and the NumPy samplers serve the float64 host release. The device
 draws of the port live in ``ops/prng.py``, which reproduces JAX's threefry
 streams bit for bit. The hardened native noise (``set_secure_host_noise``)
-is not ported yet: ROADMAP step 12.
+is not ported yet: ROADMAP step 4.
 """
 
 from __future__ import annotations
@@ -168,4 +168,4 @@ def set_secure_host_noise(enabled: bool) -> None:
     if enabled:
         raise NotImplementedError(
             "secure host noise is not ported to pipelinedp_tpu_torch yet "
-            "(ROADMAP step 12: PLD and secure noise)")
+            "(ROADMAP step 4: PLD and secure noise)")

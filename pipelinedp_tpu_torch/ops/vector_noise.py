@@ -10,7 +10,7 @@ partitions), and the same as the JAX package's for the same seed.
 
 The key is the engine seed folded with a stream label of its own
 (``0x7EC``). The hardened host noise of the JAX package
-(``set_secure_host_noise``) is not ported: ROADMAP step 12.
+(``set_secure_host_noise``) is not ported: ROADMAP step 4.
 """
 
 from __future__ import annotations

@@ -1,11 +1,31 @@
-"""Deterministic value sampling: the ``ValueSampler`` of
-``pipelinedp_tpu/sampling_utils.py`` (capability parity with the
-reference's ``pipeline_dp/sampling_utils.py``). The utility-analysis sweep
-samples partitions with it when ``partitions_sampling_prob < 1``."""
+"""Sampling helpers: a copy of ``pipelinedp_tpu/sampling_utils.py``
+(capability parity with the reference's ``pipeline_dp/sampling_utils.py``).
+The contribution bounders and ``select_partitions`` of the host graph
+sample with ``choose_from_list_without_replacement``; the utility-analysis
+sweep samples partitions with ``ValueSampler`` when
+``partitions_sampling_prob < 1``."""
 
 from __future__ import annotations
 
 import hashlib
+from typing import List
+
+from pipelinedp_tpu_torch.ops import noise as noise_ops
+
+
+def choose_from_list_without_replacement(a: List, size: int) -> List:
+    """Uniform sample without replacement, preserving element types.
+
+    Indices (not elements) are drawn so values never round-trip through
+    numpy scalar types: accumulator objects and big ints survive
+    untouched. Draws from the module-global host RNG
+    (``ops.noise._host_rng``), so the same ``seed_host_rng`` seed gives
+    the JAX package's sample."""
+    if len(a) <= size:
+        return a
+    sampled_indices = noise_ops._host_rng.choice(len(a), size,
+                                                 replace=False)
+    return [a[i] for i in sampled_indices]
 
 
 def _compute_64bit_hash(v) -> int:

@@ -250,6 +250,17 @@ class ArrayDataset:
             cache[key] = build()
         return cache[key]
 
+    def to_rows(self):
+        """Row-tuple view ``(pid, pk, value)`` for the host path (a zero
+        pid or value where the column is None)."""
+        n = len(self.partition_keys)
+        pids = (self.privacy_ids if self.privacy_ids is not None else
+                np.zeros(n, np.int64))
+        vals = (self.values if self.values is not None else
+                np.zeros(n, np.float64))
+        return list(zip(pids.tolist(), self.partition_keys.tolist(),
+                        vals.tolist()))
+
 
 @dataclasses.dataclass
 class EncodedData:
@@ -304,6 +315,30 @@ def _pid_ids(pid_arr: np.ndarray) -> np.ndarray:
     if fac is not None:
         return fac[1]
     return _unique_inverse(pid_arr)[1]
+
+
+def array_dataset_to_rows(ds: ArrayDataset, data_extractors,
+                          require_pid: bool = True):
+    """Columnar input on the host path: row tuples with positional
+    extractors, shared by ``DPEngine._aggregate`` and the histogram graph.
+    Caller-supplied extractors are kept when a partition extractor is
+    set."""
+    import operator
+
+    from pipelinedp_tpu_torch.dp_engine import DataExtractors
+
+    if ds.privacy_ids is None and require_pid:
+        raise ValueError(
+            "ArrayDataset.privacy_ids must be set unless "
+            "contribution_bounds_already_enforced is True.")
+    rows = ds.to_rows()
+    if data_extractors.partition_extractor is None:
+        data_extractors = DataExtractors(
+            privacy_id_extractor=(None if not require_pid else
+                                  operator.itemgetter(0)),
+            partition_extractor=operator.itemgetter(1),
+            value_extractor=operator.itemgetter(2))
+    return rows, data_extractors
 
 
 def _encode_arrays(ds: ArrayDataset, public_partitions: Optional[Sequence],

@@ -299,23 +299,40 @@ def test_torch_backend_without_cuda_raises():
     _params(metrics=[M.PERCENTILE(50)], min_value=0.0, max_value=1e-35),
 ], ids=["percentile"])
 def test_unported_params_raise(params):
-    """Params of later slices raise. PERCENTILE itself is ported; what
-    stays unported of it is a range so small that its float32 leaf
-    constant overflows, which the JAX package sends to its host path
-    (ROADMAP step 2)."""
-    pid, pk, values = _data(0, n=100)
-    acc = pdt.NaiveBudgetAccountant(total_epsilon=EPS, total_delta=DELTA)
-    engine = pdt.DPEngine(acc, pdt.TorchBackend("cpu", rng_seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        result = engine.aggregate(
-            convert.dataset_from_arrays(pid, pk, values),
-            convert.params_from_reference(params), pdt.DataExtractors())
+    """Params the fused path does not take run the host path, as on
+    ``JaxBackend`` (the test's name is from when the port raised here): a
+    percentile range so small that the fused walk's float32 leaf constant
+    overflows. The release is bit-equal to the JAX package's under one
+    ``seed_host_rng`` seed, and no fused result comes back."""
+    from pipelinedp_tpu.ops import noise as jnoise
+    from pipelinedp_tpu_torch.ops import noise as tnoise
+    assert not je.params_are_fusable(params)
+    assert not te.params_are_fusable(convert.params_from_reference(params))
+    pid, pk, values = _data(0, n=400, users=60, parts=8)
+    out = []
+    for pkg, backend, ds, p, noise in (
+            (pdp, JaxBackend(rng_seed=0), je.ArrayDataset(pid, pk, values),
+             params, jnoise),
+            (pdt, pdt.TorchBackend("cpu", rng_seed=0),
+             convert.dataset_from_arrays(pid, pk, values),
+             convert.params_from_reference(params), tnoise)):
+        noise.seed_host_rng(17)
+        acc = pkg.NaiveBudgetAccountant(total_epsilon=50.0, total_delta=1e-3)
+        result = pkg.DPEngine(acc, backend).aggregate(ds, p,
+                                                      pkg.DataExtractors())
+        assert not isinstance(result, te.LazyFusedResult)
         acc.compute_budgets()
-        list(result)
+        out.append(sorted(result, key=lambda r: r[0]))
+    assert len(out[1]) > 0
+    assert [k for k, _ in out[0]] == [k for k, _ in out[1]]
+    for (_, a), (_, b) in zip(*out):
+        assert a._fields == b._fields
+        assert (np.asarray(a, np.float64).tobytes() ==
+                np.asarray(b, np.float64).tobytes())
 
 
 def test_pld_accountant_raises():
     from pipelinedp_tpu_torch import budget_accounting
-    with pytest.raises(NotImplementedError, match="step 12"):
+    with pytest.raises(NotImplementedError, match="step 4"):
         budget_accounting.PLDBudgetAccountant(total_epsilon=1.0,
                                               total_delta=1e-6)

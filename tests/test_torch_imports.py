@@ -42,7 +42,15 @@ def test_port_has_files():
                    "sampling_utils.py", "analysis/torch_sweep.py",
                    "analysis/utility_analysis.py",
                    "analysis/parameter_tuning.py",
-                   "analysis/histograms.py"):
+                   "analysis/histograms.py", "pipeline_backend.py",
+                   "combiners.py", "contribution_bounders.py",
+                   "partition_selection.py", "dp_engine.py",
+                   "analysis/poisson_binomial.py",
+                   "analysis/probability_computations.py",
+                   "analysis/contribution_bounders.py",
+                   "analysis/combiners.py",
+                   "analysis/utility_analysis_engine.py",
+                   "analysis/pre_aggregation.py"):
         assert os.path.join(REPO, "pipelinedp_tpu_torch", module) in files
     assert len(files) > 10
 

@@ -271,16 +271,22 @@ class TestFusedSweepPerPartition:
         _assert_rows_equal(jr, tr)
 
     def test_byte_cap_raises_host_graph_step(self, monkeypatch):
-        """Past the fetch cap the JAX package reruns the host graph;
-        the port raises and names ROADMAP step 2."""
+        """Past the fetch cap both packages rerun the host analysis graph
+        on the sweep's backend (the test's name is from when the port
+        raised here): results and rows bit for bit under one
+        ``seed_host_rng`` seed."""
+        from pipelinedp_tpu.ops import noise as jnoise
+        from pipelinedp_tpu_torch.ops import noise as tnoise
         monkeypatch.setattr(torch_sweep, "_PP_BYTE_CAP", 64)
-        opts = _options(tan, pt)
-        res, rows = tan.perform_utility_analysis(
-            pt.ArrayDataset(*_columns(n=800, users=80, parts=5, seed=5)),
-            pt.TorchBackend(device="cpu"), opts, pt.DataExtractors(),
-            return_per_partition=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP step 2"):
-            list(rows)
+        monkeypatch.setattr(jax_sweep, "_PP_BYTE_CAP", 64)
+        cols = _columns(n=800, users=80, parts=5, seed=5)
+        jnoise.seed_host_rng(9)
+        j, jr = _run(jan, pdp, cols, _options(jan, pdp, eps=2.0), pp=True)
+        tnoise.seed_host_rng(9)
+        t, tr = _run(tan, pt, cols, _options(tan, pt, eps=2.0), pp=True)
+        _assert_results_equal(j, t)
+        _assert_rows_equal(jr, tr)
+        assert len(tr) == 5
 
 
 class TestFusedSweepMixedMechanisms:
@@ -467,30 +473,79 @@ class TestNotPorted:
         with pytest.raises(NotImplementedError, match="ROADMAP step 5"):
             torch_sweep.build_fused_sweep(
                 pt.ArrayDataset(*_columns(n=100)), opts, pt.DataExtractors(),
-                None, pt.NaiveBudgetAccountant(1.0, 1e-6), device="cpu",
-                mesh=object())
+                None, pt.NaiveBudgetAccountant(1.0, 1e-6),
+                pt.TorchBackend(device="cpu"), device="cpu", mesh=object())
         with pytest.raises(NotImplementedError, match="ROADMAP step 5"):
             pt.TorchBackend(device="cpu", mesh=object())
 
     def test_host_graph_raises_step_2(self):
-        opts = _options(tan, pt)
-        with pytest.raises(NotImplementedError, match="ROADMAP step 2"):
-            tan.perform_utility_analysis(pt.ArrayDataset(*_columns(n=100)),
-                                         object(), opts,
-                                         pt.DataExtractors())
-        # SUM with per-value bounds fails the fused gates: the host graph.
-        bad = _options(tan, pt, metrics=("SUM",), min_value=0.0,
-                       max_value=1.0)
-        with pytest.raises(NotImplementedError, match="ROADMAP step 2"):
-            tan.perform_utility_analysis(pt.ArrayDataset(*_columns(n=100)),
-                                         pt.TorchBackend(device="cpu"), bad,
-                                         pt.DataExtractors())
-        with pytest.raises(NotImplementedError, match="ROADMAP step 2"):
-            tan.preaggregate([], pt.TorchBackend(device="cpu"),
-                             pt.DataExtractors())
-        with pytest.raises(NotImplementedError, match="ROADMAP step 2"):
-            tan.compute_dataset_histograms_on_preaggregated_data(
-                [], None, pt.TorchBackend(device="cpu"))
+        """What the fused sweep does not take runs the host analysis graph
+        in both packages (the test's name is from when the port raised
+        here), bit for bit under one ``seed_host_rng`` seed: a host
+        backend, the host graph on ``TorchBackend``'s host ops,
+        ``preaggregate`` and the pre-aggregated histograms; SUM with
+        per-value bounds only fails the fused gates and the host graph's
+        clip in both."""
+        from pipelinedp_tpu.analysis import utility_analysis as jua
+        from pipelinedp_tpu.ops import noise as jnoise
+        from pipelinedp_tpu_torch.analysis import utility_analysis as tua
+        from pipelinedp_tpu_torch.ops import noise as tnoise
+        cols = _columns(n=300, users=40, parts=6, seed=8)
+        kw = dict(metrics=("COUNT", "PRIVACY_ID_COUNT"), eps=2.0)
+        jnoise.seed_host_rng(5)
+        j, _ = _run(jan, pdp, cols, _options(jan, pdp, **kw),
+                    backend=pdp.LocalBackend())
+        tnoise.seed_host_rng(5)
+        t, _ = _run(tan, pt, cols, _options(tan, pt, **kw),
+                    backend=pt.LocalBackend())
+        _assert_results_equal(j, t)
+        assert len(t) == 1 and t[0].count_metrics is not None
+
+        out = []
+        for ua, pmod, amod, noise, backend in (
+                (jua, pdp, jan, jnoise, JaxBackend()),
+                (tua, pt, tan, tnoise, pt.TorchBackend(device="cpu"))):
+            noise.seed_host_rng(6)
+            res = ua._host_analysis(pmod.ArrayDataset(*cols), backend,
+                                    _options(amod, pmod, **kw),
+                                    pmod.DataExtractors(), None, False)
+            out.append(list(res)[0])
+        _assert_results_equal(*out)
+
+        bad = {}
+        for amod, pmod in ((jan, pdp), (tan, pt)):
+            opts = _options(amod, pmod, metrics=("SUM",), min_value=0.0,
+                            max_value=1.0)
+            backend = (JaxBackend() if pmod is pdp else
+                       pt.TorchBackend(device="cpu"))
+            with pytest.raises(ValueError) as err:
+                _run(amod, pmod, cols, opts, backend=backend)
+            bad[pmod] = str(err.value)
+        assert bad[pdp] == bad[pt]
+
+        rows = [tuple(r) for r in zip(*(c.tolist() for c in cols))]
+        ex = {m: m.DataExtractors(operator.itemgetter(0),
+                                  operator.itemgetter(1),
+                                  operator.itemgetter(2)) for m in (pdp, pt)}
+        pre = {m: sorted(a.preaggregate(rows, m.LocalBackend(), ex[m],
+                                        partitions_sampling_prob=0.7),
+                         key=repr)
+               for a, m in ((jan, pdp), (tan, pt))}
+        assert pre[pdp] == pre[pt] and len(pre[pt]) > 0
+        pex = operator.itemgetter(0), operator.itemgetter(1)
+        hist = {m: list(a.compute_dataset_histograms_on_preaggregated_data(
+            pre[m], a.PreAggregateExtractors(*pex),
+            JaxBackend() if m is pdp else pt.TorchBackend(device="cpu")))[0]
+            for a, m in ((jan, pdp), (tan, pt))}
+        for name in ("l0_contributions_histogram",
+                     "linf_contributions_histogram",
+                     "count_per_partition_histogram",
+                     "count_privacy_id_per_partition"):
+            a = [(b.lower, b.count, b.sum, b.max)
+                 for b in getattr(hist[pdp], name).bins]
+            b_ = [(b.lower, b.count, b.sum, b.max)
+                  for b in getattr(hist[pt], name).bins]
+            assert a == b_ and a, name
 
     def test_sweep_runs_on_the_backend_device(self):
         res = tan.perform_utility_analysis(
