@@ -152,7 +152,23 @@ Phases, one line each; any failure raises and exits non-zero:
     rate on 8 nominal configs x 20,000 rows; best of 2 on the host, of 3
     on the card) beside the fused path's on the same rows and phases 4,
     10 and 22's full-size cells, with the ratios and the host CPU's model;
-26. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
+26. sketch-first DP heavy hitters, the JAX bench's
+    ``bench_dp_heavy_hitters`` (``bench.py:1700-1795``; keys ``"url/" +
+    (zipf(1.2) % (n / 10))``, n / 20 users, COUNT + SUM, Laplace, L0 = 4,
+    Linf = 2; sketch eps 2, delta 1e-7, depth 2), in four parts: (a) its
+    smoke shape (200,000 rows, width 2^12, cap 256, seed 31) on
+    ``TorchBackend()`` and ``TorchBackend("cpu")`` under each binner
+    backend: the same candidates, kept keys and float64 bits, the binner
+    on the card, K1 launched, and the binner's counts on the card equal to
+    ``np.bincount``; (b) PARITY row 37 on the card: every populated bucket
+    selected, the release bit for bit the dense ``aggregate``'s; (c) the
+    full size (10M rows, 1M distinct strings, 500,000 users, width 2^16,
+    cap 2048): cold, then best of two warm (seeds 31, 32), with rows/s,
+    the phase split, the funnel, top-50 recall, peak memory, K1's
+    launches and the binner's CUDA-event time per chunk under each
+    backend; (d) ``make_private(...).count`` and ``.sum`` on
+    ``TorchBackend()``, bit for bit ``TorchBackend("cpu")``, K1 launched;
+27. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
     the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
@@ -2492,6 +2508,252 @@ def phase_host_rates(flag_prefix, c4_prefix, c5_slice):
         card_repeats=CARD_REPEATS, **out)
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: sketch-first DP heavy hitters
+# ---------------------------------------------------------------------------
+
+# The JAX bench's ``bench_dp_heavy_hitters`` (``bench.py:1700-1795``): its
+# smoke shape, and its full size (``:2905-2908``), run once cold and then
+# best of two warm with seeds 31 and 32.
+HH_SMOKE_ROWS = 200_000
+HH_ROWS = 10_000_000
+HH_SEEDS = (31, 32)
+
+
+def hh_columns(n_rows):
+    """``bench_dp_heavy_hitters``' data: keys ``"url/" + (zipf(1.2) %
+    distinct)`` with ``distinct = n / 10``, ``n / 20`` users, values
+    uniform in [0, 10), from one numpy generator (seed 23) in that order.
+    Returns (pids, keys, values, raw key ids, distinct)."""
+    distinct = max(n_rows // 10, 1_000)
+    n_users = max(n_rows // 20, 1_000)
+    rng = np.random.default_rng(23)
+    raw = (rng.zipf(1.2, n_rows) % distinct).astype(np.int64)
+    keys = np.char.add("url/", raw.astype("U12"))
+    pids = rng.integers(0, n_users, n_rows)
+    values = rng.uniform(0.0, 10.0, n_rows)
+    return pids, keys, values, raw, distinct
+
+
+def hh_params(pdt):
+    """COUNT + SUM, Laplace, L0 = 4, Linf = 2, values in [0, 10]."""
+    return dict(metrics=[pdt.Metrics.COUNT, pdt.Metrics.SUM],
+                noise_kind=pdt.NoiseKind.LAPLACE,
+                max_partitions_contributed=4,
+                max_contributions_per_partition=2, min_value=0.0,
+                max_value=10.0)
+
+
+def hh_sketch(pdt, smoke, **kw):
+    """The bench's sketch: eps 2, delta 1e-7, depth 2; width 2^12 and cap
+    256 at the smoke shape, 2^16 and 2048 at full size."""
+    base = dict(eps=2.0, delta=1e-7, width=(1 << 12) if smoke else 1 << 16,
+                depth=2, candidate_cap=256 if smoke else 2048)
+    base.update(kw)
+    return pdt.SketchParams(**base)
+
+
+def _hh_run(pdt, columns, device, seed, sketch=None):
+    """One ``DPEngine.aggregate`` (sketch-first unless ``sketch`` is None)
+    on ``TorchBackend(device)``: (rows, the lazy result, the wall of its
+    iteration with the card synchronised, as the bench times it)."""
+    pids, keys, values = columns[:3]
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    engine = pdt.DPEngine(acc, pdt.TorchBackend(device=device,
+                                                rng_seed=seed))
+    result = engine.aggregate(
+        pdt.ArrayDataset(privacy_ids=pids, partition_keys=keys,
+                         values=values),
+        pdt.AggregateParams(**hh_params(pdt)), pdt.DataExtractors(),
+        sketch_first=sketch)
+    acc.compute_budgets()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = list(result)
+    torch.cuda.synchronize()
+    return rows, result, time.perf_counter() - t0
+
+
+def _hh_pair_buckets(columns, sketch, l0):
+    """The bounded pairs' [depth, n] bucket ids, as phase 1 computes them
+    on the host."""
+    from pipelinedp_tpu_torch.sketch import engine as sk_engine
+    from pipelinedp_tpu_torch.sketch import hashing
+    pids, keys = columns[:2]
+    uniq, inv = sk_engine._factorize_keys(keys)
+    hashes = hashing.stable_hash64(uniq, sketch.hash_seed)
+    buckets = hashing.bucket_ids(hashes, sketch.resolved_width(),
+                                 sketch.resolved_depth(), sketch.hash_seed)
+    kept = sk_engine.bound_pairs(pids, inv, hashes, l0, sketch.hash_seed)
+    return np.ascontiguousarray(buckets[:, kept])
+
+
+def phase_hh_gpu_vs_cpu(columns):
+    """26a. The smoke shape on ``TorchBackend()`` and ``TorchBackend("cpu")``
+    under each binner backend: the same candidates, kept keys and float64
+    bits, the binner on the card and K1 launched there; and the binner's
+    [depth, width] counts on the card, both backends, equal to
+    ``np.bincount`` of the bucket ids."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.sketch import device as sk_device
+    out = {}
+    releases = {}
+    for backend in ("matmul", "xla"):
+        sketch = hh_sketch(pdt, True, backend=backend)
+        _reset_launches()
+        gpu_rows, gres, gpu_s = _hh_run(pdt, columns, "cuda", 31, sketch)
+        launches = _launch_counts()
+        cpu_rows, cres, cpu_s = _hh_run(pdt, columns, "cpu", 31, sketch)
+        assert gres.binner_device.startswith("cuda"), gres.binner_device
+        assert cres.binner_device == "cpu", cres.binner_device
+        assert launches["segment_sum_lanes"] >= 1, "K1 never launched"
+        assert (gres.timings["sketch_candidates"] ==
+                cres.timings["sketch_candidates"] > 0)
+        assert gres._candidate_table == cres._candidate_table
+        _released_identical(gpu_rows, cpu_rows,
+                            f"heavy hitters ({backend}) GPU vs CPU")
+        releases[backend] = gpu_rows
+        out[backend] = dict(candidates=gres.timings["sketch_candidates"],
+                            kept=len(gpu_rows), gpu_s=gpu_s, cpu_s=cpu_s,
+                            launches=launches)
+    _released_identical(releases["matmul"], releases["xla"],
+                        "heavy hitters matmul vs xla")
+    sketch = hh_sketch(pdt, True)
+    width = sketch.resolved_width()
+    pairs = _hh_pair_buckets(columns, sketch, 4)
+    chunk = torch.from_numpy(sk_device.pad_chunk(pairs)).cuda()
+    want = np.stack([np.bincount(pairs[d], minlength=width)
+                     for d in range(pairs.shape[0])])
+    for backend in ("matmul", "xla"):
+        counts = sk_device.sketch_chunk(chunk, width, backend)
+        assert counts.device.type == "cuda" and counts.dtype == torch.int32
+        assert np.array_equal(counts.cpu().numpy(), want), (
+            f"binner {backend} differs from np.bincount")
+    log("hh_gpu_vs_cpu", rows=len(columns[1]), pairs=int(pairs.shape[1]),
+        width=width, identical=True, **out)
+
+
+def phase_hh_parity_dense(columns):
+    """26b. PARITY row 37 on the card: every populated bucket selected (a
+    generous sketch budget, threshold 0.5, the cap at the width, and a
+    phase-1 bound above any user's distinct keys, so that every key
+    reaches the sketch), so the candidates are every key and the
+    sketch-first release equals the dense ``aggregate`` on the same rows
+    and seed, bit for bit."""
+    import pipelinedp_tpu_torch as pdt
+    sketch = hh_sketch(pdt, True, eps=1e6, width=1 << 16,
+                       candidate_cap=1 << 16, threshold=0.5,
+                       max_buckets_contributed=1 << 10)
+    dense, _, dense_s = _hh_run(pdt, columns, "cuda", 37)
+    sk_rows, res, sk_s = _hh_run(pdt, columns, "cuda", 37, sketch)
+    assert res.timings["sketch_candidates"] == len(np.unique(columns[3]))
+    _released_identical(sk_rows, dense, "sketch-first vs dense")
+    log("hh_parity_dense", kept=len(dense),
+        candidates=res.timings["sketch_candidates"], identical=True,
+        dense_s=dense_s, sketch_s=sk_s)
+
+
+def phase_hh_full(columns):
+    """26c. The bench's full-size cell: cold (seed 31), then best of two
+    warm (seeds 31, 32), each with the kernel counts zeroed just before
+    and read just after; rows/s, the phase split, the funnel, top-50
+    recall against the true distinct-user ranking, peak device memory;
+    and the binner's CUDA-event time on the cold run's first chunk under
+    each backend."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.sketch import device as sk_device
+    pids, keys, values, raw, distinct = columns
+    sketch = hh_sketch(pdt, False)
+    captured = []
+    real_chunk = sk_device.sketch_chunk
+
+    def capture(buckets, width, backend):
+        if not captured:
+            captured.append(buckets.clone())
+        return real_chunk(buckets, width, backend)
+
+    runs = []
+    for i, seed in enumerate((HH_SEEDS[0],) + HH_SEEDS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        sk_device.sketch_chunk = capture if i == 0 else real_chunk
+        try:
+            rows, res, wall = _hh_run(pdt, columns, "cuda", seed, sketch)
+        finally:
+            sk_device.sketch_chunk = real_chunk
+        assert res.binner_device.startswith("cuda"), res.binner_device
+        launches = _launch_counts()
+        assert launches["segment_sum_lanes"] >= 1, "K1 never launched"
+        released = np.asarray([tuple(m) for _, m in rows], np.float64)
+        assert len(rows) > 0 and released.shape == (len(rows), 2)
+        assert np.isfinite(released).all()
+        assert set(k for k, _ in rows) <= set(res._candidate_table)
+        runs.append(dict(seed=seed, wall_s=wall,
+                         rows_per_s=len(keys) / wall,
+                         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                         launches=launches, released=len(rows),
+                         out={k for k, _ in rows}, **res.timings))
+    cold, warm = runs[0], min(runs[1:], key=lambda r: r["wall_s"])
+    pair = np.unique(pids.astype(np.int64) * distinct + raw)
+    users_per_key = np.bincount((pair % distinct).astype(np.int64),
+                                minlength=distinct)
+    top50 = np.argsort(-users_per_key, kind="stable")[:50]
+    top50_keys = {f"url/{k}" for k in top50.tolist()}
+    recall = sum(1 for k in top50_keys if k in warm["out"]) / 50
+    chunk = captured[0]
+    width = sketch.resolved_width()
+    binner_ms = {b: cuda_ms(lambda b=b: sk_device.sketch_chunk(chunk, width,
+                                                               b), reps=11)
+                 for b in ("matmul", "xla")}
+    for r in runs:
+        r.pop("out")
+    log("hh_full", rows=len(keys), distinct_keys=int(len(np.unique(raw))),
+        users=int(pids.max()) + 1, width=width,
+        depth=sketch.resolved_depth(),
+        candidate_cap=sketch.resolved_candidate_cap(),
+        backend=sketch.resolved_backend(), top50_recall=recall,
+        cold=cold, warm=warm, warm_runs=runs[1:],
+        binner_chunk_rows=int(chunk.shape[1]), binner_ms=binner_ms)
+    return warm
+
+
+def phase_hh_fluent():
+    """26d. The fluent API on the card: ``make_private(rows, TorchBackend(),
+    ...)`` ``.count`` and ``.sum`` on a few thousand rows give the same
+    bits as on ``TorchBackend("cpu")``, and launch K1."""
+    import operator
+    import pipelinedp_tpu_torch as pdt
+    pids, keys, values = hh_columns(4_000)[:3]
+    rows = list(zip(pids.tolist(), keys.tolist(), values.tolist()))
+    out = {}
+    for device in ("cuda", "cpu"):
+        acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0,
+                                        total_delta=1e-6)
+        pcol = pdt.make_private(rows, pdt.TorchBackend(device=device,
+                                                       rng_seed=41),
+                                acc, operator.itemgetter(0))
+        common = dict(max_partitions_contributed=4,
+                      max_contributions_per_partition=2,
+                      partition_extractor=operator.itemgetter(1))
+        counts = pcol.count(pdt.CountParams(**common))
+        sums = pcol.sum(pdt.SumParams(
+            min_value=0.0, max_value=10.0,
+            value_extractor=operator.itemgetter(2), **common))
+        acc.compute_budgets()
+        _reset_launches()
+        got = (sorted(counts), sorted(sums))
+        out[device] = (got, _launch_counts())
+    (gpu, launches), (cpu, _) = out["cuda"], out["cpu"]
+    assert launches["segment_sum_lanes"] >= 2, launches
+    for g, c, what in ((gpu[0], cpu[0], "count"), (gpu[1], cpu[1], "sum")):
+        assert g and [k for k, _ in g] == [k for k, _ in c], what
+        assert (np.asarray([v for _, v in g], np.float64).tobytes() ==
+                np.asarray([v for _, v in c], np.float64).tobytes()), what
+    log("hh_fluent", rows=len(rows), count_kept=len(gpu[0]),
+        sum_kept=len(gpu[1]), identical=True, launches=launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2574,11 +2836,23 @@ def main() -> int:
     phase_host_sweep_oracle(c5_slice)
     phase_host_rates(flag_prefix, c4_prefix, c5_slice)
     RECORD["host_path_s"] = time.perf_counter() - t0
+    t_hh = time.perf_counter()
+    columns = hh_columns(HH_SMOKE_ROWS)
+    phase_hh_gpu_vs_cpu(columns)
+    phase_hh_parity_dense(columns)
+    t0 = time.perf_counter()
+    columns = hh_columns(HH_ROWS)
+    RECORD["hh_data_gen_s"] = time.perf_counter() - t0
+    hh_full = phase_hh_full(columns)
+    del columns
+    phase_hh_fluent()
+    RECORD["heavy_hitters_s"] = time.perf_counter() - t_hh
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
         "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:76",
         "parity": "bit-equal", "launches": launches,
+        "launches_heavy_hitters": hh_full["launches"]["segment_sum_lanes"],
         "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]}, {

@@ -21,7 +21,13 @@ host backends (``LocalBackend``, ``MultiProcLocalBackend``,
 ``SparkRDDBackend``), custom combiners (subclasses of ``CustomCombiner``),
 non-fusable percentile params, and the host analysis graph;
 ``TorchBackend`` is a ``LocalBackend`` and falls back to it exactly where
-``JaxBackend`` does. The package imports torch, numpy and scipy, never
+``JaxBackend`` does. Sketch-first DP heavy hitters
+(``aggregate(..., sketch_first=SketchParams(...))``) discover an
+unbounded key axis with a counting sketch on the device, then run the
+fused path over the selected candidates only. The fluent APIs
+(``make_private``, ``private_spark``, ``private_beam`` with
+``BeamBackend``) and the peeker (``pipelinedp_tpu_torch.peeker``) sit on
+top of ``DPEngine``. The package imports torch, numpy and scipy, never
 JAX.
 
     import pipelinedp_tpu_torch as pdt
@@ -33,27 +39,61 @@ JAX.
     rows = list(result)
 """
 
-from pipelinedp_tpu_torch.aggregate_params import (AggregateParams, Metrics,
-                                                   NoiseKind, NormKind,
-                                                   PartitionSelectionStrategy,
-                                                   SelectPartitionsParams)
+from pipelinedp_tpu_torch.aggregate_params import (
+    AggregateParams,
+    CountParams,
+    MeanParams,
+    MechanismType,
+    Metric,
+    Metrics,
+    NoiseKind,
+    NormKind,
+    PartitionSelectionStrategy,
+    PrivacyIdCountParams,
+    SelectPartitionsParams,
+    SumParams,
+    VarianceParams,
+)
 from pipelinedp_tpu_torch.backends import TorchBackend
-from pipelinedp_tpu_torch.budget_accounting import NaiveBudgetAccountant
+from pipelinedp_tpu_torch.budget_accounting import (Budget, BudgetAccountant,
+                                                    MechanismSpec,
+                                                    NaiveBudgetAccountant)
 from pipelinedp_tpu_torch.combiners import Combiner, CustomCombiner
 from pipelinedp_tpu_torch.dp_engine import DataExtractors, DPEngine
-from pipelinedp_tpu_torch.pipeline_backend import (Annotator, BeamBackend,
-                                                   LocalBackend,
+from pipelinedp_tpu_torch.pipeline_backend import (Annotator, LocalBackend,
                                                    MultiProcLocalBackend,
                                                    PipelineBackend,
                                                    SparkRDDBackend,
                                                    register_annotator)
+from pipelinedp_tpu_torch.private_collection import (PrivateCollection,
+                                                     make_private)
+from pipelinedp_tpu_torch.report_generator import ExplainComputationReport
+from pipelinedp_tpu_torch.sketch import SketchParams
 from pipelinedp_tpu_torch.torch_engine import ArrayDataset
 
+try:
+    from pipelinedp_tpu_torch.pipeline_backend import BeamBackend
+except ImportError:  # apache_beam not installed
+
+    class BeamBackend:  # type: ignore
+        """Placeholder kept for API parity with the reference (its
+        ``BeamBackend`` name exists regardless of whether beam is
+        installed): constructing it without apache_beam fails with a
+        clear error instead of an AttributeError on the package."""
+
+        def __init__(self, *args, **kwargs):
+            raise ImportError(
+                "apache_beam is required for BeamBackend; "
+                "`pip install apache-beam` (see contributing/Dockerfile)")
+
 __all__ = [
-    "AggregateParams", "Annotator", "ArrayDataset", "BeamBackend",
-    "Combiner", "CustomCombiner", "DataExtractors", "DPEngine",
-    "LocalBackend", "Metrics", "MultiProcLocalBackend",
-    "NaiveBudgetAccountant", "NoiseKind", "NormKind",
-    "PartitionSelectionStrategy", "PipelineBackend", "SelectPartitionsParams",
-    "SparkRDDBackend", "TorchBackend", "register_annotator",
+    "AggregateParams", "Annotator", "ArrayDataset", "BeamBackend", "Budget",
+    "BudgetAccountant", "Combiner", "CountParams", "CustomCombiner",
+    "DataExtractors", "DPEngine", "ExplainComputationReport",
+    "LocalBackend", "MeanParams", "MechanismSpec", "MechanismType", "Metric",
+    "Metrics", "MultiProcLocalBackend", "NaiveBudgetAccountant", "NoiseKind",
+    "NormKind", "PartitionSelectionStrategy", "PipelineBackend",
+    "PrivacyIdCountParams", "PrivateCollection", "SelectPartitionsParams",
+    "SketchParams", "SparkRDDBackend", "SumParams", "TorchBackend",
+    "VarianceParams", "make_private", "register_annotator",
 ]

@@ -13,8 +13,10 @@ small for the fused walk's float32 leaf constant or that has no
 per-value bounds, and every host backend (``LocalBackend``,
 ``MultiProcLocalBackend``, ``SparkRDDBackend``). The route never depends
 on an exception of the fused path. The JAX package's ``obs`` audit and
-monitor calls are not ported (ROADMAP step 7); ``sketch_first`` raises
-(ROADMAP step 3).
+monitor calls are not ported (ROADMAP step 7). ``aggregate(...,
+sketch_first=SketchParams(...))`` takes the two-phase sketch-first path
+(``sketch/engine.py``) on a backend with the fused path, and raises
+elsewhere, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -146,27 +148,88 @@ class DPEngine:
 
         Returns a collection of (partition_key, MetricsTuple). The graph is
         lazy: execution happens when the caller iterates it, after
-        ``budget_accountant.compute_budgets()``. ``sketch_first`` (the
-        JAX package's two-phase unbounded-key path) is not ported.
+        ``budget_accountant.compute_budgets()``.
+
+        ``sketch_first`` (a ``pipelinedp_tpu_torch.sketch.SketchParams``)
+        routes through the two-phase unbounded-key path: a device
+        counting sketch over hashed keys + DP candidate selection
+        (funded by the SketchParams' own (eps, delta)), then this
+        engine's exact dense pass over only the selected candidates —
+        the partition axis is discovered, never materialized densely.
+        Requires the fused backend, privacy ids, fusable metrics and
+        private partition selection (no public partitions).
         """
         self._check_aggregate_params(col, params, data_extractors)
         if sketch_first is not None:
-            raise NotImplementedError(
-                "sketch_first is not ported to pipelinedp_tpu_torch yet "
-                "(ROADMAP step 3: sketch-first heavy hitters)")
+            build = self._sketch_first_builder(params, public_partitions,
+                                               sketch_first)
+            return self._aggregate_in_scope(
+                params, "aggregate_sketch_first", False,
+                out_explain_computation_report,
+                lambda: build(col, data_extractors))
+        return self._aggregate_in_scope(
+            params, "aggregate", public_partitions is not None,
+            out_explain_computation_report,
+            lambda: self._aggregate(col, params, data_extractors,
+                                    public_partitions))
+
+    def _aggregate_in_scope(self, params, method, public, out_report,
+                            build):
+        """Builds an aggregation's graph with ``build()`` inside the
+        accountant's budget scope, with its own report generator, and
+        annotates the result."""
         with self._budget_accountant.scope(weight=params.budget_weight):
             self._report_generators.append(
-                report_generator.ReportGenerator(
-                    params, "aggregate", public_partitions is not None))
-            if out_explain_computation_report is not None:
-                out_explain_computation_report._set_report_generator(
+                report_generator.ReportGenerator(params, method, public))
+            if out_report is not None:
+                out_report._set_report_generator(
                     self._current_report_generator)
-            col = self._aggregate(col, params, data_extractors,
-                                  public_partitions)
+            col = build()
             budget = self._budget_accountant._compute_budget_for_aggregation(
                 params.budget_weight)
             return self._backend.annotate(col, "annotation", params=params,
                                           budget=budget)
+
+    def _sketch_first_builder(self, params, public_partitions,
+                              sketch_params):
+        """The two-phase sketch-first path (``sketch/``): checks the entry
+        contract now and returns ``build(col, data_extractors)``, which
+        builds the graph through
+        ``sketch.engine.build_sketch_first_aggregation``."""
+        from pipelinedp_tpu_torch.sketch import SketchParams
+        from pipelinedp_tpu_torch.sketch import engine as sketch_engine
+
+        if not isinstance(sketch_params, SketchParams):
+            raise TypeError("sketch_first must be a "
+                            "pipelinedp_tpu_torch.sketch.SketchParams")
+        if public_partitions is not None:
+            raise ValueError(
+                "sketch_first discovers the partition axis — it cannot "
+                "be combined with public_partitions (a public axis IS "
+                "the dense path)")
+        if params.contribution_bounds_already_enforced:
+            raise NotImplementedError(
+                "sketch_first needs privacy ids for the phase-1 "
+                "per-user sketch bounding; "
+                "contribution_bounds_already_enforced mode has none")
+        fused, rng_seed, device, stream = self._fused_backend_options()
+        if not fused:
+            raise NotImplementedError(
+                "sketch_first requires the fused backend (TorchBackend) — "
+                "host backends never stream an unbounded key axis")
+        if not torch_engine.params_are_fusable(params):
+            raise NotImplementedError(
+                "sketch_first supports only fused-plane metrics "
+                "(COUNT / PRIVACY_ID_COUNT / SUM / MEAN / VARIANCE / "
+                "VECTOR_SUM / PERCENTILE)")
+
+        def build(col, data_extractors):
+            return sketch_engine.build_sketch_first_aggregation(
+                col, params, data_extractors, sketch_params,
+                self._budget_accountant, self._current_report_generator,
+                rng_seed=rng_seed, device=device, stream=stream)
+
+        return build
 
     # Subclasses that swap graph nodes (e.g. the utility-analysis engine)
     # must not take the fused shortcut.

@@ -17,7 +17,8 @@ Backends in this package:
   the engine lowers fusable aggregations to the fused path there.
 * ``SparkRDDBackend``: an adapter over a live ``SparkContext``.
 
-The Beam adapter is not ported yet (ROADMAP step 2b).
+* ``BeamBackend`` (``pipelinedp_tpu_torch.beam_backend``): the Apache
+  Beam adapter, re-exported here when ``apache_beam`` imports.
 
 Every op takes a ``stage_name`` used for report and debug labels.
 """
@@ -601,10 +602,9 @@ class SparkRDDBackend(PipelineBackend):
                                   "(mirrors the reference :454-455)")
 
 
-class BeamBackend:
-    """The Apache Beam adapter: not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BeamBackend is not ported to pipelinedp_tpu_torch yet "
-            "(ROADMAP step 2b: the peeker and the fluent APIs)")
+# Optional Beam adapter: re-exported here for the reference-parity import
+# path; the implementation lives in ``pipelinedp_tpu_torch.beam_backend``.
+try:
+    from pipelinedp_tpu_torch.beam_backend import BeamBackend  # noqa: F401
+except ImportError:  # apache_beam not installed
+    pass

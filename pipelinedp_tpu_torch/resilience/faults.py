@@ -12,11 +12,14 @@ sites:
 * ``check_sweep_config_chunk(k)``: raise ``ChunkFailure`` when the
   utility-analysis sweep (``analysis/torch_sweep.py``) reaches config
   chunk ``k``, between the ``.sweep`` checkpoint of the chunks before it
-  and the chunk's dispatch.
+  and the chunk's dispatch;
+* ``check_sketch_chunk(b)``: raise ``ChunkFailure`` when the sketch-first
+  phase-1 accumulation (``sketch/engine.py``) dispatches chunk ``b``,
+  between the stager's handoff and the binner.
 
 A plan installs in process, with the ``injected_faults(plan)`` context
-manager. A port of the chunk and sweep sites of
-``pipelinedp_tpu/resilience/faults.py``; its other sites (serve, sketch,
+manager. A port of the chunk, sweep and sketch sites of
+``pipelinedp_tpu/resilience/faults.py``; its other sites (serve,
 coordinator, mesh) and its ``PIPELINEDP_TPU_FAULTS`` transport to
 subprocess harnesses belong to later ROADMAP steps.
 """
@@ -47,6 +50,10 @@ class FaultPlan:
     #: utility-analysis sweep config-chunk indices whose dispatch raises
     #: ``ChunkFailure``.
     fail_sweep_config_chunks: Tuple[int, ...] = ()
+    #: sketch-accumulation chunk indices whose dispatch raises
+    #: ``ChunkFailure`` (kills a sketch-first phase 1 mid-stream; the
+    #: ingest stager must drain to zero orphan ``pdp-*`` threads).
+    fail_sketch_chunks: Tuple[int, ...] = ()
 
 
 _plan: Optional[FaultPlan] = None
@@ -90,3 +97,9 @@ def check_sweep_config_chunk(index: int) -> None:
     if plan is not None and index in plan.fail_sweep_config_chunks:
         raise ChunkFailure(
             f"injected failure at sweep config chunk {index}")
+
+
+def check_sketch_chunk(index: int) -> None:
+    plan = _plan
+    if plan is not None and index in plan.fail_sketch_chunks:
+        raise ChunkFailure(f"injected failure at sketch chunk {index}")

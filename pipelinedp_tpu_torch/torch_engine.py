@@ -1591,6 +1591,22 @@ class LazyFusedResult:
             self._cache = self._execute()
         yield from self._cache
 
+    def rebind_rows(self, rows) -> None:
+        """Sketch-first seam (``sketch/engine.py``): phase 2 of the
+        two-phase unbounded-key path replaces the full input with the
+        candidate-filtered rows before first iteration. Budgets were
+        registered against the original graph build, which is the
+        two-phase protocol's contract (specs are lazy; only the rows
+        narrow). Every run encodes its rows from scratch and decides then
+        whether to stream, so nothing of the old rows survives the swap.
+        Refuses after execution: the cache would already embody the old
+        rows."""
+        if self._cache is not None:
+            raise RuntimeError(
+                "cannot rebind rows after the fused result executed")
+        self._rows = rows
+        self.timings = None
+
     def _execute(self):
         config = self._config
         params = self._params

@@ -496,8 +496,11 @@ class TestValidation:
                     engine.aggregate(*args())
             errors.append(err)
         if call == "sketch_first":
-            assert errors[1].type is NotImplementedError
-            assert "ROADMAP step 3" in str(errors[1].value)
+            # The same check; each message names its own package's
+            # SketchParams.
+            assert errors[1].type is errors[0].type is TypeError
+            assert str(errors[1].value) == str(errors[0].value).replace(
+                "pipelinedp_tpu.", "pipelinedp_tpu_torch.")
             return
         assert errors[0].type is errors[1].type, call
         assert str(errors[0].value) == str(errors[1].value), call

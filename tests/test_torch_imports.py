@@ -10,6 +10,14 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "pipelinedp_tpu")
 
+#: The modules of the sketch-first path, the peeker and the fluent APIs.
+NEW_MODULES = ("sketch/__init__.py", "sketch/hashing.py",
+               "sketch/params.py", "sketch/device.py", "sketch/engine.py",
+               "sketch/peek.py", "peeker/__init__.py",
+               "peeker/data_peeker.py", "peeker/non_private_combiners.py",
+               "peeker/peeker_engine.py", "private_collection.py",
+               "private_spark.py", "beam_backend.py", "private_beam.py")
+
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"),
@@ -50,7 +58,7 @@ def test_port_has_files():
                    "analysis/contribution_bounders.py",
                    "analysis/combiners.py",
                    "analysis/utility_analysis_engine.py",
-                   "analysis/pre_aggregation.py"):
+                   "analysis/pre_aggregation.py", *NEW_MODULES):
         assert os.path.join(REPO, "pipelinedp_tpu_torch", module) in files
     assert len(files) > 10
 
@@ -60,3 +68,32 @@ def test_port_has_files():
 def test_no_jax_or_reference_import(path):
     bad = sorted(set(_imported_roots(path)) & set(BANNED))
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_module_imports_alone(module):
+    """Each module of the sketch-first path, the peeker and the fluent
+    APIs imports, and pulls in neither JAX nor the JAX package: checked
+    in a fresh interpreter, where nothing else imported them first. The
+    Beam adapters import under the fake ``apache_beam`` of
+    ``tests/fake_beam.py``, as ``tests/test_cluster_backends.py``
+    installs it."""
+    import subprocess
+    import sys
+    name = "pipelinedp_tpu_torch." + module[:-3].replace("/", ".")
+    name = name[:-len(".__init__")] if name.endswith(".__init__") else name
+    code = (
+        "import sys\n"
+        "from tests import fake_beam\n"
+        "beam = fake_beam.build_fake_beam_module()\n"
+        "sys.modules['apache_beam'] = beam\n"
+        "import importlib\n"
+        f"mod = importlib.import_module({name!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{BANNED!r})\n"
+        "assert not bad, bad\n"
+        "print(mod.__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [name]

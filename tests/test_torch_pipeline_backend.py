@@ -2,7 +2,8 @@
 the cases of ``tests/test_pipeline_backend.py`` over the port's
 ``LocalBackend``, ``MultiProcLocalBackend`` (one ``spawn`` pool of two
 workers for the module, closed by the fixture) and ``SparkRDDBackend``
-(through ``tests/fake_spark.py``), then the laziness, label, annotator and
+(through ``tests/fake_spark.py``) and ``BeamBackend`` (through
+``tests/fake_beam.py``), then the laziness, label, annotator and
 worker-seeding cases, and ``sample_fixed_per_key`` bit for bit with the
 JAX package's ``LocalBackend`` under one ``seed_host_rng`` seed.
 
@@ -64,12 +65,45 @@ def multiproc(request):
     return backend
 
 
-@pytest.fixture(params=["local", "multiproc", "spark"])
+class _BeamOnLists:
+    """The port's ``BeamBackend`` on the fake Beam of
+    ``tests/fake_beam.py``, taking the plain lists the cases pass: each
+    input list becomes a ``beam.Create`` in one pipeline (the keys of an
+    in-memory ``filter_by_key`` stay a list)."""
+
+    def __init__(self):
+        from tests.test_torch_cluster_backends import ADAPTERS, beam
+        self._backend = ADAPTERS["torch"][0].BeamBackend()
+        self._beam = beam
+        self._pipeline = beam.Pipeline()
+        self._inputs = 0
+
+    def _col(self, data):
+        if not isinstance(data, (list, tuple)):
+            return data
+        self._inputs += 1
+        return self._pipeline | f"input{self._inputs}" >> self._beam.Create(
+            data)
+
+    def __getattr__(self, name):
+        op = getattr(self._backend, name)
+
+        def call(col, *args, **kwargs):
+            col = (tuple(self._col(c) for c in col) if name == "flatten"
+                   else self._col(col))
+            return op(col, *args, **kwargs)
+
+        return call
+
+
+@pytest.fixture(params=["local", "multiproc", "spark", "beam"])
 def backend(request):
     if request.param == "local":
         return pipeline_backend.LocalBackend()
     if request.param == "multiproc":
         return request.getfixturevalue("multiproc")
+    if request.param == "beam":
+        return _BeamOnLists()
     from tests.fake_spark import FakeSparkContext
     return pipeline_backend.SparkRDDBackend(FakeSparkContext())
 
@@ -258,8 +292,15 @@ class TestAnnotators:
 
 
 def test_beam_backend_names_its_step():
-    with pytest.raises(NotImplementedError, match="ROADMAP step 2b"):
+    """Without apache_beam the package keeps the ``BeamBackend`` name, and
+    constructing it raises the JAX package's ImportError."""
+    import pipelinedp_tpu as pdp
+    with pytest.raises(ImportError) as want:
+        pdp.BeamBackend()
+    with pytest.raises(ImportError, match="apache_beam is required") as got:
         pdt.BeamBackend()
+    assert str(got.value) == str(want.value)
+    assert not hasattr(pipeline_backend, "BeamBackend")
 
 
 def _draw_worker_noise(_):
