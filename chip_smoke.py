@@ -168,7 +168,29 @@ Phases, one line each; any failure raises and exits non-zero:
     launches and the binner's CUDA-event time per chunk under each
     backend; (d) ``make_private(...).count`` and ``.sum`` on
     ``TorchBackend()``, bit for bit ``TorchBackend("cpu")``, K1 launched;
-27. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
+27. PLD budget accounting and the hardened native noise, in three
+    parts, with the native libraries built from
+    ``pipelinedp_tpu_torch/native/*.cc`` (the phase fails if either does
+    not build): (a) under ``PLDBudgetAccountant(1, 1e-6)`` the flagship's
+    params (Laplace, truncated-geometric selection), the same with
+    Gaussian noise, and the per-partition-sum SUM (K4), each on 250,000
+    rows of the flagship's generator on the card and on the CPU: the same
+    kept keys, float64 bits and ``minimum_noise_std``; then each at the
+    flagship's full size (25M rows), with ``compute_budgets`` timed on its
+    own, the aggregation's wall and rows/s, and each mechanism's granted
+    noise std beside the naive accountant's; (b) under
+    ``set_secure_host_noise(True)`` with ``seed_host_rng(s)`` and no
+    ``rng_seed``: COUNT, PRIVACY_ID_COUNT, SUM, MEAN and VARIANCE under
+    both noise kinds on the 250,000 rows, and VECTOR_SUM at D = 64 on
+    200,000 rows under ``fx`` (K2), card = CPU bit for bit with the same
+    native calls, the integer sampler reached for the scalar metrics and
+    the float sampler everywhere; then the full flagship with numpy noise
+    and hardened, in turns, each with its ``host_decode_s`` and wall;
+    (c) the flagship's keys and users spread to ``k * 2^33 + 7``, so the
+    encode takes ``native.factorize_i64`` for both: the same released
+    bytes as the unspread run, with ``host_encode_s`` beside the
+    unspread run's and beside ``np.unique`` on the same arrays;
+28. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
     the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
@@ -2754,6 +2776,275 @@ def phase_hh_fluent():
         sum_kept=len(gpu[1]), identical=True, launches=launches)
 
 
+PLD_SMOKE = dict(rows=250_000, users=10_000, partitions=4096, seed=37)
+SPREAD = 2**33  # wide int64 keys: k * SPREAD + 7, too wide for a table
+NATIVE_SAMPLERS = ("discrete_laplace", "discrete_gaussian",
+                   "snapping_laplace", "secure_gaussian")
+
+
+def _pld_run(pdt, columns, params_kw, device, seed, public=None):
+    """One aggregation under ``PLDBudgetAccountant(1, 1e-6)``: the rows,
+    the accountant, and the timings with ``compute_budgets`` on its own
+    (host seconds) and the aggregation's wall without it."""
+    acc = pdt.PLDBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    engine = pdt.DPEngine(acc, pdt.TorchBackend(device=device,
+                                                rng_seed=seed))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = engine.aggregate(pdt.ArrayDataset(*columns),
+                              pdt.AggregateParams(**params_kw),
+                              pdt.DataExtractors(), public_partitions=public)
+    t1 = time.perf_counter()
+    acc.compute_budgets()
+    t2 = time.perf_counter()
+    rows = list(result)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    wall_s = (t1 - t0) + (t3 - t2)
+    return rows, acc, dict(result.timings, compute_budgets_s=t2 - t1,
+                           wall_s=wall_s, rows_per_s=len(columns[1]) / wall_s)
+
+
+def _naive_noise_stds(pdt, columns, params_kw, acc_pld, public=None):
+    """Each mechanism of the PLD run beside the noise std the naive
+    accountant grants the same metrics (the lazy result is never run)."""
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    pdt.DPEngine(acc, pdt.TorchBackend("cpu")).aggregate(
+        pdt.ArrayDataset(*columns), pdt.AggregateParams(**params_kw),
+        pdt.DataExtractors(), public_partitions=public)
+    acc.compute_budgets()
+    out = []
+    for m_pld, m_naive in zip(acc_pld._mechanisms, acc._mechanisms):
+        spec = m_pld.mechanism_spec
+        assert spec.metric == m_naive.mechanism_spec.metric
+        out.append(dict(metric=spec.metric, type=spec.mechanism_type.name,
+                        internal_splits=m_pld.internal_splits,
+                        pld_std=acc_pld._spec_noise_std(m_pld),
+                        naive_std=acc._spec_noise_std(m_naive)))
+    return out
+
+
+class _NativeLog:
+    """Counts the port's native calls by sampler while it is entered (the
+    engine looks the samplers up on the module at each call)."""
+
+    def __init__(self):
+        from pipelinedp_tpu_torch import native
+        self._native = native
+        self.calls = []
+
+    def __enter__(self):
+        self._saved = {n: getattr(self._native, n) for n in NATIVE_SAMPLERS}
+        for name, fn in self._saved.items():
+            setattr(self._native, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._native, name, fn)
+
+    def _wrap(self, name, fn):
+        def logged(values, scale, **kw):
+            self.calls.append((name, int(np.size(values))))
+            return fn(values, scale, **kw)
+        return logged
+
+    def count(self, *names):
+        return sum(1 for n, _ in self.calls if n in names)
+
+
+def _secure_run(pdt, columns, params_kw, device, host_seed, public=None):
+    """One hardened aggregation: ``seed_host_rng(host_seed)`` under
+    ``set_secure_host_noise(True)``, no ``rng_seed``; the rows, the wall,
+    the engine's timings and the native calls by sampler."""
+    from pipelinedp_tpu_torch.ops import noise
+    noise.seed_host_rng(host_seed)
+    with _NativeLog() as calls:
+        rows, timings = _aggregate(pdt, columns, params_kw, device, None,
+                                   public)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    return rows, timings, calls
+
+
+def _secure_pair(pdt, columns, params_kw, host_seed, what, integer=True,
+                 public=None):
+    """The hardened release on the card and on the CPU from one host seed:
+    the same kept keys and float64 bits, the same native calls in the
+    same order, the integer sampler reached iff ``integer`` and the float
+    sampler always (where the JAX package reaches them). Returns the
+    card's launches and call counts."""
+    _reset_launches()
+    gpu_rows, gpu_t, gpu_calls = _secure_run(pdt, columns, params_kw,
+                                             "cuda", host_seed, public)
+    launches = _launch_counts()
+    cpu_rows, _, cpu_calls = _secure_run(pdt, columns, params_kw, "cpu",
+                                         host_seed, public)
+    assert _launch_counts() == launches, f"{what}: the CPU run launched"
+    assert launches["segment_sum_lanes"] >= 1, f"{what}: K1 never launched"
+    _released_identical(gpu_rows, cpu_rows, what)
+    assert gpu_calls.calls == cpu_calls.calls, (
+        f"{what}: the native calls differ between the card and the CPU")
+    n_int = gpu_calls.count("discrete_laplace", "discrete_gaussian")
+    n_float = gpu_calls.count("snapping_laplace", "secure_gaussian")
+    assert (n_int > 0) == integer, f"{what}: integer sampler calls {n_int}"
+    assert n_float > 0, f"{what}: the float sampler was never called"
+    return dict(kept=len(gpu_rows), launches=launches,
+                native_integer_calls=n_int, native_float_calls=n_float,
+                host_decode_s=gpu_t["host_decode_s"])
+
+
+def phase_pld_secure(smi):
+    """PLD budget accounting, the hardened native noise and the native
+    integer factorizer on the fused path (phase 27 of the module
+    docstring)."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import native
+    from pipelinedp_tpu_torch.ops import noise
+    t0 = time.perf_counter()
+    assert native.available(), "the native noise library did not build"
+    assert native.encode_available(), "the native factorizer did not build"
+    build_s = time.perf_counter() - t0
+    smoke = zipf_columns(PLD_SMOKE["rows"], PLD_SMOKE["users"],
+                         PLD_SMOKE["partitions"], PLD_SMOKE["seed"])
+    gaussian = dict(flagship_params(pdt), noise_kind=pdt.NoiseKind.GAUSSIAN)
+    pld_cases = {"flagship_laplace": flagship_params(pdt),
+                 "flagship_gaussian": gaussian,
+                 "per_partition_sum": sum_bounds_params(pdt)}
+
+    # (a) PLD on the fused path: card = CPU at the smoke size.
+    pld_smoke = {}
+    for name, params in pld_cases.items():
+        _reset_launches()
+        gpu_rows, gpu_acc, gpu_t = _pld_run(pdt, smoke, params, "cuda", 41)
+        launches = _launch_counts()
+        cpu_rows, cpu_acc, _ = _pld_run(pdt, smoke, params, "cpu", 41)
+        _released_identical(gpu_rows, cpu_rows, f"pld {name}")
+        assert (np.float64(gpu_acc.minimum_noise_std).tobytes() ==
+                np.float64(cpu_acc.minimum_noise_std).tobytes())
+        assert launches["segment_sum_lanes"] >= 1, f"pld {name}: no K1"
+        if name == "per_partition_sum":
+            assert launches["segment_totals"] >= 1, f"pld {name}: no K4"
+        pld_smoke[name] = dict(kept=len(gpu_rows), launches=launches,
+                               minimum_noise_std=gpu_acc.minimum_noise_std,
+                               compute_budgets_s=gpu_t["compute_budgets_s"])
+    log("pld_smoke", nvidia_smi=smi, data=PLD_SMOKE, identical=True,
+        native_build_s=build_s, **pld_smoke)
+
+    # (b) the hardened release: card = CPU at the smoke size.
+    scalar5 = [pdt.Metrics.COUNT, pdt.Metrics.PRIVACY_ID_COUNT,
+               pdt.Metrics.SUM, pdt.Metrics.MEAN, pdt.Metrics.VARIANCE]
+    noise.set_secure_host_noise(True)
+    try:
+        secure_smoke = {}
+        for kind in ("LAPLACE", "GAUSSIAN"):
+            params = dict(flagship_params(pdt), metrics=scalar5,
+                          noise_kind=pdt.NoiseKind[kind])
+            secure_smoke[f"scalar5_{kind.lower()}"] = _secure_pair(
+                pdt, smoke, params, 43, f"secure scalar5 {kind}")
+        os.environ["PIPELINEDP_TPU_VECTOR_ACCUMULATOR"] = "fx"
+        try:
+            n, d = 200_000, 64
+            rng = np.random.default_rng(47)
+            vec = (rng.integers(0, n // 8, n),
+                   (rng.zipf(1.3, n) % VECTOR_PARTITIONS).astype(np.int32),
+                   rng.uniform(-1.0, 1.0, (n, d)).astype(np.float32))
+            for kind in ("LAPLACE", "GAUSSIAN"):
+                rec = _secure_pair(pdt, vec, vector_params(pdt, d, kind), 53,
+                                   f"secure vector_sum {kind}",
+                                   integer=False)
+                assert rec["launches"]["segment_sum_wide"] >= 1, "no K2"
+                secure_smoke[f"vector_sum_d64_{kind.lower()}"] = rec
+        finally:
+            os.environ.pop("PIPELINEDP_TPU_VECTOR_ACCUMULATOR")
+    finally:
+        noise.set_secure_host_noise(False)
+    log("secure_smoke", nvidia_smi=smi, data=PLD_SMOKE, identical=True,
+        **secure_smoke)
+    del smoke, vec
+
+    # At full size: the flagship's data once more.
+    columns = zipf_columns(FLAGSHIP["rows"], FLAGSHIP["users"],
+                           FLAGSHIP["partitions"], FLAGSHIP["seed"])
+    pld_full = {}
+    for name, params in pld_cases.items():
+        _reset_launches()
+        rows, acc, timings = _pld_run(pdt, columns, params, "cuda",
+                                      FLAGSHIP["seed"])
+        launches = _launch_counts()
+        released = np.asarray([tuple(m) for _, m in rows], np.float64)
+        assert len(rows) > 0 and np.isfinite(released).all(), name
+        assert launches["segment_sum_lanes"] >= 1, f"pld {name}: no K1"
+        if name == "per_partition_sum":
+            assert launches["segment_totals"] >= 1, f"pld {name}: no K4"
+        pld_full[name] = dict(
+            kept=len(rows), launches=launches,
+            minimum_noise_std=acc.minimum_noise_std,
+            noise_stds=_naive_noise_stds(pdt, columns, params, acc),
+            **timings)
+    log("pld_full", nvidia_smi=smi, data=FLAGSHIP, **pld_full)
+
+    # The flagship with numpy noise (phase 4's seed) and hardened, in
+    # turns: plain, secure, secure, plain.
+    runs = []
+    for secure in (False, True, True, False):
+        noise.set_secure_host_noise(secure)
+        t0 = time.perf_counter()
+        try:
+            if secure:
+                rows, t, calls = _secure_run(pdt, columns,
+                                             flagship_params(pdt), "cuda", 59)
+                assert calls.count("discrete_laplace") > 0
+                assert calls.count("snapping_laplace") > 0
+            else:
+                rows, t = _aggregate(pdt, columns, flagship_params(pdt),
+                                     "cuda", FLAGSHIP["seed"])
+                plain_rows = rows
+        finally:
+            noise.set_secure_host_noise(False)
+        wall_s = time.perf_counter() - t0
+        runs.append(dict(secure=secure, kept=len(rows), wall_s=wall_s,
+                         rows_per_s=FLAGSHIP["rows"] / wall_s, **t))
+    assert len(plain_rows) > 0
+
+    # (c) the native factorizer in encode: the flagship's keys and users
+    # spread into wide int64, so both take ``factorize_i64``.
+    spread = (columns[0] * SPREAD + 7, columns[1] * SPREAD + 7, columns[2])
+    calls = []
+    real = native.factorize_i64
+
+    def counting(arr):
+        calls.append(len(arr))
+        return real(arr)
+
+    native.factorize_i64 = counting
+    try:
+        spread_rows, spread_t = _aggregate(pdt, spread, flagship_params(pdt),
+                                           "cuda", FLAGSHIP["seed"])
+    finally:
+        native.factorize_i64 = real
+    assert calls == [FLAGSHIP["rows"]] * 2, f"factorize_i64 calls {calls}"
+    assert [(k - 7) // SPREAD for k, _ in spread_rows] == [
+        k for k, _ in plain_rows], "spread keys released another key set"
+    assert (np.asarray([tuple(m) for _, m in spread_rows], np.float64)
+            .tobytes() == np.asarray([tuple(m) for _, m in plain_rows],
+                                     np.float64).tobytes()), (
+        "spread keys released other bytes")
+    t0 = time.perf_counter()
+    np.unique(spread[1], return_inverse=True)
+    np.unique(spread[0], return_inverse=True)
+    np_unique_s = time.perf_counter() - t0
+    log("secure_full", nvidia_smi=smi, data=FLAGSHIP, runs=runs,
+        factorize=dict(identical=True, calls=len(calls),
+                       host_encode_s=spread_t["host_encode_s"],
+                       plain_host_encode_s=[r["host_encode_s"] for r in runs
+                                            if not r["secure"]],
+                       np_unique_s=np_unique_s, device_s=spread_t["device_s"],
+                       host_decode_s=spread_t["host_decode_s"]))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2847,6 +3138,9 @@ def main() -> int:
     del columns
     phase_hh_fluent()
     RECORD["heavy_hitters_s"] = time.perf_counter() - t_hh
+    t0 = time.perf_counter()
+    phase_pld_secure(smi)
+    RECORD["pld_secure_s"] = time.perf_counter() - t0
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",

@@ -27,8 +27,11 @@ unbounded key axis with a counting sketch on the device, then run the
 fused path over the selected candidates only. The fluent APIs
 (``make_private``, ``private_spark``, ``private_beam`` with
 ``BeamBackend``) and the peeker (``pipelinedp_tpu_torch.peeker``) sit on
-top of ``DPEngine``. The package imports torch, numpy and scipy, never
-JAX.
+top of ``DPEngine``. Budgets compose naively (``NaiveBudgetAccountant``) or
+through privacy-loss distributions (``PLDBudgetAccountant``), and
+``ops.noise.set_secure_host_noise(True)`` hardens every host release with
+the native snapping and discrete samplers. The package imports torch, numpy
+and scipy, never JAX.
 
     import pipelinedp_tpu_torch as pdt
     accountant = pdt.NaiveBudgetAccountant(total_epsilon=1, total_delta=1e-6)
@@ -57,7 +60,8 @@ from pipelinedp_tpu_torch.aggregate_params import (
 from pipelinedp_tpu_torch.backends import TorchBackend
 from pipelinedp_tpu_torch.budget_accounting import (Budget, BudgetAccountant,
                                                     MechanismSpec,
-                                                    NaiveBudgetAccountant)
+                                                    NaiveBudgetAccountant,
+                                                    PLDBudgetAccountant)
 from pipelinedp_tpu_torch.combiners import Combiner, CustomCombiner
 from pipelinedp_tpu_torch.dp_engine import DataExtractors, DPEngine
 from pipelinedp_tpu_torch.pipeline_backend import (Annotator, LocalBackend,
@@ -93,6 +97,7 @@ __all__ = [
     "LocalBackend", "MeanParams", "MechanismSpec", "MechanismType", "Metric",
     "Metrics", "MultiProcLocalBackend", "NaiveBudgetAccountant", "NoiseKind",
     "NormKind", "PartitionSelectionStrategy", "PipelineBackend",
+    "PLDBudgetAccountant",
     "PrivacyIdCountParams", "PrivateCollection", "SelectPartitionsParams",
     "SketchParams", "SparkRDDBackend", "SumParams", "TorchBackend",
     "VarianceParams", "make_private", "register_annotator",

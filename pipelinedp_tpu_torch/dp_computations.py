@@ -11,10 +11,11 @@ combiners) is just the 0-d case. The fused XLA program reuses the same
 calibration helpers (which are pure host arithmetic).
 
 Port copy: the same host float64 mechanisms as the JAX package, so the
-port's release draws the same noise from the same ``rng``. The hardened
-native samplers are not ported yet (ROADMAP step 4):
-``ops.noise.set_secure_host_noise(True)`` raises, so the plain NumPy
-draws below are the only release path.
+port's release draws the same noise from the same ``rng``. With
+``ops.noise.set_secure_host_noise(True)`` and no explicit ``rng``, every
+release goes through the port's native samplers instead
+(``_secure_release``), in the JAX package's order, so the same
+``seed_host_rng`` seed gives the same hardened bits.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
+from pipelinedp_tpu_torch import native
 from pipelinedp_tpu_torch.aggregate_params import NoiseKind, NormKind
 from pipelinedp_tpu_torch.ops import noise as noise_ops
 
@@ -167,21 +169,49 @@ def _noise_std(eps: float, delta: float, l0_sensitivity: float,
     raise ValueError("Noise kind must be either Laplace or Gaussian.")
 
 
+def _secure_release(value: ArrayLike, scale: float, int_fn, float_fn,
+                    shape) -> ArrayLike:
+    """Hardened release through the native samplers: exact integer noise
+    for integer queries (counts, with no float noise bits at all), the
+    grid-snapped mechanism for real-valued ones. Which sampler runs is
+    decided by ``value``'s dtype, as in the JAX package, so callers keep
+    count columns integral. Shared by both noise kinds (the native twin
+    of the reference's PyDP secure mechanisms, reference
+    ``dp_computations.py:111-143``)."""
+    varr = np.asarray(value)
+    if varr.dtype.kind in "iu":
+        result = int_fn(varr, scale).astype(np.float64)
+    else:
+        result = float_fn(varr.astype(np.float64), scale)
+    return result if shape else float(result)
+
+
 def _add_random_noise(value: ArrayLike, eps: float, delta: float,
                       l0_sensitivity: float, linf_sensitivity: float,
                       noise_kind: NoiseKind,
                       rng: Optional[np.random.Generator] = None) -> ArrayLike:
     """Adds calibrated noise; batched when ``value`` is an array
-    (reference :146-176, but vectorized)."""
+    (reference :146-176, but vectorized). With secure host noise on and no
+    explicit ``rng``, the native samplers release instead."""
     shape = np.shape(value) or None
+    secure = noise_ops.secure_host_noise_enabled() and rng is None
     if noise_kind == NoiseKind.LAPLACE:
         scale = noise_ops.laplace_scale(
             eps, compute_l1_sensitivity(l0_sensitivity, linf_sensitivity))
+        if secure:
+            # Discrete Laplace for counts, Mironov snapping otherwise.
+            return _secure_release(value, scale, native.discrete_laplace,
+                                   native.snapping_laplace, shape)
         noise = noise_ops.np_laplace(scale, shape=shape, rng=rng)
     elif noise_kind == NoiseKind.GAUSSIAN:
         sigma = noise_ops.gaussian_sigma(
             eps, delta, compute_l2_sensitivity(l0_sensitivity,
                                                linf_sensitivity))
+        if secure:
+            # Exact discrete Gaussian (CKS) for counts, the
+            # granularity-snapped discrete Gaussian otherwise.
+            return _secure_release(value, sigma, native.discrete_gaussian,
+                                   native.secure_gaussian, shape)
         noise = noise_ops.np_gaussian(sigma, shape=shape, rng=rng)
     else:
         raise ValueError("Noise kind must be either Laplace or Gaussian.")

@@ -7,8 +7,17 @@ lines 1-216): calibration (Laplace scale ``b = L1/eps``; Gaussian sigma via
 the analytic Gaussian mechanism of Balle & Wang 2018) is closed-form host
 NumPy, and the NumPy samplers serve the float64 host release. The device
 draws of the port live in ``ops/prng.py``, which reproduces JAX's threefry
-streams bit for bit. The hardened native noise (``set_secure_host_noise``)
-is not ported yet: ROADMAP step 4.
+streams bit for bit.
+
+Noise-generation caveat, as in the JAX package: a float Laplace or Gaussian
+sample leaks through its least significant bits (Mironov, CCS 2012). For
+releases where that hardening matters, ``set_secure_host_noise(True)``
+routes every host release with no explicit ``rng`` through the native
+library (``pipelinedp_tpu_torch/native``: a ChaCha20 CSPRNG, Mironov's
+snapping mechanism and its Gaussian twin for real values, exact discrete
+Laplace and discrete Gaussian samplers for integer counts), compiled at
+first use with the host's ``g++``. ``seed_host_rng`` seeds the NumPy RNG and
+that CSPRNG together, so a hardened run is reproducible.
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ import numpy as np
 
 from scipy.special import log_ndtr as _log_ndtr
 from scipy.special import ndtr as _ndtr
+
+from pipelinedp_tpu_torch import native
 
 
 # ---------------------------------------------------------------------------
@@ -144,28 +155,47 @@ def np_gaussian(stddev: Union[float, np.ndarray],
 
 
 def seed_host_rng(seed: int) -> None:
-    """Reseeds the process-global host RNG (tests / reproducible runs)."""
+    """Reseeds the process-global host RNG (tests, reproducible runs).
+    Also re-keys the native CSPRNG if it is loaded, so hardened runs are
+    reproducible under the same call."""
     global _host_rng
     _host_rng = np.random.default_rng(seed)
+    if native.is_loaded():
+        native.seed(seed)
 
 
 def reseed_host_rng_from_entropy() -> None:
-    """Reseeds the process-global host RNG from fresh OS entropy.
+    """Reseeds the process-global host RNG, and the native CSPRNG if it is
+    loaded, from fresh OS entropy.
 
-    Forked worker processes inherit the parent's ``_host_rng`` *state*: two
-    workers that draw noise from it would produce identical noise streams,
-    and identical noise across partitions cancels in pairwise differences —
-    voiding the DP guarantee. Every process-pool worker must call this
-    before touching the DP path.
+    Worker processes that drew noise from one RNG state would produce
+    identical noise streams, and identical noise across partitions cancels
+    in pairwise differences, voiding the DP guarantee. Every process-pool
+    worker must call this before touching the DP path. Only a loaded
+    library is re-keyed: ``native.available()`` would build it in every
+    worker even with secure noise off.
     """
     global _host_rng
     _host_rng = np.random.default_rng(np.random.SeedSequence())
+    if native.is_loaded():
+        native.seed_from_os()
+
+
+_secure_host_noise = False
 
 
 def set_secure_host_noise(enabled: bool) -> None:
-    """The hardened host release (snapping / discrete mechanisms from the
-    JAX package's ``native/`` library) is not ported yet."""
-    if enabled:
-        raise NotImplementedError(
-            "secure host noise is not ported to pipelinedp_tpu_torch yet "
-            "(ROADMAP step 4: PLD and secure noise)")
+    """Opts into the hardened host release: the native samplers replace
+    value + raw float noise in every host release drawn without an
+    explicit ``rng`` (the combiners, the fused path's release and
+    VECTOR_SUM's). Raises ``native.NativeUnavailableError`` if the native
+    library cannot be built on this host."""
+    global _secure_host_noise
+    if enabled and not native.available():
+        raise native.NativeUnavailableError(
+            "secure host noise requires the native library (g++ toolchain)")
+    _secure_host_noise = enabled
+
+
+def secure_host_noise_enabled() -> bool:
+    return _secure_host_noise

@@ -9,8 +9,9 @@ wherever it is released (compact or full fetch, public or private
 partitions), and the same as the JAX package's for the same seed.
 
 The key is the engine seed folded with a stream label of its own
-(``0x7EC``). The hardened host noise of the JAX package
-(``set_secure_host_noise``) is not ported: ROADMAP step 4.
+(``0x7EC``). The hardened path does not come here: with
+``set_secure_host_noise(True)`` and no ``rng``, the engine releases
+VECTOR_SUM through the host's native samplers, as the JAX package does.
 """
 
 from __future__ import annotations

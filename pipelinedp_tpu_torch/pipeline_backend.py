@@ -292,8 +292,16 @@ def _mp_worker_init():
     random.seed()
 
 
-def _mp_apply_chunk(fn_and_mode, chunk):
-    fn, mode = fn_and_mode
+def _mp_apply_chunk(task, chunk):
+    """Runs one elementwise chunk. A spawned worker starts with secure host
+    noise off, while the release stages (``compute_metrics``) run in the
+    workers, so every task carries the parent's flag and sets it here: a
+    hardened run stays hardened in every process. A worker's native
+    CSPRNG seeds itself from OS entropy when the library first loads
+    there."""
+    fn, mode, secure_host_noise = task
+    if secure_host_noise != noise_ops.secure_host_noise_enabled():
+        noise_ops.set_secure_host_noise(secure_host_noise)
     if mode == "map":
         return [fn(x) for x in chunk]
     if mode == "map_tuple":
@@ -393,14 +401,15 @@ class MultiProcLocalBackend(PipelineBackend):
         # In-process for small data or unpicklable fns (engine graphs close
         # over lambdas; those stages run locally while picklable stages
         # still fan out).
+        secure = noise_ops.secure_host_noise_enabled()
         if len(data) < 2 * self._chunk_size or not self._picklable(fn):
-            return _mp_apply_chunk((fn, mode), data)
+            return _mp_apply_chunk((fn, mode, secure), data)
         chunks = [
             data[i:i + self._chunk_size]
             for i in range(0, len(data), self._chunk_size)
         ]
         results = self._pool().map(
-            functools.partial(_mp_apply_chunk, (fn, mode)), chunks)
+            functools.partial(_mp_apply_chunk, (fn, mode, secure)), chunks)
         return [e for r in results for e in r]
 
     def map(self, col, fn, stage_name: str = None):

@@ -75,7 +75,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pipelinedp_tpu_torch import dp_computations
+from pipelinedp_tpu_torch import dp_computations, native
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
                                                    MechanismType, NoiseKind,
                                                    NormKind,
@@ -298,8 +298,18 @@ def _int_factorize(arr: np.ndarray):
 
 
 def _unique_inverse(arr: np.ndarray):
-    """``np.unique(arr, return_inverse=True)`` with an int32 inverse (the
-    JAX package's native hash factorizer gives the same sorted result)."""
+    """``np.unique(arr, return_inverse=True)`` with an int32 inverse.
+    Integer keys take the native hash factorizer (``native/encode.cc``:
+    O(N + U log U) against the sort's O(N log N)) when ``g++`` can build
+    it; its result is ``np.unique``'s bit for bit, so the fallback to the
+    sort returns the same ids."""
+    if arr.dtype.kind in "iu" and native.encode_available():
+        try:
+            uniq, inv = native.factorize_i64(arr)
+        except (ValueError, native.NativeUnavailableError):
+            pass  # uint64 above int64 max, or no memory: the sort decides
+        else:
+            return uniq.astype(arr.dtype), inv
     uniq, inv = np.unique(arr, return_inverse=True)
     return uniq, inv.astype(np.int32)
 
@@ -1327,7 +1337,9 @@ def _host_release(config: FusedConfig, specs, part, nseg,
     VECTOR_SUM is norm-clipped here in float64; its per-coordinate noise
     is drawn on ``device`` by ``ops/vector_noise.py``, keyed by the engine
     seed ``rng_seed`` and by ``pk_index``, the global vocab index of each
-    released row, so a partition draws the same noise in every layout."""
+    released row, so a partition draws the same noise in every layout.
+    With secure host noise on and no ``rng``, every metric, VECTOR_SUM
+    too, is released by the native samplers on the host instead."""
     names = set(config.metrics)
     out = {}
     if "VARIANCE" in names or "MEAN" in names:
@@ -1384,11 +1396,18 @@ def _host_release(config: FusedConfig, specs, part, nseg,
             linf_sensitivity=config.linf,
             norm_kind=config.vector_norm_kind,
             noise_kind=config.noise_kind)
-        clipped = dp_computations._clip_vector(
-            np.asarray(part["vector_sum"], dtype=np.float64),
-            config.vector_max_norm, config.vector_norm_kind)
-        out["vector_sum"] = vector_noise.add_vector_noise(
-            clipped, noise_params, rng_seed, pk_index, device)
+        if noise_ops.secure_host_noise_enabled() and rng is None:
+            # Hardened release: the snapping and discrete mechanisms run
+            # on the host, in the same batched call the generic combiner
+            # makes.
+            out["vector_sum"] = dp_computations.add_noise_vector(
+                part["vector_sum"], noise_params, rng)
+        else:
+            clipped = dp_computations._clip_vector(
+                np.asarray(part["vector_sum"], dtype=np.float64),
+                config.vector_max_norm, config.vector_norm_kind)
+            out["vector_sum"] = vector_noise.add_vector_noise(
+                clipped, noise_params, rng_seed, pk_index, device)
     return out
 
 

@@ -332,7 +332,39 @@ def test_unported_params_raise(params):
 
 
 def test_pld_accountant_raises():
-    from pipelinedp_tpu_torch import budget_accounting
-    with pytest.raises(NotImplementedError, match="step 4"):
-        budget_accounting.PLDBudgetAccountant(total_epsilon=1.0,
-                                              total_delta=1e-6)
+    """The port's PLD accountant refuses what the JAX package's refuses,
+    and grants the specs it accepts the JAX package's (eps, delta, stddev)
+    bit for bit."""
+    from pipelinedp_tpu import budget_accounting as jba
+    from pipelinedp_tpu_torch import budget_accounting as tba
+    MT = pdp.MechanismType
+    refusals = [
+        (1.0, 1e-6, dict(mechanism_type=MT.LAPLACE, count=2),
+         NotImplementedError),
+        (1.0, 1e-6, dict(mechanism_type=MT.LAPLACE,
+                         noise_standard_deviation=1.0), NotImplementedError),
+        (1.0, 0.0, dict(mechanism_type=MT.GAUSSIAN), AssertionError),
+        (1.0, 1e-6, dict(mechanism_type=MT.LAPLACE, internal_splits=0),
+         ValueError),
+    ]
+    for eps, delta, kwargs, error in refusals:
+        for pkg, mt in ((jba, MT), (tba, pdt.MechanismType)):
+            acc = pkg.PLDBudgetAccountant(total_epsilon=eps,
+                                          total_delta=delta)
+            kw = dict(kwargs, mechanism_type=mt[kwargs["mechanism_type"]
+                                                .name])
+            with pytest.raises(error):
+                acc.request_budget(**kw)
+    specs = []
+    for pkg, mt in ((jba, MT), (tba, pdt.MechanismType)):
+        acc = pkg.PLDBudgetAccountant(total_epsilon=1.0, total_delta=1e-6,
+                                      pld_discretization=1e-3)
+        got = [acc.request_budget(mt.GAUSSIAN, sensitivity=2.0),
+               acc.request_budget(mt.LAPLACE, internal_splits=2),
+               acc.request_budget(mt.GENERIC)]
+        acc.compute_budgets()
+        specs.append(np.array(
+            [v for s in got
+             for v in (s.eps, s.delta, s.noise_standard_deviation)] +
+            [acc.minimum_noise_std]))
+    assert specs[1].tobytes() == specs[0].tobytes()

@@ -10,13 +10,15 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "pipelinedp_tpu")
 
-#: The modules of the sketch-first path, the peeker and the fluent APIs.
+#: The modules of the sketch-first path, the peeker, the fluent APIs, the
+#: PLD engine and the native library.
 NEW_MODULES = ("sketch/__init__.py", "sketch/hashing.py",
                "sketch/params.py", "sketch/device.py", "sketch/engine.py",
                "sketch/peek.py", "peeker/__init__.py",
                "peeker/data_peeker.py", "peeker/non_private_combiners.py",
                "peeker/peeker_engine.py", "private_collection.py",
-               "private_spark.py", "beam_backend.py", "private_beam.py")
+               "private_spark.py", "beam_backend.py", "private_beam.py",
+               "pld.py", "native/__init__.py")
 
 
 def _port_files():
@@ -72,12 +74,12 @@ def test_no_jax_or_reference_import(path):
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_new_module_imports_alone(module):
-    """Each module of the sketch-first path, the peeker and the fluent
-    APIs imports, and pulls in neither JAX nor the JAX package: checked
-    in a fresh interpreter, where nothing else imported them first. The
-    Beam adapters import under the fake ``apache_beam`` of
-    ``tests/fake_beam.py``, as ``tests/test_cluster_backends.py``
-    installs it."""
+    """Each module of the sketch-first path, the peeker, the fluent APIs,
+    the PLD engine and the native library imports, and pulls in neither
+    JAX nor the JAX package: checked in a fresh interpreter, where nothing
+    else imported them first. The Beam adapters import under the fake
+    ``apache_beam`` of ``tests/fake_beam.py``, as
+    ``tests/test_cluster_backends.py`` installs it."""
     import subprocess
     import sys
     name = "pipelinedp_tpu_torch." + module[:-3].replace("/", ".")
