@@ -190,7 +190,25 @@ Phases, one line each; any failure raises and exits non-zero:
     encode takes ``native.factorize_i64`` for both: the same released
     bytes as the unspread run, with ``host_encode_s`` beside the
     unspread run's and beside ``np.unique`` on the same arrays;
-28. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
+28. the obs and plan planes on the card, in three parts: (a) the
+    flagship at full size (phase 4's data and params) once with every
+    plane off (``PIPELINEDP_TPU_AUDIT=0``) and once with trace (a Chrome
+    trace path), audit, costs and the heartbeat (a heartbeat path) on and
+    a ledger directory, all under a temporary directory: both release
+    phase 4's bytes; each ``timings`` field equals its ``engine.*`` span's
+    total; the run report's fingerprint names the card; the cost table
+    has K1's entry with its CUDA-event ms, its analytic bytes and a
+    verdict against the H100 row, and the five kernel builds; the audit
+    holds the accountant, aggregation and selection records; the store
+    one entry under the port's fingerprint; the Chrome trace parses; the
+    heartbeat reads back with a phase; (b) config 4 streamed in six
+    batches under a plan file written by ``plan.write_plan`` that turns
+    the ingest executor off and the pass-B cache to 0: phase 10's
+    streamed bytes, ``plan.applied`` from the plan for both knobs, the
+    serial executor and the re-shipped pass B; (c) the flagship's wall
+    with every plane off and every plane on, three runs each in turns,
+    their medians and difference beside the card's name and power limit;
+29. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
     the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
@@ -524,7 +542,7 @@ def phase_flagship(columns):
         host_decode_s=timings["host_decode_s"],
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         segment_sum_lanes_launches=launches)
-    return launches
+    return launches, rows
 
 
 def _stage_timer(stages):
@@ -3045,6 +3063,164 @@ def phase_pld_secure(smi):
                        host_decode_s=spread_t["host_decode_s"]))
 
 
+PLANE_VARS = ("PIPELINEDP_TPU_TRACE", "PIPELINEDP_TPU_AUDIT",
+              "PIPELINEDP_TPU_COSTS", "PIPELINEDP_TPU_HEARTBEAT",
+              "PIPELINEDP_TPU_LEDGER_DIR", "PIPELINEDP_TPU_PLAN_DIR")
+
+
+def _planes(on: bool, tmp: str) -> None:
+    """Every obs plane on (trace to a Chrome-trace path, audit, costs,
+    the heartbeat to a file, a ledger directory) or every plane off."""
+    for var in PLANE_VARS:
+        os.environ.pop(var, None)
+    if on:
+        os.environ["PIPELINEDP_TPU_TRACE"] = os.path.join(tmp, "trace.json")
+        os.environ["PIPELINEDP_TPU_COSTS"] = "1"
+        os.environ["PIPELINEDP_TPU_HEARTBEAT"] = os.path.join(tmp, "hb.json")
+        os.environ["PIPELINEDP_TPU_LEDGER_DIR"] = os.path.join(tmp, "ledger")
+    else:
+        os.environ["PIPELINEDP_TPU_AUDIT"] = "0"
+
+
+def _flagship_wall(pdt, columns, on, tmp):
+    """One flagship aggregation on the card under the planes ``on`` or
+    off, from fresh obs state: (rows, timings, wall seconds)."""
+    from pipelinedp_tpu_torch import obs
+    _planes(on, tmp)
+    obs.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, timings = _aggregate(pdt, columns, flagship_params(pdt), "cuda",
+                               FLAGSHIP["seed"])
+    wall_s = time.perf_counter() - t0
+    return rows, timings, wall_s
+
+
+def phase_obs_flagship(columns, reference, kernel, smi):
+    """Phase 28 (a) and (c): the obs planes on the flagship at full size,
+    and their cost on its wall."""
+    import tempfile
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import obs
+    from pipelinedp_tpu_torch.obs import store as obs_store
+    tmp = tempfile.mkdtemp(prefix="pdp_obs_")
+    try:
+        rows_off, _, wall_off = _flagship_wall(pdt, columns, False, tmp)
+        _released_identical(rows_off, reference, "flagship, planes off")
+        assert obs.ledger().snapshot()["spans"] == []
+        rows_on, timings, wall_on = _flagship_wall(pdt, columns, True, tmp)
+        _released_identical(rows_on, reference, "flagship, planes on")
+        snap = obs.ledger().snapshot()
+        totals = {}
+        for sp in snap["spans"]:
+            totals[sp.name] = totals.get(sp.name, 0.0) + sp.dur
+        for field, span in (("host_encode_s", "engine.encode"),
+                            ("device_s", "engine.device"),
+                            ("host_decode_s", "engine.release")):
+            assert abs(timings[field] - totals[span]) < 1e-9, (field, span)
+        report = obs.build_run_report(snapshot=snap)
+        card = torch.cuda.get_device_name(0)
+        assert report["env"]["device_kind"] == card
+        assert report["env"]["platform"] == "gpu"
+        dc = report["device_costs"]
+        assert dc["peaks"]["kind"] == "h100_sxm", dc["peaks"]
+        [k1] = [e for e in dc["programs"].values()
+                if e["program"] == "segment_sum_lanes"]
+        assert k1["timer"] == "cuda_event" and k1["ms"] > 0.0
+        assert k1["calls"] == 1 and k1["bytes_accessed"] > 0
+        assert k1["verdict"] == "bandwidth_bound", k1
+        assert set(KERNEL_SOURCES) <= set(dc["builds"]), dc["builds"]
+        priv = report["privacy"]
+        assert priv["enabled"] and priv["accountants"]
+        assert priv["aggregations"][0]["method"] == "aggregate"
+        assert priv["partition_selection"]["partitions_post"] == len(rows_on)
+        assert priv["expected_errors"]
+        fp = obs_store.fingerprint_key(report["env"])
+        entries = obs_store.LedgerStore(
+            os.environ["PIPELINEDP_TPU_LEDGER_DIR"]).entries()
+        mine = [e for e in entries if e["fingerprint"] == fp]
+        assert len(mine) == 1 and mine[0]["name"] == "engine.aggregate"
+        trace_path = obs.write_chrome_trace(snapshot=snap)
+        with open(trace_path, encoding="utf-8") as f:
+            trace = json.load(f)
+        assert any(e.get("name") == "engine.device"
+                   for e in trace["traceEvents"])
+        obs.monitor.stop()
+        with open(os.environ["PIPELINEDP_TPU_HEARTBEAT"],
+                  encoding="utf-8") as f:
+            heartbeat = json.load(f)
+        assert heartbeat["phase"] not in (None, "idle"), heartbeat
+        log("obs_flagship", rows=FLAGSHIP["rows"], identical=True,
+            wall_off_s=wall_off, wall_on_s=wall_on,
+            timings={k: timings[k] for k in ("host_encode_s", "device_s",
+                                             "host_decode_s")},
+            fingerprint=fp, device_kind=card,
+            power_limit=report["env"].get("power_limit"),
+            k1_cost_entry=k1, k1_phase2_ms=kernel["ms"],
+            phases=dc["phases"], builds=dc["builds"],
+            accountants=len(priv["accountants"]),
+            ledger_entries=len(mine), trace_events=len(trace["traceEvents"]),
+            heartbeat_phase=heartbeat["phase"])
+        # (c) The planes' cost on the flagship's wall: off and on in turns.
+        walls = {False: [], True: []}
+        for _ in range(3):
+            for on in (False, True):
+                rows, _, wall = _flagship_wall(pdt, columns, on, tmp)
+                _released_identical(rows, reference, f"flagship, on={on}")
+                walls[on].append(wall)
+                obs.monitor.stop()
+        off_s = statistics.median(walls[False])
+        on_s = statistics.median(walls[True])
+        log("obs_overhead", nvidia_smi=smi, runs=3, walls_off_s=walls[False],
+            walls_on_s=walls[True], median_off_s=off_s, median_on_s=on_s,
+            difference_s=on_s - off_s,
+            difference_frac=(on_s - off_s) / off_s)
+    finally:
+        obs.monitor.stop()
+        _planes(False, tmp)
+        os.environ.pop("PIPELINEDP_TPU_AUDIT", None)
+        obs.reset()
+
+
+def phase_obs_plan_config4(columns, reference):
+    """Phase 28 (b): config 4 streamed in six batches under a plan file
+    that turns the ingest executor off and the pass-B cache to 0."""
+    import tempfile
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import obs, plan
+    tmp = tempfile.mkdtemp(prefix="pdp_plan_")
+    os.environ[CHUNK_ENV] = str(-(-CONFIG4["rows"] // 6))
+    os.environ[plan.planner.ENV_DIR] = tmp
+    try:
+        obs.reset()
+        path = plan.write_plan(plan.build_plan(
+            {"default": {"knobs": {"ingest_executor": False,
+                                   "stream_cache_bytes": 0}}},
+            plan.CostModel(), torch.cuda.get_device_name(0),
+            created_by="chip_smoke"))
+        rows, rec = _run_record(pdt, columns, config4_params(pdt),
+                                CONFIG4["seed"])
+        _released_identical(rows, reference, "config 4 under a plan file")
+        applied = {e["knob"]: e for e in obs.ledger().snapshot()["events"]
+                   if e["name"] == "plan.applied"}
+        for knob, value in (("ingest_executor", 0),
+                            ("stream_cache_bytes", 0)):
+            assert applied[knob]["source"] == "plan", applied[knob]
+            assert applied[knob]["value"] == value, applied[knob]
+        assert rec["stream_batches"] == 6
+        assert rec["stream_executor"] == "serial"
+        assert rec["stream_pass_b"] == "reship"
+        log("obs_plan_config4", data=CONFIG4, plan_file=path,
+            identical=True,
+            applied={k: applied[k] for k in ("ingest_executor",
+                                             "stream_cache_bytes")},
+            **rec)
+    finally:
+        os.environ.pop(CHUNK_ENV, None)
+        os.environ.pop(plan.planner.ENV_DIR, None)
+        obs.reset()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3065,11 +3241,15 @@ def main() -> int:
     RECORD["flagship_data_gen_s"] = time.perf_counter() - t0
     kernel = phase_kernel(columns)
     phase_gpu_vs_cpu()
-    launches = phase_flagship(columns)
+    launches, flagship_rows = phase_flagship(columns)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
         phase_breakdown(columns, args.out)
+    t0 = time.perf_counter()
+    phase_obs_flagship(columns, flagship_rows, kernel, smi)
+    RECORD["obs_plan_s"] = time.perf_counter() - t0
+    del flagship_rows
     k4 = phase_segtotal_kernel(columns, max_sm_mhz)
     phase_sum_bounds_gpu_vs_cpu()
     sum_bounds = phase_sum_bounds_full(columns)
@@ -3100,6 +3280,9 @@ def main() -> int:
     phase_select_streamed(columns)
     phase_pass_b_sources(columns, c4_rows)
     phase_kill_resume(columns, c4_rows)
+    t0 = time.perf_counter()
+    phase_obs_plan_config4(columns, c4_rows)
+    RECORD["obs_plan_s"] += time.perf_counter() - t0
     c4_prefix = tuple(c[:HOST_CONFIG4_ROWS].copy() for c in columns)
     del columns, c4_rows
     phase_streamed_percentile()

@@ -27,30 +27,33 @@ chunk) and batched sweeps are bit-identical, the CPU and the card agree
 bit for bit, and on the CPU the port equals ``jax_sweep``.
 
 Per-partition rows past ``_PP_BYTE_CAP`` run the host analysis graph on
-the sweep's backend, as the JAX package's do. Not ported here: the TPU
-lane alignment and the fitted-plan chunk sizing of the JAX package
-(``_lane_align``, ``_plan_chunk``), its compile cache and its
-observability plane (ROADMAP step 7), and the mesh (step 5), which
-raises ``NotImplementedError`` naming its step.
+the sweep's backend, as the JAX package's do. The chunk width is the
+``sweep_config_batch`` knob, else the static widest-in-budget width, which
+a fitted plan's measured sweep peak rescales (``_plan_chunk``). Not ported
+here: the TPU lane alignment of the JAX package (``_lane_align``), its
+compile cache, and the mesh (ROADMAP step 5), which raises
+``NotImplementedError`` naming its step.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-import os
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pipelinedp_tpu_torch import dp_computations
+from pipelinedp_tpu_torch import dp_computations, obs
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
                                                    MechanismType, Metrics,
                                                    NoiseKind,
                                                    PartitionSelectionStrategy)
 from pipelinedp_tpu_torch.analysis import data_structures
 from pipelinedp_tpu_torch.analysis import metrics as am
+from pipelinedp_tpu_torch.obs import costs
+from pipelinedp_tpu_torch.plan import knobs
 from pipelinedp_tpu_torch.ops import partition_selection as ps_ops
 from pipelinedp_tpu_torch.ops import segment as seg_ops
 from pipelinedp_tpu_torch.ops import xla_math as xm
@@ -73,9 +76,13 @@ _CHUNK_ROW_BUDGET = 1 << 26
 # Byte budget of the per-partition [P, C] blocks; past it the sweep runs
 # the host analysis graph instead (the same rows, at Python speed).
 _PP_BYTE_CAP = 256 << 20
-#: Environment pin of the chunk width (the JAX package's
-#: ``sweep_config_batch`` knob): > 0 pins it (1 is the walked mode).
-_CONFIG_BATCH_ENV = "PIPELINEDP_TPU_SWEEP_CONFIG_BATCH"
+#: The ``sweep_config_batch`` knob's seam and variable: > 0 pins the chunk
+#: width (1 is the walked mode), 0 sizes it.
+_SWEEP_CONFIG_BATCH = 0
+_CONFIG_BATCH_ENV = knobs.BY_NAME["sweep_config_batch"].env_var
+#: Device byte budget the model-fitted chunk sizing targets: the float32
+#: byte equivalent of the static element budgets (2^28 elements x 4).
+_SWEEP_HBM_BUDGET = 1 << 30
 # While every SUM value outside the marker rows and every SUM bound lies
 # within this magnitude, K5's stacks are +-0.0 on those rows (see
 # ``_k5_rows``).
@@ -236,6 +243,7 @@ def _sort_pid_pk(pid: torch.Tensor, pk: torch.Tensor) -> torch.Tensor:
     return torch.sort((pid.long() << 32) | pk.long(), stable=True).indices
 
 
+@costs.instrumented(phase="sweep")
 def _preagg_kernel(pid, pk, values):
     """Dense per-row arrays where ``marker`` rows carry one (pid, pk)
     user-contribution record: (pk, count, sum, n_partitions of the pid).
@@ -536,6 +544,7 @@ def _metric_chunk(metric_name, x_u, marker, layout, p_u, bounds_lo,
     }
 
 
+@costs.instrumented(phase="sweep")
 def _sweep_chunk_body(metric_names, strategy, noise_kind, P, public,
                       chunk, start, marker, layout, count_u, sum_u,
                       npart_u, users_pk, cfg, consts, per_partition=False):
@@ -678,6 +687,7 @@ def _bin_stats(v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.cat([cnt_tot, mx[:, None]], dim=1)[:_HIST_BINS]
 
 
+@costs.instrumented(phase="sweep")
 def _histogram_kernel(P, pid, pk):
     """All four tuning histograms (host graph twin:
     ``histograms.compute_dataset_histograms``), ``[4, BINS, 3]``."""
@@ -778,20 +788,47 @@ def _k5_rows(marker: torch.Tensor, sum_u: torch.Tensor,
     return marker
 
 
-def _chunk_width(C: int, n_pad: int, P_pad: int) -> int:
-    """Configs per chunk: the pin of ``PIPELINEDP_TPU_SWEEP_CONFIG_BATCH``
-    when set above 0 (1 is the walked mode), else the widest chunk whose
-    [n, Cc] broadcast and [P, Cc, 2 WINDOW + 1] window fit the JAX
-    package's static budgets, capped at ``_CHUNK_CAP``. Every width gives
-    the same bits per config."""
-    pinned = int(os.environ.get(_CONFIG_BATCH_ENV, "0") or 0)
+def _plan_chunk(static_chunk: int, rows: int, partitions: int,
+                device: torch.device) -> Tuple[int, str]:
+    """(chunk, source) for ``sweep_config_batch=0``: when the current plan
+    carries a fitted sweep-phase peak-memory sample for this shape bucket
+    (``plan/model.py``, measured at the static width), the chunk is
+    ``static * budget / peak``; otherwise the static width exactly
+    (source "static": a cold start or a poisoned history predicts None).
+    The bucket varies on (rows, partitions) only."""
+    from pipelinedp_tpu_torch.plan import planner
+    model = planner.current_cost_model()
+    if model is None:
+        return static_chunk, "static"
+    dk = (torch.cuda.get_device_name(device) if device.type == "cuda"
+          else "cpu")
+    peak = model.predict_hbm_peak(dk, "sweep", rows, partitions, 0)
+    if not peak or peak <= 0:
+        return static_chunk, "static"
+    scaled = int(static_chunk * (_SWEEP_HBM_BUDGET / float(peak)))
+    return int(np.clip(scaled, 1, _CHUNK_CAP)), "model"
+
+
+def _chunk_width(C: int, n_pad: int, P_pad: int,
+                 device: torch.device) -> int:
+    """Configs per chunk: the ``sweep_config_batch`` knob
+    (``PIPELINEDP_TPU_SWEEP_CONFIG_BATCH``) when above 0 (1 is the walked
+    mode), else the widest chunk whose [n, Cc] broadcast and
+    [P, Cc, 2 WINDOW + 1] window fit the JAX package's static budgets,
+    capped at ``_CHUNK_CAP`` and rescaled by a fitted plan's measured
+    peak (``_plan_chunk``). Every width gives the same bits per config."""
+    pinned = int(knobs.value("sweep_config_batch"))
     if pinned > 0:
         return int(np.clip(pinned, 1, _CHUNK_CAP))
-    return int(np.clip(
+    chunk = int(np.clip(
         min(_CHUNK_ROW_BUDGET // max(n_pad, 1),
             (1 << 28) // max(P_pad * (2 * _WINDOW + 1), 1),
             _pad_pow2(C, minimum=1)),
         1, _CHUNK_CAP))
+    chunk, source = _plan_chunk(chunk, n_pad, P_pad, device)
+    obs.event("sweep.chunk_planned", chunk=int(chunk), source=source,
+              rows=int(n_pad), partitions=int(P_pad))
+    return chunk
 
 
 class _PerPartitionRows:
@@ -977,7 +1014,7 @@ class LazySweepResult:
         is_gauss = np.asarray([k == NoiseKind.GAUSSIAN for k in kinds],
                               bool)
 
-        chunk = _chunk_width(C, n_pad, P_pad)
+        chunk = _chunk_width(C, n_pad, P_pad, device)
         C_pad = -(-C // chunk) * chunk
 
         def cpad(a, axis=0):
@@ -1015,8 +1052,7 @@ class LazySweepResult:
         if ckpt_store is not None:
             # A sibling file: a stream owns the path itself.
             ckpt_store = ckpt_mod.CheckpointStore(ckpt_store.path + ".sweep")
-        ckpt_every = max(1, int(os.environ.get(
-            "PIPELINEDP_TPU_CKPT_EVERY", "1")))
+        ckpt_every = knobs.checkpoint_every()
         acc_flat = None
         done_chunks = 0
         ckpt_fp = None
@@ -1048,15 +1084,32 @@ class LazySweepResult:
         pp_chunks = []
         self.chunk = chunk
         self.n_chunks = -(-C // chunk)
+        t_sweep0 = time.monotonic()
+        live_configs = 0  # configs run by this call (not the resumed ones)
         for ci, start in enumerate(range(0, C, chunk)):
             if ckpt_store is not None and ci < done_chunks:
                 continue  # restored from the checkpoint prefix
             faults.check_chunk(ci)
             faults.check_sweep_config_chunk(ci)
-            out, sel = _sweep_chunk_body(
-                metric_names, strategy, noise_kind, P_pad, public, chunk,
-                start, marker, layout, count_u, sum_u, npart_u, users_in,
-                cfg, consts, per_partition=per_partition)
+            # The heartbeat's sweep section: configs done against the
+            # plan and configs/s, so a stalled chunk can be named.
+            el = time.monotonic() - t_sweep0
+            obs.monitor.update_sweep({
+                "configs_done": min(ci * chunk, C),
+                "configs_planned": C,
+                "chunk": ci,
+                "chunks_planned": self.n_chunks,
+                "config_batch": chunk,
+                "configs_per_s": (round(live_configs / el, 1) if el > 0
+                                  else 0.0),
+                "resumed_from_chunk": done_chunks,
+            })
+            with obs.span("sweep.chunk", cat="sweep", chunk=ci,
+                          start=int(start)):
+                out, sel = _sweep_chunk_body(
+                    metric_names, strategy, noise_kind, P_pad, public,
+                    chunk, start, marker, layout, count_u, sum_u, npart_u,
+                    users_in, cfg, consts, per_partition=per_partition)
             if per_partition:
                 pp_chunks.append(_split_pp(out, metric_names))
             if ckpt_store is not None:
@@ -1069,6 +1122,11 @@ class LazySweepResult:
                         ckpt_fp, ci + 1, acc_flat))
             else:
                 chunk_outs.append((out, sel))
+            live_configs += chunk
+
+        # The grid completed: clear the heartbeat's sweep section (a
+        # killed sweep leaves its last snapshot for the stall watchdog).
+        obs.monitor.update_sweep(None)
 
         if ckpt_store is not None:
             out_cat = {nm: {} for nm in metric_names}

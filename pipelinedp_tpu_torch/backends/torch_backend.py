@@ -35,8 +35,8 @@ class TorchBackend(LocalBackend):
         aggregation saves its folded prefix there and a killed run
         resumes from it bit for bit (needs ``rng_seed``).
       ingest_executor: True or False selects the overlapped or the serial
-        stream; None (the default) follows
-        ``PIPELINEDP_TPU_INGEST_EXECUTOR`` (on unless 0).
+        stream; None (the default) follows the ``ingest_executor`` knob
+        (``PIPELINEDP_TPU_INGEST_EXECUTOR``, on unless 0).
       stream_cache: the pass-B device cache's budget in bytes; None (the
         default) follows ``PIPELINEDP_TPU_STREAM_CACHE`` (4 GiB unless
         set); 0 re-ships every batch.
@@ -66,3 +66,9 @@ class TorchBackend(LocalBackend):
         self.checkpoint = checkpoint
         self.ingest_executor = ingest_executor
         self.stream_cache = stream_cache
+        from pipelinedp_tpu_torch import obs
+        # seed_fixed, never the seed itself: run reports are meant to be
+        # shared, and noise draws are pure functions of the seed.
+        obs.event("backend.created", degraded=False, mesh_devices=0,
+                  seed_fixed=rng_seed is not None,
+                  checkpoint=bool(checkpoint), device=str(device))

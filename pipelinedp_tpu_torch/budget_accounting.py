@@ -332,6 +332,7 @@ class BudgetAccountant(abc.ABC):
             logging.warning("No budgets were requested.")
         else:
             self._compute_budgets()
+        self._record_audit()
 
     @property
     def finalized(self) -> bool:
@@ -390,6 +391,17 @@ class BudgetAccountant(abc.ABC):
             return noise_ops.gaussian_sigma(spec._eps / k, spec._delta / k,
                                             m.sensitivity)
         return None
+
+    def _record_audit(self) -> None:
+        """Pushes the finalized audit record into the obs audit registry
+        (the run report's ``privacy`` section reads it from there). Audit
+        capture never takes budget accounting down."""
+        try:
+            from pipelinedp_tpu_torch.obs import audit as obs_audit
+            if obs_audit.audit_enabled():
+                obs_audit.record_accountant(self.audit_record())
+        except Exception:  # pragma: no cover - audit must never raise
+            logging.warning("privacy audit capture failed", exc_info=True)
 
     @abc.abstractmethod
     def _compute_budgets(self) -> None:

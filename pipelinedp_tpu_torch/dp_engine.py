@@ -12,8 +12,9 @@ backend's host ops: custom combiners, a percentile whose range is too
 small for the fused walk's float32 leaf constant or that has no
 per-value bounds, and every host backend (``LocalBackend``,
 ``MultiProcLocalBackend``, ``SparkRDDBackend``). The route never depends
-on an exception of the fused path. The JAX package's ``obs`` audit and
-monitor calls are not ported (ROADMAP step 7). ``aggregate(...,
+on an exception of the fused path. Each aggregation pushes its shape into
+the obs audit registry and arms the live monitor under
+``PIPELINEDP_TPU_HEARTBEAT``, as in the JAX package. ``aggregate(...,
 sketch_first=SketchParams(...))`` takes the two-phase sketch-first path
 (``sketch/engine.py``) on a backend with the fused path, and raises
 elsewhere, as in the JAX package.
@@ -126,6 +127,45 @@ class DPEngine:
     def explain_computations_report(self):
         return [gen.report() for gen in self._report_generators]
 
+    def _record_aggregation_audit(self, method: str, params,
+                                  public_partitions=None) -> None:
+        """Pushes this aggregation's shape into the obs audit registry —
+        the run report's ``privacy`` section pairs it with the
+        accountant's per-mechanism eps/delta record. Never raises."""
+        try:
+            from pipelinedp_tpu_torch.obs import audit as obs_audit
+            if not obs_audit.audit_enabled():
+                return
+            rec: dict = {"method": method,
+                         "backend": type(self._backend).__name__}
+            if isinstance(params, AggregateParams):
+                rec["metrics"] = [repr(m) for m in (params.metrics or [])]
+                rec["noise_kind"] = (params.noise_kind.value
+                                     if params.noise_kind else None)
+                rec["contribution_bounds"] = {
+                    "max_partitions_contributed":
+                        params.max_partitions_contributed,
+                    "max_contributions_per_partition":
+                        params.max_contributions_per_partition,
+                    "max_contributions": params.max_contributions,
+                    "min_value": params.min_value,
+                    "max_value": params.max_value,
+                    "min_sum_per_partition": params.min_sum_per_partition,
+                    "max_sum_per_partition": params.max_sum_per_partition,
+                }
+            rec["budget_weight"] = getattr(params, "budget_weight", None)
+            strategy = getattr(params, "partition_selection_strategy",
+                               None)
+            rec["partition_selection"] = (
+                "public" if public_partitions is not None else
+                (strategy.value if strategy is not None else None))
+            pre_threshold = getattr(params, "pre_threshold", None)
+            if pre_threshold is not None:
+                rec["pre_threshold"] = pre_threshold
+            obs_audit.record_aggregation(rec)
+        except Exception:
+            pass  # the audit trail must never take an aggregation down
+
     def explain_computations_structured(self):
         """Machine-readable twin of :meth:`explain_computations_report`:
         one dict per aggregation (method, params string, structured
@@ -160,13 +200,22 @@ class DPEngine:
         private partition selection (no public partitions).
         """
         self._check_aggregate_params(col, params, data_extractors)
+        from pipelinedp_tpu_torch import obs
         if sketch_first is not None:
             build = self._sketch_first_builder(params, public_partitions,
                                                sketch_first)
+            self._record_aggregation_audit("aggregate_sketch_first", params,
+                                           None)
+            obs.monitor.maybe_start()
             return self._aggregate_in_scope(
                 params, "aggregate_sketch_first", False,
                 out_explain_computation_report,
                 lambda: build(col, data_extractors))
+        self._record_aggregation_audit("aggregate", params,
+                                       public_partitions)
+        # Live telemetry (PIPELINEDP_TPU_HEARTBEAT): the heartbeat and
+        # stall-watchdog monitor; no-op when the knob is off.
+        obs.monitor.maybe_start()
         return self._aggregate_in_scope(
             params, "aggregate", public_partitions is not None,
             out_explain_computation_report,
@@ -326,6 +375,7 @@ class DPEngine:
                           data_extractors: DataExtractors):
         """DP set of partition keys present in the data (reference :204)."""
         self._check_select_private_partitions(col, params, data_extractors)
+        self._record_aggregation_audit("select_partitions", params)
 
         with self._budget_accountant.scope(weight=params.budget_weight):
             self._report_generators.append(

@@ -1,4 +1,4 @@
-"""The overlapped streaming ingest (ROADMAP step 7): a background stager
+"""The overlapped streaming ingest: a background stager
 prepares batch b+1 while the device computes batch b, and an ordered fold
 worker fetches and folds finished batches in batch order, so the float64
 left fold and the checkpoints stay those of the serial stream. On by

@@ -27,10 +27,11 @@ swallowed. A port of ``pipelinedp_tpu/ingest/executor.py``.
 
 from __future__ import annotations
 
-import os
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
+
+from pipelinedp_tpu_torch.plan import knobs
 
 #: Every thread this package starts carries this name prefix, so tests can
 #: assert that a severed run left no orphans.
@@ -40,13 +41,15 @@ THREAD_PREFIX = "pdp-ingest"
 #: staging ring.
 _POLL_S = 0.02
 
-ENV_VAR = "PIPELINEDP_TPU_INGEST_EXECUTOR"
+#: The ``ingest_executor`` knob's variable (``plan/knobs.py``).
+ENV_VAR = knobs.BY_NAME["ingest_executor"].env_var
 
 
 def executor_enabled() -> bool:
-    """The overlapped executor is on unless ``PIPELINEDP_TPU_INGEST_EXECUTOR``
-    is ``0``, ``false`` or ``off``, which selects the serial stream."""
-    return os.environ.get(ENV_VAR, "1").lower() not in ("0", "false", "off")
+    """The ``ingest_executor`` knob: the overlapped executor is on unless
+    ``PIPELINEDP_TPU_INGEST_EXECUTOR`` is ``0``, ``false`` or ``off``
+    (which selects the serial stream), or a plan file turns it off."""
+    return bool(knobs.value("ingest_executor"))
 
 
 class IngestCancelled(Exception):
@@ -83,20 +86,30 @@ class StagingRing:
 class _CaptureThread(threading.Thread):
     """A worker thread that keeps its body's exception for the dispatch
     thread to raise (``IngestCancelled`` is a clean exit). Its name starts
-    with ``THREAD_PREFIX``."""
+    with ``pdp-``: ``THREAD_PREFIX`` unless it has the prefix already."""
 
     def __init__(self, body, name: str):
-        super().__init__(name=f"{THREAD_PREFIX}-{name}", daemon=True)
+        # A name that already carries the package's ``pdp-`` prefix (the
+        # monitor's, the introspection server's) is kept as it is.
+        super().__init__(name=(name if name.startswith("pdp-")
+                               else f"{THREAD_PREFIX}-{name}"),
+                         daemon=True)
         self._body = body
         self.exc: Optional[BaseException] = None
 
     def run(self):
+        from pipelinedp_tpu_torch import obs
+        obs.inc("ingest.worker_threads_started")
         try:
             self._body()
         except IngestCancelled:
             pass
         except BaseException as e:  # raised again by the owner, not lost
             self.exc = e
+            # The error surfaces on the dispatch thread later; the event
+            # records where it happened.
+            obs.event("ingest.worker_error", thread=self.name,
+                      error=repr(e))
 
 
 class BackgroundStager:

@@ -74,17 +74,19 @@ def _build_shared_lib(src: str, name: str) -> str:
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(["g++", *GXX_FLAGS, src, "-o", tmp],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise NativeUnavailableError(
-            f"g++ failed building {os.path.basename(src)}: "
-            f"{proc.stderr[-500:]}")
-    os.replace(tmp, out)
+    from pipelinedp_tpu_torch.obs import costs
+    cached = os.path.exists(out)
+    with costs.build_span(name, cached):
+        if not cached:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.run(["g++", *GXX_FLAGS, src, "-o", tmp],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise NativeUnavailableError(
+                    f"g++ failed building {os.path.basename(src)}: "
+                    f"{proc.stderr[-500:]}")
+            os.replace(tmp, out)
     return out
 
 

@@ -4,7 +4,9 @@
 into a shared library with a plain C interface, under
 ``pipelinedp_tpu_torch/build/``. The file name carries a hash of the source
 and the flags, so an edited source rebuilds and a stale library is never
-loaded. Nothing here runs at import time: the CPU tests import every module
+loaded. The first load in a process records a ``compile.program`` span
+and a build record (``obs/costs.py``) with the build cache's hit or miss.
+Nothing here runs at import time: the CPU tests import every module
 on a host with no ``nvcc``.
 """
 
@@ -57,15 +59,18 @@ def load(name: str) -> ctypes.CDLL:
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     path = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit "
-                               f"{proc.returncode}):\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, path)  # atomic, so concurrent builds agree
-    lib = _libs[name] = ctypes.CDLL(path)
+    from pipelinedp_tpu_torch.obs import costs
+    cached = os.path.exists(path)
+    with costs.build_span(name, cached):
+        if not cached:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit "
+                                   f"{proc.returncode}):\n{proc.stdout}"
+                                   f"{proc.stderr}")
+            os.replace(tmp, path)  # atomic, so concurrent builds agree
+        lib = _libs[name] = ctypes.CDLL(path)
     return lib

@@ -28,6 +28,8 @@ from typing import Dict, Optional
 
 import torch
 
+from pipelinedp_tpu_torch.obs import costs
+
 #: Kernel launches since the last reset (the CPU path never counts).
 LAUNCHES: Dict[str, int] = {"subtree_counts_multi": 0}
 
@@ -109,6 +111,21 @@ def subtree_counts_multi(qpk: torch.Tensor, leaf: torch.Tensor,
     device. With ``out`` the counts are added into it (a streamed sweep
     accumulates its batches there) and ``out`` is returned."""
     _check(qpk, leaf, kept, sub_starts, p_offsets, Pb, span, out)
+    # Cost-table counts: one add per (row, tile, quantile); the rows, the
+    # starts and offsets read once, the counts written once.
+    n = qpk.shape[0]
+    T, _, Qc = sub_starts.shape
+    with costs.kernel_launch(
+            "subtree_counts_multi", "pass_b",
+            (qpk, leaf, kept, sub_starts, p_offsets, Pb, span),
+            n * T * Qc, 9 * n + 4 * (sub_starts.numel() + T) +
+            4 * T * int(Pb) * Qc * int(span)):
+        return _subtree_counts_multi(qpk, leaf, kept, sub_starts,
+                                     p_offsets, Pb, span, out)
+
+
+def _subtree_counts_multi(qpk, leaf, kept, sub_starts, p_offsets, Pb, span,
+                          out):
     if qpk.device.type == "cpu":
         counts = subtree_counts_multi_plain(qpk, leaf, kept, sub_starts,
                                             p_offsets, Pb, span)

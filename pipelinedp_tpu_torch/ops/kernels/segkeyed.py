@@ -40,6 +40,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from pipelinedp_tpu_torch.obs import costs
+
 #: Kernel launches since the last reset (the CPU path never counts).
 LAUNCHES: Dict[str, int] = {"segmented_sums": 0}
 
@@ -304,8 +306,20 @@ def segmented_sums(values: torch.Tensor, layout: KeyLayout) -> torch.Tensor:
     float32 ``[n, W]`` contiguous, its rows in the order of ``layout``
     (``key_layout``), on the layout's device."""
     _check(values, layout)
-    if values.device.type == "cpu":
-        return segmented_sums_plain(values, layout)
+    n, W = values.shape
+    P = layout.P
+    # Cost-table counts: one add per element; the values, offsets and
+    # walk read once, the totals written once.
+    with costs.kernel_launch(
+            "segmented_sums", "sweep", (values, layout.offsets, P),
+            n * W, 4 * n * W + 8 * (P + 1) + 4 * P + 4 * P * W):
+        if values.device.type == "cpu":
+            return segmented_sums_plain(values, layout)
+        return _segmented_sums(values, layout)
+
+
+def _segmented_sums(values: torch.Tensor,
+                    layout: KeyLayout) -> torch.Tensor:
     n, W = values.shape
     # The kernel writes every element of ``out``; ``queue`` is its unit
     # counter, zeroed on the caller's stream before the launch.

@@ -32,6 +32,8 @@ from typing import Dict
 
 import torch
 
+from pipelinedp_tpu_torch.obs import costs
+
 #: Calls of each wrapper that launched on the card since the last reset,
 #: one per call whatever the kernels it launched: K1's call is its
 #: sampling launch and its main one, and past the shared-memory limit
@@ -130,16 +132,25 @@ def _launch(name: str, source: str, symbol: str, cols: torch.Tensor,
     return out
 
 
+def _counts(cols: torch.Tensor, P: int):
+    """(int32 adds, bytes) of one launch for the cost table: one add per
+    element; the lanes and keys read once and the sums written once."""
+    n, C = cols.shape
+    return n * C, 4 * (n * C + n + int(P) * C)
+
+
 def segment_sum_lanes(cols: torch.Tensor, pk: torch.Tensor,
                       P: int) -> torch.Tensor:
     """``out[p, c] = sum_{r: pk[r] == p} cols[r, c]`` in int32: ``cols``
     int32 ``[N, C]`` contiguous, ``pk`` int32 ``[N]``; rows with ``pk``
     outside ``[0, P)`` are dropped."""
     _check("segment_sum_lanes", cols, pk, P)
-    if cols.device.type == "cpu":
-        return segment_sum_lanes_plain(cols, pk, P)
-    return _launch("segment_sum_lanes", "segsum_lanes", "segsum_lanes_launch",
-                   cols, pk, P, HOT_WORDS)
+    with costs.kernel_launch("segment_sum_lanes", "engine", (cols, pk, P),
+                             *_counts(cols, P)):
+        if cols.device.type == "cpu":
+            return segment_sum_lanes_plain(cols, pk, P)
+        return _launch("segment_sum_lanes", "segsum_lanes",
+                       "segsum_lanes_launch", cols, pk, P, HOT_WORDS)
 
 
 def segment_sum_wide(cols: torch.Tensor, pk: torch.Tensor,
@@ -150,10 +161,12 @@ def segment_sum_wide(cols: torch.Tensor, pk: torch.Tensor,
     the shared-memory kernel runs while ``wide_tile(W, P)`` > 0, K1's
     kernels otherwise; either counts one launch here."""
     _check("segment_sum_wide", cols, pk, P)
-    if cols.device.type == "cpu":
-        return segment_sum_wide_plain(cols, pk, P)
-    if wide_tile(cols.shape[1], int(P)):
-        return _launch("segment_sum_wide", "segsum_wide",
-                       "segsum_wide_launch", cols, pk, P)
-    return _launch("segment_sum_wide", "segsum_lanes", "segsum_lanes_launch",
-                   cols, pk, P, HOT_WORDS)
+    with costs.kernel_launch("segment_sum_wide", "engine", (cols, pk, P),
+                             *_counts(cols, P)):
+        if cols.device.type == "cpu":
+            return segment_sum_wide_plain(cols, pk, P)
+        if wide_tile(cols.shape[1], int(P)):
+            return _launch("segment_sum_wide", "segsum_wide",
+                           "segsum_wide_launch", cols, pk, P)
+        return _launch("segment_sum_wide", "segsum_lanes",
+                       "segsum_lanes_launch", cols, pk, P, HOT_WORDS)

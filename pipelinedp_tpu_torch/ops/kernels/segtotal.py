@@ -33,6 +33,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from pipelinedp_tpu_torch.obs import costs
+
 #: Kernel launches since the last reset (the CPU path never counts).
 LAUNCHES: Dict[str, int] = {"segment_totals": 0}
 
@@ -196,8 +198,18 @@ def segment_totals(values: torch.Tensor,
     ``[N]``, ``new_seg`` bool ``[N]`` (set on the first row of each
     segment), both contiguous on one device."""
     _check(values, new_seg)
-    if values.device.type == "cpu":
-        return segment_totals_plain(values, new_seg)
+    n = values.shape[0]
+    # Cost-table counts: one add per row; the values and flags read once,
+    # the totals written once.
+    with costs.kernel_launch("segment_totals", "engine", (values, new_seg),
+                             n, 9 * n):
+        if values.device.type == "cpu":
+            return segment_totals_plain(values, new_seg)
+        return _segment_totals(values, new_seg)
+
+
+def _segment_totals(values: torch.Tensor,
+                    new_seg: torch.Tensor) -> torch.Tensor:
     n = values.shape[0]
     # The kernel reads values in 16-byte and new_seg in 8-byte pieces; an
     # offset view is copied to fresh storage (the caching allocator aligns

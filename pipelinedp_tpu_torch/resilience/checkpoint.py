@@ -166,6 +166,8 @@ class CheckpointStore:
             if os.path.exists(tmp):
                 os.unlink(tmp)
         self.last_event = f"saved next_batch={ckpt.next_batch}"
+        from pipelinedp_tpu_torch import obs
+        obs.inc("checkpoint.saves")
 
     def load(self) -> Optional[StreamCheckpoint]:
         if not self.exists():
@@ -183,14 +185,22 @@ class CheckpointStore:
         """Load and check against the current run's fingerprint. A
         mismatch raises rather than restarting: a silent restart would
         draw noise again and spend the budget twice."""
+        from pipelinedp_tpu_torch import obs
         ckpt = self.load()
         if ckpt is None:
             return None
         if ckpt.fingerprint != fingerprint:
+            obs.inc("checkpoint.mismatch_refusals")
+            obs.event("checkpoint.mismatch_refusal", path=self.path,
+                      found=ckpt.fingerprint[:16],
+                      expected=fingerprint[:16])
             raise CheckpointMismatch(
                 f"checkpoint at {self.path} was written by a different "
                 "run (config/data/seed fingerprint mismatch); refusing "
                 "to resume — delete it explicitly to start fresh")
+        obs.inc("checkpoint.resumes")
+        obs.event("checkpoint.resumed", path=self.path,
+                  next_batch=int(ckpt.next_batch))
         return ckpt
 
     def clear(self) -> None:

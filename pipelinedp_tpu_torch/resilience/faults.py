@@ -79,15 +79,25 @@ def injected_faults(plan: FaultPlan):
         clear()
 
 
+def _record(kind: str, **attrs) -> None:
+    """Every injected fault lands in the run ledger: a fault test's record
+    says which failures were synthetic."""
+    from pipelinedp_tpu_torch import obs
+    obs.inc("faults.injected")
+    obs.event("fault.injected", kind=kind, **attrs)
+
+
 def check_chunk(index: int) -> None:
     plan = _plan
     if plan is not None and index in plan.fail_chunks:
+        _record("chunk_failure", index=int(index))
         raise ChunkFailure(f"injected failure at streaming chunk {index}")
 
 
 def check_pass_b_chunk(index: int) -> None:
     plan = _plan
     if plan is not None and index in plan.fail_pass_b_chunks:
+        _record("pass_b_chunk_failure", index=int(index))
         raise ChunkFailure(
             f"injected failure at pass-B sweep batch {index}")
 
@@ -95,6 +105,7 @@ def check_pass_b_chunk(index: int) -> None:
 def check_sweep_config_chunk(index: int) -> None:
     plan = _plan
     if plan is not None and index in plan.fail_sweep_config_chunks:
+        _record("sweep_config_chunk_failure", index=int(index))
         raise ChunkFailure(
             f"injected failure at sweep config chunk {index}")
 
@@ -102,4 +113,5 @@ def check_sweep_config_chunk(index: int) -> None:
 def check_sketch_chunk(index: int) -> None:
     plan = _plan
     if plan is not None and index in plan.fail_sketch_chunks:
+        _record("sketch_chunk_failure", index=int(index))
         raise ChunkFailure(f"injected failure at sketch chunk {index}")

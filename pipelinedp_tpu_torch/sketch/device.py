@@ -31,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pipelinedp_tpu_torch.obs import costs
+
 #: Rows per padding unit: chunks pad to a multiple of it with -1 rows,
 #: as the JAX package pads its one-hot row blocks.
 ROW_BLOCK = 512
@@ -86,6 +88,7 @@ def counts_scatter(buckets: torch.Tensor, width: int) -> torch.Tensor:
                            0, idx, ok.to(torch.int32))
 
 
+@costs.instrumented(phase="sketch")
 def sketch_chunk(buckets: torch.Tensor, width: int,
                  backend: str) -> torch.Tensor:
     """[depth, width] int32 counts of one chunk; ``buckets`` is [depth, n]

@@ -51,19 +51,19 @@ phase-1 budget, threshold below 1, cap ≥ populated buckets), the
 filtered rows ARE the input rows, and phase 2 is bit-for-bit the dense
 path under the same engine accountant and seed.
 
-Not ported: the mesh branch of the accumulation stream (ROADMAP step 5)
-and the JAX package's obs events, counters, monitor and audit records
-(ROADMAP step 7). Phase timings come from ``time.perf_counter``.
+Phase timings are views over the run tracer's ``sketch.*`` spans, and a
+run leaves the JAX package's events, counters and audit records. Not
+ported: the mesh branch of the accumulation stream (ROADMAP step 5).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from pipelinedp_tpu_torch import obs
 from pipelinedp_tpu_torch.sketch import device as sketch_device
 from pipelinedp_tpu_torch.sketch import hashing
 from pipelinedp_tpu_torch.sketch.params import SketchParams
@@ -189,14 +189,13 @@ def _stage_chunk(chunk: np.ndarray, device: torch.device, copy_stream):
 
 def _accumulate_stream(pair_buckets: np.ndarray, width: int,
                        backend: str, chunk_rows: int,
-                       device: torch.device
-                       ) -> Tuple[np.ndarray, int, float, str]:
+                       device: torch.device, tr
+                       ) -> Tuple[np.ndarray, int, str]:
     """Stream the bounded pairs' bucket ids through the ingest ring into
     the device sketch: the stager copies chunk b+1 to the device while
     the dispatch thread bins chunk b. Returns ([depth, width] int64 host
-    counts, chunks, seconds spent dispatching and fetching the chunks,
-    the device the binner ran on). Exact for any chunking (integer
-    sum)."""
+    counts, chunks, the device the binner ran on); ``tr`` times each
+    chunk's staging and binning. Exact for any chunking (integer sum)."""
     from pipelinedp_tpu_torch import ingest
     from pipelinedp_tpu_torch.resilience import faults
 
@@ -206,7 +205,6 @@ def _accumulate_stream(pair_buckets: np.ndarray, width: int,
     n_chunks = max(1, -(-n // chunk_rows))
     copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
                    else None)
-    busy_s = 0.0
     binned_on = str(device)
 
     def gen_factory(cancelled):
@@ -216,25 +214,26 @@ def _accumulate_stream(pair_buckets: np.ndarray, width: int,
                     return
                 lo = b * chunk_rows
                 hi = min(n, lo + chunk_rows)
-                chunk = sketch_device.pad_chunk(
-                    np.ascontiguousarray(pair_buckets[:, lo:hi]))
-                dev, ready = _stage_chunk(chunk, device, copy_stream)
+                with tr.span("sketch.stage", cat="sketch", batch=b):
+                    chunk = sketch_device.pad_chunk(
+                        np.ascontiguousarray(pair_buckets[:, lo:hi]))
+                    dev, ready = _stage_chunk(chunk, device, copy_stream)
                 yield b, dev, ready
         return gen()
 
     with ingest.BackgroundStager(gen_factory, name="sketch-stager") as st:
         for b, dev, ready in st.items():
             faults.check_sketch_chunk(b)
-            t0 = time.perf_counter()
-            if ready is not None:
-                compute = torch.cuda.current_stream(device)
-                compute.wait_event(ready)
-                dev.record_stream(compute)
-            out = sketch_device.sketch_chunk(dev, width, backend)
-            binned_on = str(out.device)
-            sketch_device.accumulate_chunk(total, out)
-            busy_s += time.perf_counter() - t0
-    return total, n_chunks, busy_s, binned_on
+            with tr.span("sketch.accumulate", cat="sketch", batch=b):
+                if ready is not None:
+                    compute = torch.cuda.current_stream(device)
+                    compute.wait_event(ready)
+                    dev.record_stream(compute)
+                with obs.device_annotation("pdp.sketch_chunk"):
+                    out = sketch_device.sketch_chunk(dev, width, backend)
+                binned_on = str(out.device)
+                sketch_device.accumulate_chunk(total, out)
+    return total, n_chunks, binned_on
 
 
 def select_buckets(counts_row0: np.ndarray, spec, l0: int, cap: int,
@@ -331,56 +330,90 @@ class LazySketchFirstResult:
         from pipelinedp_tpu_torch.ops import prng
         from pipelinedp_tpu_torch.torch_engine import ArrayDataset
 
+        from pipelinedp_tpu_torch.obs import audit as obs_audit
+
         sp = self._sketch
+        tr = obs.run_tracer()
+        obs.monitor.maybe_start()
         width = sp.resolved_width()
         depth = sp.resolved_depth()
         cap = sp.resolved_candidate_cap()
         backend = sp.resolved_backend()
         l0 = sp.resolved_l0(self._params)
 
-        pid_arr, pk_arr, values_arr = _extract_columns(
-            self._col, self._extractors)
-        t0 = time.perf_counter()
-        uniq_keys, key_inv = _factorize_keys(pk_arr)
-        key_hashes = hashing.stable_hash64(uniq_keys, sp.hash_seed)
-        buckets_of_key = hashing.bucket_ids(key_hashes, width, depth,
-                                            sp.hash_seed)
-        t_hash = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        kept_keys = bound_pairs(pid_arr, key_inv, key_hashes, l0,
-                                sp.hash_seed)
-        pair_buckets = np.ascontiguousarray(buckets_of_key[:, kept_keys])
-        t_bound = time.perf_counter() - t0
-        counts, n_chunks, t_acc, self.binner_device = _accumulate_stream(
-            pair_buckets, width, backend, sp.chunk_rows, self._device)
+        with tr.span("sketch.extract", cat="sketch"):
+            pid_arr, pk_arr, values_arr = _extract_columns(
+                self._col, self._extractors)
+        with tr.span("sketch.hash", cat="sketch"):
+            uniq_keys, key_inv = _factorize_keys(pk_arr)
+            key_hashes = hashing.stable_hash64(uniq_keys, sp.hash_seed)
+            buckets_of_key = hashing.bucket_ids(key_hashes, width, depth,
+                                                sp.hash_seed)
+        with tr.span("sketch.bound", cat="sketch"):
+            kept_keys = bound_pairs(pid_arr, key_inv, key_hashes, l0,
+                                    sp.hash_seed)
+            pair_buckets = np.ascontiguousarray(
+                buckets_of_key[:, kept_keys])
+        counts, n_chunks, self.binner_device = _accumulate_stream(
+            pair_buckets, width, backend, sp.chunk_rows, self._device, tr)
 
-        t0 = time.perf_counter()
-        # Phase 1's own books: a dedicated accountant for the bucket
-        # selection, beside the engine's accountant of phase 2.
-        acc = NaiveBudgetAccountant(total_epsilon=sp.eps,
-                                    total_delta=sp.delta)
-        spec = acc.request_budget(mechanism_type=MechanismType.GENERIC,
-                                  metric="sketch_candidate_selection")
-        acc.compute_budgets()
-        seed = (self._rng_seed if self._rng_seed is not None else
-                int(noise_ops._host_rng.integers(0, 2**31 - 1)))
-        sel_key = prng.fold_in(prng.PRNGKey(seed), _SELECT_STREAM_TAG)
-        keep_mask, _, _ = select_buckets(counts[0], spec, l0, cap,
-                                         sp.threshold, sel_key,
-                                         self._device)
-        t_select = time.perf_counter() - t0
+        with tr.span("sketch.select", cat="sketch"):
+            # Phase 1's own books: a dedicated accountant for the bucket
+            # selection, beside the engine's accountant of phase 2; its
+            # audit record reaches the registry like the engine's.
+            acc = NaiveBudgetAccountant(total_epsilon=sp.eps,
+                                        total_delta=sp.delta)
+            spec = acc.request_budget(
+                mechanism_type=MechanismType.GENERIC,
+                metric="sketch_candidate_selection")
+            acc.compute_budgets()
+            seed = (self._rng_seed if self._rng_seed is not None else
+                    int(noise_ops._host_rng.integers(0, 2**31 - 1)))
+            sel_key = prng.fold_in(prng.PRNGKey(seed), _SELECT_STREAM_TAG)
+            keep_mask, threshold, noise_scale = select_buckets(
+                counts[0], spec, l0, cap, sp.threshold, sel_key,
+                self._device)
 
-        key_selected = keep_mask[buckets_of_key[0]]
-        candidates, table = hashing.build_candidate_table(uniq_keys,
-                                                          key_selected)
-        self._candidate_table = table
-        row_mask = key_selected[key_inv]
+        with tr.span("sketch.candidates", cat="sketch"):
+            key_selected = keep_mask[buckets_of_key[0]]
+            candidates, table = hashing.build_candidate_table(
+                uniq_keys, key_selected)
+            self._candidate_table = table
+            row_mask = key_selected[key_inv]
+
+        populated = int((counts[0] > 0).sum())
+        obs.inc("sketch.runs")
+        obs.event("sketch.selected",
+                  buckets_populated=populated,
+                  buckets_selected=int(keep_mask.sum()),
+                  candidates=len(candidates),
+                  universe_keys=int(len(uniq_keys)))
+        if obs_audit.audit_enabled():
+            # The count-min mass of the candidate keys only, and only when
+            # the record is captured: the gather is audit-tier work.
+            cand_est = count_min_estimate(
+                counts, buckets_of_key[:, key_selected])
+            obs_audit.record_sketch({
+                "width": width, "depth": depth, "candidate_cap": cap,
+                "backend": backend, "l0": l0,
+                "eps": spec.eps, "delta": spec.delta,
+                "noise_scale": noise_scale, "threshold": threshold,
+                "hash_seed_fixed": sp.hash_seed != hashing.DEFAULT_SEED,
+                "pairs_sketched": int(pair_buckets.shape[1]),
+                "chunks": int(n_chunks),
+                "buckets_populated": populated,
+                "buckets_selected": int(keep_mask.sum()),
+                "universe_keys": int(len(uniq_keys)),
+                "candidates": len(candidates),
+                "candidate_mass_estimate_max": (int(cand_est.max())
+                                                if len(cand_est) else 0),
+            })
 
         self.timings = {
-            "sketch_hash_s": t_hash,
-            "sketch_bound_s": t_bound,
-            "sketch_accumulate_s": t_acc,
-            "sketch_select_s": t_select,
+            "sketch_hash_s": tr.total("sketch.hash"),
+            "sketch_bound_s": tr.total("sketch.bound"),
+            "sketch_accumulate_s": tr.total("sketch.accumulate"),
+            "sketch_select_s": tr.total("sketch.select"),
             "sketch_chunks": n_chunks,
             "sketch_candidates": len(candidates),
         }
@@ -388,6 +421,7 @@ class LazySketchFirstResult:
             # Nothing cleared DP selection: release nothing. The inner
             # result stays unexecuted (its registered budget was spent
             # by the accountant split regardless — conservative).
+            obs.event("sketch.empty_selection")
             return []
 
         # Phase 2: the exact dense path over ONLY the candidates. The

@@ -13,17 +13,16 @@ validation and defaults. The fields split into two tiers:
   batch sizing of the bounded-pair stream; the sketch is a sum, so
   chunking is associativity-exact).
 
-Fields left ``None`` resolve in this order: the explicit parameter, then
-the environment (``PIPELINEDP_TPU_SKETCH_WIDTH``, ``_DEPTH``,
-``_CANDIDATE_CAP``, ``_BACKEND``), then the cold-start defaults of the
-JAX package's knob registry. The port has no planner, so no plan file
-takes part.
+Fields left ``None`` resolve through the knob registry
+(``plan/knobs.py``): the explicit parameter first, then the environment
+(``PIPELINEDP_TPU_SKETCH_WIDTH``, ``_DEPTH``, ``_CANDIDATE_CAP``,
+``_BACKEND``) or a plan file (``sketch_backend`` only: the other three are
+not dp-safe), then the registry's defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional
 
 from pipelinedp_tpu_torch.sketch import hashing
@@ -32,31 +31,7 @@ from pipelinedp_tpu_torch.sketch import hashing
 #: 256-wide low digit; widths round up to this multiple on device.
 WIDTH_MULTIPLE = 256
 
-#: knob name -> (environment variable, type, default).
-_KNOBS = {
-    "sketch_width": ("PIPELINEDP_TPU_SKETCH_WIDTH", int, 1 << 16),
-    "sketch_depth": ("PIPELINEDP_TPU_SKETCH_DEPTH", int, 2),
-    "sketch_candidate_cap": ("PIPELINEDP_TPU_SKETCH_CANDIDATE_CAP", int,
-                             4096),
-    "sketch_backend": ("PIPELINEDP_TPU_SKETCH_BACKEND", str, "matmul"),
-}
-
 _BACKENDS = ("matmul", "xla")
-
-
-def knob_value(name: str):
-    """The environment's value of a sketch knob, else its default. An
-    unknown backend name resolves to the default, as the JAX package's
-    registry resolves an enumerated knob."""
-    env_var, kind, default = _KNOBS[name]
-    raw = os.environ.get(env_var)
-    if raw is None or raw == "":
-        return default
-    if kind is str:
-        v = str(raw).strip().lower()
-        return v if v in _BACKENDS else default
-    return int(raw)
-
 
 @dataclasses.dataclass(frozen=True)
 class SketchParams:
@@ -133,7 +108,8 @@ class SketchParams:
     def _knob(self, explicit, knob_name: str):
         if explicit is not None:
             return explicit
-        return knob_value(knob_name)
+        from pipelinedp_tpu_torch import plan as plan_mod
+        return plan_mod.knob_value(knob_name)
 
     def resolved_width(self) -> int:
         w = int(self._knob(self.width, "sketch_width"))

@@ -50,52 +50,46 @@ device, wait for multi-GPU (ROADMAP step 5).
 from __future__ import annotations
 
 import dataclasses
-import os
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pipelinedp_tpu_torch import ingest
+from pipelinedp_tpu_torch import ingest, obs
+from pipelinedp_tpu_torch import plan as plan_mod
+from pipelinedp_tpu_torch.obs import costs
 from pipelinedp_tpu_torch import torch_engine as te
 from pipelinedp_tpu_torch.ops import prng
 from pipelinedp_tpu_torch.ops import quantile_tree
 from pipelinedp_tpu_torch.resilience import checkpoint as ckpt_mod
 from pipelinedp_tpu_torch.resilience import faults
 
-#: Rows per batch, and the engine's trigger to stream, when
-#: ``PIPELINEDP_TPU_STREAM_CHUNK`` is unset (the JAX package's
-#: ``stream_chunk_rows`` knob). Batch membership decides which rows a
-#: unit's bounding sees, so it changes released values.
-_CHUNK_ENV = "PIPELINEDP_TPU_STREAM_CHUNK"
-_STREAM_CHUNK_ROWS = 1 << 26
-
-#: Device bytes the pass-B cache may keep when ``PIPELINEDP_TPU_STREAM_CACHE``
-#: is unset (the JAX package's ``stream_cache_bytes`` knob); 0 disables it.
-#: The three pass-B sources are bit-identical, so it trades device memory
-#: for host-to-device traffic only.
-_CACHE_ENV = "PIPELINEDP_TPU_STREAM_CACHE"
-_STREAM_CACHE_BYTES = 4 << 30
-
-#: Folds between two checkpoint writes (default 1).
-_CKPT_EVERY_ENV = "PIPELINEDP_TPU_CKPT_EVERY"
-
 #: The int32 guards: privacy units per partition at selection time, and
-#: kept rows per partition in the streamed tree histograms. Seams, so
-#: tests can pin each cliff.
+#: kept rows per partition in the streamed tree histograms (the
+#: ``select_units_cap`` and ``tree_rows_cap`` knobs' seams, so tests can
+#: pin each cliff).
 _SELECT_UNITS_CAP = int(np.iinfo(np.int32).max)
 _TREE_ROWS_CAP = int(np.iinfo(np.int32).max)
 
+#: Pass-B quantiles-per-tile pin (the ``q_chunk`` knob's seam): 0 lets
+#: ``plan_pass_b_sweeps`` search.
+_Q_CHUNK = 0
+
 
 def stream_chunk_rows() -> int:
-    raw = os.environ.get(_CHUNK_ENV)
-    return int(raw) if raw else int(_STREAM_CHUNK_ROWS)
+    """Rows per batch, and the engine's trigger to stream: the
+    ``stream_chunk_rows`` knob (``PIPELINEDP_TPU_STREAM_CHUNK``). Batch
+    membership decides which rows a unit's bounding sees, so it changes
+    released values and a plan never moves it."""
+    return int(plan_mod.knob_value("stream_chunk_rows"))
 
 
 def stream_cache_bytes() -> int:
-    raw = os.environ.get(_CACHE_ENV)
-    return int(raw) if raw else int(_STREAM_CACHE_BYTES)
+    """Device bytes the pass-B cache may keep: the ``stream_cache_bytes``
+    knob (``PIPELINEDP_TPU_STREAM_CACHE``, 4 GiB by default; 0 disables).
+    The three pass-B sources are bit-identical, so it trades device
+    memory for host-to-device traffic only."""
+    return int(plan_mod.knob_value("stream_cache_bytes"))
 
 
 def chunk_target_rows(config) -> int:
@@ -243,6 +237,9 @@ def plan_pass_b_sweeps(P_pad, Q, span, cap, q_chunk=0) -> PassBPlan:
             if best is None or key < best[0]:
                 best = (key, qc, pb, t_full)
     if best is None and q_chunk:
+        # An infeasible pin falls back to the search, visibly.
+        obs.event("plan.q_chunk_infeasible", q_chunk=int(q_chunk),
+                  P_pad=int(P_pad), Q=int(Q), cap=int(cap))
         return plan_pass_b_sweeps(P_pad, Q, span, cap)
     _, qc, pb, t_full = best
     tiles = tuple((q0, min(qc, Q - q0), p0)
@@ -274,7 +271,7 @@ class _Staging:
     fetched; without a ring (a CPU run that feeds the pass-B cache, which
     keeps what it ships) every batch gets fresh buffers."""
 
-    def __init__(self, config, encoded, order, batch_rows, device):
+    def __init__(self, config, encoded, order, batch_rows, device, tracer):
         self.config = config
         self.encoded = encoded
         self.order = order
@@ -285,8 +282,14 @@ class _Staging:
         self.copy_stream = (torch.cuda.Stream(device) if self.on_card
                             else None)
         self._sets: Dict[int, Tuple] = {}
-        self.stage_s = 0.0        # summed over both passes
+        self.tracer = tracer
         self.reship_bytes = 0     # pass-B host->device bytes
+
+    @property
+    def stage_s(self) -> float:
+        """Seconds staging both passes' batches: the ``ingest.stage``
+        spans' total."""
+        return self.tracer.total("ingest.stage")
 
     def _alloc(self):
         vshape = ((self.max_rows, self.config.vector_size)
@@ -321,37 +324,46 @@ class _Staging:
                 # Blocks until the set staged two batches ago has had its
                 # outputs fetched; aborts promptly on teardown.
                 ring.acquire(cancelled)
-            t0 = time.perf_counter()
-            if ring is None:
-                bufs = self._alloc()
-            else:
-                slot = staged % ring.n_slots
-                if slot not in self._sets:
-                    self._sets[slot] = self._alloc()
-                bufs = self._sets[slot]
-            staged += 1
-            host = [buf[:cnt] for buf in bufs if buf is not None]
-            sources = [enc.pid, enc.pk] + (
-                [enc.values] if self.config.needs_values else [])
-            for dst, src in zip(host, sources):
-                if self.order is None:
-                    dst.numpy()[...] = src[rows]
+            with self.tracer.span("ingest.stage", cat="ingest", batch=b):
+                if ring is None:
+                    bufs = self._alloc()
                 else:
-                    np.take(src, rows, axis=0, out=dst.numpy(),
-                            mode="clip")
-            ready = None
-            if self.on_card:
-                with torch.cuda.device(self.device), \
-                        torch.cuda.stream(self.copy_stream):
-                    dev = [h.to(self.device, non_blocking=True)
-                           for h in host]
-                    ready = torch.cuda.Event()
-                    ready.record(self.copy_stream)
-            else:
-                dev = host
-            if track_reship:
-                self.reship_bytes += sum(int(h.nbytes) for h in host)
-            self.stage_s += time.perf_counter() - t0
+                    slot = staged % ring.n_slots
+                    if slot not in self._sets:
+                        self._sets[slot] = self._alloc()
+                    bufs = self._sets[slot]
+                staged += 1
+                host = [buf[:cnt] for buf in bufs if buf is not None]
+                sources = [enc.pid, enc.pk] + (
+                    [enc.values] if self.config.needs_values else [])
+                for dst, src in zip(host, sources):
+                    if self.order is None:
+                        dst.numpy()[...] = src[rows]
+                    else:
+                        np.take(src, rows, axis=0, out=dst.numpy(),
+                                mode="clip")
+                ready = None
+                if self.on_card:
+                    with torch.cuda.device(self.device), \
+                            torch.cuda.stream(self.copy_stream):
+                        dev = [h.to(self.device, non_blocking=True)
+                               for h in host]
+                        ready = torch.cuda.Event()
+                        ready.record(self.copy_stream)
+                else:
+                    dev = host
+                obs.inc("ingest.batches_staged")
+                if track_reship:
+                    # The host-to-device bytes this sweep pays past the cached
+                    # prefix: what the pass-B cache exists to shrink.
+                    nb = sum(int(h.nbytes) for h in host)
+                    self.reship_bytes += nb
+                    obs.inc("stream.pass_b_reshipped_bytes", nb)
+                else:
+                    # Heartbeat progress toward pass A's plan; pass-B
+                    # re-ships are counted by the sweep counters instead.
+                    obs.inc("progress.batches_staged")
+                    obs.inc("progress.rows_staged", cnt)
             values = dev[2] if self.config.needs_values else None
             yield b, dev[0], dev[1], values, ready
 
@@ -428,8 +440,20 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     store. It needs a fixed ``rng_seed``; a checkpoint of another run
     raises ``CheckpointMismatch``."""
     device = torch.device(device)
-    use_executor = (ingest.executor_enabled() if executor is None
-                    else bool(executor))
+    # The run's span tracer: phase totals always accumulate (the stats
+    # below are views over them); full spans reach the ledger under
+    # PIPELINEDP_TPU_TRACE.
+    tr = obs.run_tracer()
+    obs.monitor.maybe_start()
+    # The execution planner: the full knob vector for this request's
+    # shape (env > seam > plan file > default), recorded as one
+    # plan.applied event per knob. A plan moves only dp-safe knobs.
+    knob_plan = plan_mod.resolve(
+        shape={"rows": int(encoded.n_rows),
+               "partitions": len(encoded.pk_vocab),
+               "quantiles": len(config.percentiles or ())})
+    use_executor = (bool(knob_plan.values["ingest_executor"])
+                    if executor is None else bool(executor))
     P_pad = te._pad_pow2(len(encoded.pk_vocab))
     n = encoded.n_rows
     chunk = chunk_target_rows(config)
@@ -440,8 +464,23 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     k_bound, k_sel, k_noise = prng.split(prng.PRNGKey(seed), 3)
     _, _, n_mid, span = quantile_tree.tree_constants()
     if config.percentiles:
-        plan = plan_pass_b_sweeps(P_pad, len(config.percentiles), span,
-                                  te._subhist_byte_cap())
+        subhist_cap = int(knob_plan.values["subhist_byte_cap"])
+        try:
+            plan = plan_pass_b_sweeps(
+                P_pad, len(config.percentiles), span, subhist_cap,
+                q_chunk=int(knob_plan.values["q_chunk"]))
+        except NotImplementedError:
+            obs.inc("walk.path_streamed_refusal")
+            obs.event("walk.fallback", path="streamed_refusal",
+                      span_bytes=span * 4, cap=subhist_cap)
+            raise
+        if plan.chunked:
+            obs.inc("walk.path_partition_block_chunked")
+            obs.event("walk.fallback", path="partition_block_chunked",
+                      p_blk=int(plan.p_blk), q_chunk=int(plan.q_chunk),
+                      P_pad=int(P_pad), tiles=plan.n_tiles,
+                      tiles_per_sweep=plan.tiles_per_sweep,
+                      sweeps=plan.n_sweeps)
     ckpt_store = ckpt_mod.as_store(checkpoint)
     if ckpt_store is not None and rng_seed is None:
         raise ValueError(
@@ -480,10 +519,11 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     start_batch = 0
     ckpt_fp = None
     if ckpt_store is not None:
-        ckpt_fp = ckpt_mod.run_fingerprint(
-            config, n, n_batches, seed, P_pad, fx_bits,
-            data=ckpt_mod.data_digest(encoded))
-        saved = ckpt_store.load_for(ckpt_fp)
+        with tr.span("ckpt.restore", cat="checkpoint"):
+            ckpt_fp = ckpt_mod.run_fingerprint(
+                config, n, n_batches, seed, P_pad, fx_bits,
+                data=ckpt_mod.data_digest(encoded))
+            saved = ckpt_store.load_for(ckpt_fp)
         if saved is not None:
             start_batch = saved.next_batch
             for name in acc:
@@ -497,22 +537,30 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     # The pass-B device cache. A resumed run never caches: the skipped
     # prefix is absent, so a partial cache would drop those rows from
     # pass B.
-    cache_cap = stream_cache_bytes() if cache_bytes is None else int(
-        cache_bytes)
+    cache_cap = (int(knob_plan.values["stream_cache_bytes"])
+                 if cache_bytes is None else int(cache_bytes))
     cache: Optional[list] = ([] if config.percentiles and start_batch == 0
                              and cache_cap > 0 else None)
     cache_used = 0
     cache_frozen = False
     cache_upto = 0  # the first batch past the cached prefix
-    staging = _Staging(config, encoded, order, batch_rows, device)
+    staging = _Staging(config, encoded, order, batch_rows, device, tr)
     # On the CPU a cached batch's tensors are the staging buffers, so a
     # run that feeds the cache stages into fresh buffers; on the card the
     # cache keeps device copies and the ring's pinned sets rotate.
     ring = (None if cache is not None and device.type == "cpu"
             else ingest.StagingRing(2))
-    t_fetch = t_fold = 0.0
     n_saves = 0
-    ckpt_every = max(1, int(os.environ.get(_CKPT_EVERY_ENV) or 1))
+    ckpt_every = plan_mod.knobs.checkpoint_every()
+    obs.inc("ingest.streamed_runs")
+    # Only the rows this run stages: a resume skips the folded prefix.
+    obs.inc("ingest.rows_ingested", int(batch_rows[start_batch:].sum()))
+    obs.inc("progress.batches_planned",
+            int((batch_rows[start_batch:] > 0).sum()))
+    if config.percentiles:
+        obs.inc("progress.sweeps_planned", plan.n_sweeps)
+    obs.inc("ingest.executor_overlapped" if use_executor
+            else "ingest.executor_serial")
 
     def fold_host(host, vec):
         """Folds one batch's fetched [C+1, P] block (and VECTOR_SUM's
@@ -537,14 +585,15 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
 
     def save_ckpt(next_batch):
         nonlocal n_saves
-        arrays = {f"acc:{k}": v for k, v in acc.items()}
-        arrays.update({f"val:{k}": v for k, v in val_acc.items()})
-        if vec_acc is not None:
-            arrays["vec"] = vec_acc
-        if mid_acc is not None:
-            arrays["mid"] = mid_acc.cpu().numpy()
-        ckpt_store.save(ckpt_mod.StreamCheckpoint(ckpt_fp, next_batch,
-                                                  arrays))
+        with tr.span("ckpt.save", cat="checkpoint", next_batch=next_batch):
+            arrays = {f"acc:{k}": v for k, v in acc.items()}
+            arrays.update({f"val:{k}": v for k, v in val_acc.items()})
+            if vec_acc is not None:
+                arrays["vec"] = vec_acc
+            if mid_acc is not None:
+                arrays["mid"] = mid_acc.cpu().numpy()
+            ckpt_store.save(ckpt_mod.StreamCheckpoint(ckpt_fp, next_batch,
+                                                      arrays))
         n_saves += 1
 
     def fold_item(item):
@@ -553,19 +602,17 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         launch) or on the executor's fold worker. The mid histogram adds
         at fold time, so a checkpoint after batch j holds no later
         batch's histogram."""
-        nonlocal mid_acc, t_fetch, t_fold
+        nonlocal mid_acc
         b, host, vec, done, mid = item
-        t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()
-        if ring is not None:
-            ring.retire()
-        t1 = time.perf_counter()
-        fold_host(host.numpy(), None if vec is None else vec.numpy())
-        if mid is not None:
-            mid_acc = mid if mid_acc is None else mid_acc.add_(mid)
-        t_fetch += t1 - t0
-        t_fold += time.perf_counter() - t1
+        with tr.span("ingest.fetch", cat="ingest", batch=b):
+            if done is not None:
+                done.synchronize()
+            if ring is not None:
+                ring.retire()
+        with tr.span("ingest.fold", cat="ingest", batch=b):
+            fold_host(host.numpy(), None if vec is None else vec.numpy())
+            if mid is not None:
+                mid_acc = mid if mid_acc is None else mid_acc.add_(mid)
         if ckpt_store is not None and (b + 1) % ckpt_every == 0:
             save_ckpt(b + 1)
 
@@ -577,10 +624,11 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         b, pid, pk, values, _ = item
         faults.check_chunk(b)
         staging.ready_on_compute(item)
-        part, nseg, qrows = te._partials(config, P_pad, pid, pk, values,
-                                         prng.fold_in(k_bound, b), fx_bits)
+        with obs.device_annotation("pdp.stream_partials"):
+            part, nseg, mid = _batch_partials(
+                config, P_pad, pid, pk, values, prng.fold_in(k_bound, b),
+                fx_bits)
         packed = torch.stack([part[k] for k in names] + [nseg])
-        mid = te._mid_histogram(P_pad, qrows) if config.percentiles else None
         (host, vec), done = _start_fetch([packed, part.get("vector_sum")],
                                          device)
         if cache is not None and not cache_frozen:
@@ -594,47 +642,57 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                 # Overflow freezes the cache: the resident prefix keeps
                 # serving pass B and only the suffix re-ships.
                 cache_frozen = True
+                obs.inc("stream.cache_overflow")
+                obs.event("stream.cache_overflow",
+                          cache_bytes=int(cache_used + nbytes),
+                          cap=int(cache_cap), prefix_batches=len(cache))
         return b, host, vec, done, mid
 
-    t_loop0 = time.perf_counter()
-    if use_executor:
-        # Overlapped pass A: the stager prepares batch b+1 while the
-        # device computes batch b and the fold worker drains finished
-        # batches. Any failure cancels both workers and joins them before
-        # it propagates, so the checkpoint on disk is a clean prefix.
-        folder = ingest.OrderedFoldWorker(fold_item, depth=2)
-        try:
-            with ingest.BackgroundStager(
-                    lambda cancelled: staging.batches(start_batch, cancelled,
-                                                      ring),
-                    depth=1, name="stager-a") as stager:
-                for item in stager.items(poll=folder.raise_if_failed):
-                    folder.submit(launch(item))
-            folder.finish()
-        except BaseException:
-            folder.cancel()
-            raise
-    else:
-        # Serial pass A: fold one batch late, so batch b's copy and work
-        # are in flight while batch b-1's fetch waits.
-        pending = None
-        try:
-            for item in staging.batches(start_batch, ring=ring):
-                out = launch(item)
-                if pending is not None:
-                    fold_item(pending)
-                pending = out
-        except faults.FaultInjected:
-            # Let the previous batch's work finish before propagating;
-            # its result is not folded, so the checkpoint stays a clean
-            # prefix.
-            if pending is not None and pending[3] is not None:
-                pending[3].synchronize()
-            raise
-        if pending is not None:
-            fold_item(pending)
-    t_loop = time.perf_counter() - t_loop0
-    t_stage = staging.stage_s
+    with tr.span("ingest.pass_a", cat="ingest", n_batches=n_batches,
+                 executor="overlapped" if use_executor
+                 else "serial") as pass_a:
+        if use_executor:
+            # Overlapped pass A: the stager prepares batch b+1 while the
+            # device computes batch b and the fold worker drains finished
+            # batches. Any failure cancels both workers and joins them before
+            # it propagates, so the checkpoint on disk is a clean prefix.
+            folder = ingest.OrderedFoldWorker(fold_item, depth=2)
+            try:
+                with ingest.BackgroundStager(
+                        lambda cancelled: staging.batches(
+                            start_batch, cancelled, ring),
+                        depth=1, name="stager-a") as stager:
+                    for item in stager.items(poll=folder.raise_if_failed):
+                        folder.submit(launch(item))
+                folder.finish()
+            except BaseException:
+                folder.cancel()
+                raise
+        else:
+            # Serial pass A: fold one batch late, so batch b's copy and work
+            # are in flight while batch b-1's fetch waits.
+            pending = None
+            try:
+                for item in staging.batches(start_batch, ring=ring):
+                    out = launch(item)
+                    if pending is not None:
+                        fold_item(pending)
+                    pending = out
+            except faults.FaultInjected:
+                # Let the previous batch's work finish before propagating;
+                # its result is not folded, so the checkpoint stays a clean
+                # prefix.
+                if pending is not None and pending[3] is not None:
+                    pending[3].synchronize()
+                raise
+            if pending is not None:
+                fold_item(pending)
+    # The stats below are views over the run tracer's spans: staging,
+    # waiting for batch outputs and folding, against pass A's wall.
+    t_loop = pass_a.duration
+    t_stage = tr.total("ingest.stage")
+    t_fetch = tr.total("ingest.fetch")
+    t_fold = tr.total("ingest.fold")
     busy_a = t_stage + t_fetch + t_fold
 
     part64: Dict[str, np.ndarray] = dict(acc)
@@ -650,16 +708,20 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         keep = np.ones(P_pad, bool)
     else:
         nseg = acc["privacy_id_count_raw"]
-        if nseg.max(initial=0) >= _SELECT_UNITS_CAP:
+        if nseg.max(initial=0) >= int(
+                knob_plan.values["select_units_cap"]):
             raise NotImplementedError(
                 "more than 2^31 privacy units in one partition")
         # Selection never reads the walk: strip the percentiles.
         sel_config = dataclasses.replace(config, percentiles=())
-        keep_t, _ = te._selection_and_metrics(
-            sel_config, P_pad, {}, torch.from_numpy(
-                nseg.astype(np.int32)).to(device), keep_table, sel_threshold,
-            sel_scale, sel_min_count, sel_rows_per_uid, k_sel)
-        keep = keep_t.cpu().numpy()
+        with tr.span("ingest.select", cat="ingest"), \
+                obs.device_annotation("pdp.partition_select"):
+            keep = _select(sel_config, P_pad, torch.from_numpy(
+                nseg.astype(np.int32)).to(device), keep_table,
+                sel_threshold, sel_scale, sel_min_count, sel_rows_per_uid,
+                k_sel)
+        te._record_selection_audit(config.selection, int((nseg > 0).sum()),
+                                   int(keep.sum()), "streamed")
     stats = {"n_batches": n_batches, "chunk_rows": chunk, "fx_bits": fx_bits,
              "max_batch_rows": max_rows, "t_stage": t_stage,
              "t_device": t_fetch, "t_fold": t_fold, "t_total": t_loop,
@@ -673,9 +735,14 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     if config.percentiles:
         stats.update(_pass_b(config, plan, P_pad, acc, mid_acc, scales,
                              k_bound, k_noise, cache, cache_frozen,
-                             cache_upto, staging,
-                             use_executor, device))
+                             cache_upto, staging, use_executor, device,
+                             tr, int(knob_plan.values["tree_rows_cap"])))
     stats["stage_s"] = staging.stage_s
+    plan_mod.note_observed("pass_a", t_loop)
+    if config.percentiles:
+        plan_mod.note_observed("pass_b", tr.total("ingest.pass_b_sweep"))
+        plan_mod.note_observed("walk", tr.total("walk.top") +
+                               tr.total("walk.bottom"))
     if ckpt_store is not None:
         # The run released its outputs: a later run on this path must not
         # resume a finished one.
@@ -685,7 +752,7 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
 
 def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
             cache, cache_frozen, cache_upto, staging, use_executor,
-            device) -> Dict:
+            device, tr, tree_rows_cap) -> Dict:
     """The percentile walk's second pass: the top levels walk on the
     summed mid histogram, then each sweep of the plan streams the batches
     (the cached prefix from the device, the rest re-shipped) into its
@@ -694,29 +761,33 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
     _, _, n_mid, span = quantile_tree.tree_constants()
     # The histograms accumulate in device int32, so a partition with 2^31
     # kept rows would wrap a bucket: guard on the host counts.
-    if int(acc["count"].max(initial=0)) >= _TREE_ROWS_CAP:
+    if int(acc["count"].max(initial=0)) >= tree_rows_cap:
         raise NotImplementedError(
             "streamed percentiles: a partition holds >= 2^31 kept rows — "
             "beyond the int32 tree-histogram capacity")
     k_tree = prng.fold_in(k_noise, 0x7ee)
     scale = float(np.asarray(scales, np.float32)[-1])
-    lo, hi, target, leaf_lo, done = te._walk_top(
-        config, P_pad, mid_acc.reshape(P_pad, n_mid), k_tree, scale)
+    with tr.span("walk.top", cat="walk"), \
+            obs.device_annotation("pdp.walk_top"):
+        lo, hi, target, leaf_lo, done = _walk_top(
+            config, P_pad, mid_acc.reshape(P_pad, n_mid), k_tree, scale)
     del mid_acc
     prefix = cache or []
     complete = cache is not None and not cache_frozen
     Q = len(config.percentiles)
     vals = torch.empty(P_pad, Q, dtype=torch.float32, device=device)
-    t0 = time.perf_counter()
 
     def run_sweep(consume):
         """One traversal of the batch stream: the cached prefix, then, past
         it, the re-shipped batches through a ring of buffer sets (on the
         executor's stager when it is on)."""
+        if prefix:
+            obs.inc("stream.pass_b_cache_hit_batches", len(prefix))
         for item in prefix:
             consume(item, None)
         if complete:
             return
+        obs.inc("stream.pass_b_reship_rounds")
         ring_b = ingest.StagingRing(2)
         if use_executor:
             with ingest.BackgroundStager(
@@ -732,37 +803,15 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
                 consume(item, ring_b)
 
     for sweep in plan.sweeps:
-        qn, p0_s = sweep[0][1], sweep[0][2]
+        q0_s, qn, p0_s = sweep[0]
         Pb = min(plan.p_blk, P_pad - p0_s)
-        starts = torch.stack([leaf_lo[p0:p0 + Pb, q0:q0 + qn]
-                              for q0, _, p0 in sweep]).contiguous()
-        p_offs = torch.tensor([p0 for _, _, p0 in sweep], dtype=torch.int32,
-                              device=device)
-        sub = torch.zeros(len(sweep), Pb, qn, span, dtype=torch.int32,
-                          device=device)
-
-        def consume(item, ring_b, starts=starts, p_offs=p_offs, Pb=Pb,
-                    sub=sub):
-            b, pid, pk, values, _ = item
-            faults.check_pass_b_chunk(b)
-            staging.ready_on_compute(item)
-            qpk, leaf, kept = te._bounded_qrows(
-                config, pid, pk, values, prng.fold_in(k_bound, b))
-            te._subtree_counts_multi(qpk, leaf, kept, starts, p_offs, Pb,
-                                     span, out=sub)
-            if ring_b is not None:
-                # The batch's buffers are free once its work has run.
-                _wait_compute(device)
-                ring_b.retire()
-
-        run_sweep(consume)
-        for ti, (q0, _, p0) in enumerate(sweep):
-            psl, qsl = slice(p0, p0 + Pb), slice(q0, q0 + qn)
-            vals[psl, qsl] = te._walk_bottom(
-                config, Pb, sub[ti], starts[ti], lo[psl, qsl], hi[psl, qsl],
-                target[psl, qsl], leaf_lo[psl, qsl], done[psl, qsl], k_tree,
-                scale, p0)
-        del sub
+        with tr.span("ingest.pass_b_sweep", cat="ingest", tiles=len(sweep),
+                     q0=q0_s, p0=p0_s):
+            vals = _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo,
+                                 hi, target, done, k_bound, k_tree, scale,
+                                 staging, run_sweep, device, vals, tr)
+        obs.inc("stream.pass_b_stream_sweeps")
+        obs.inc("stream.pass_b_tiles", len(sweep))
     # The monotone step runs once over the full quantile list.
     quantiles = np.asarray([p / 100.0 for p in config.percentiles],
                            np.float32)
@@ -774,4 +823,74 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
             "pass_b_tiles_per_sweep": plan.tiles_per_sweep,
             "pass_b_cached_batches": len(prefix),
             "pass_b_reshipped_bytes": staging.reship_bytes,
-            "pass_b_sweep_s": time.perf_counter() - t0}
+            "pass_b_sweep_s": tr.total("ingest.pass_b_sweep")}
+
+
+def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
+                  done, k_bound, k_tree, scale, staging, run_sweep, device,
+                  vals, tr):
+    """One sweep of the plan: streams the batches into the sweep's packed
+    [T, Pb, Qc, span] subtree histograms, then walks the bottom levels
+    per tile into ``vals``."""
+    starts = torch.stack([leaf_lo[p0:p0 + Pb, q0:q0 + qn]
+                          for q0, _, p0 in sweep]).contiguous()
+    p_offs = torch.tensor([p0 for _, _, p0 in sweep], dtype=torch.int32,
+                          device=device)
+    sub = torch.zeros(len(sweep), Pb, qn, span, dtype=torch.int32,
+                      device=device)
+
+    def consume(item, ring_b):
+        b, pid, pk, values, _ = item
+        faults.check_pass_b_chunk(b)
+        staging.ready_on_compute(item)
+        with obs.device_annotation("pdp.stream_pass_b"):
+            _sweep_batch(config, pid, pk, values, prng.fold_in(k_bound, b),
+                         starts, p_offs, Pb, span, sub)
+        if ring_b is not None:
+            # The batch's buffers are free once its work has run.
+            _wait_compute(device)
+            ring_b.retire()
+
+    run_sweep(consume)
+    for ti, (q0, _, p0) in enumerate(sweep):
+        psl, qsl = slice(p0, p0 + Pb), slice(q0, q0 + qn)
+        with tr.span("walk.bottom", cat="walk", p0=p0, q0=q0), \
+                obs.device_annotation("pdp.walk_bottom"):
+            vals[psl, qsl] = _walk_bottom(
+                config, Pb, sub[ti], starts[ti], lo[psl, qsl],
+                hi[psl, qsl], target[psl, qsl], leaf_lo[psl, qsl],
+                done[psl, qsl], k_tree, scale, p0)
+    return vals
+
+
+@costs.instrumented(phase="pass_a")
+def _batch_partials(config, P_pad, pid, pk, values, key, fx_bits):
+    """One batch's pass-A device work: its partials and, with
+    percentiles, its [P, 256] mid histogram."""
+    part, nseg, qrows = te._partials(config, P_pad, pid, pk, values, key,
+                                     fx_bits)
+    mid = te._mid_histogram(P_pad, qrows) if config.percentiles else None
+    return part, nseg, mid
+
+
+@costs.instrumented(phase="select")
+def _select(config, P_pad, nseg, keep_table, threshold, scale, min_count,
+            rows_per_uid, key) -> np.ndarray:
+    """The streamed partition selection over the combined counts."""
+    keep, _ = te._selection_and_metrics(config, P_pad, {}, nseg, keep_table,
+                                        threshold, scale, min_count,
+                                        rows_per_uid, key)
+    return keep.cpu().numpy()
+
+
+@costs.instrumented(phase="pass_b")
+def _sweep_batch(config, pid, pk, values, key, starts, p_offs, Pb, span,
+                 sub) -> None:
+    """One batch of a pass-B sweep, added into the sweep's histograms."""
+    qpk, leaf, kept = te._bounded_qrows(config, pid, pk, values, key)
+    te._subtree_counts_multi(qpk, leaf, kept, starts, p_offs, Pb, span,
+                             out=sub)
+
+
+_walk_top = costs.instrumented(te._walk_top, phase="walk")
+_walk_bottom = costs.instrumented(te._walk_bottom, phase="walk")

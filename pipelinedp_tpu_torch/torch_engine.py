@@ -68,19 +68,19 @@ from __future__ import annotations
 
 import dataclasses
 import operator
-import os
-import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from pipelinedp_tpu_torch import dp_computations, native
+from pipelinedp_tpu_torch import dp_computations, native, obs
+from pipelinedp_tpu_torch import plan as plan_mod
 from pipelinedp_tpu_torch.aggregate_params import (AggregateParams,
                                                    MechanismType, NoiseKind,
                                                    NormKind,
                                                    PartitionSelectionStrategy)
 from pipelinedp_tpu_torch.combiners import _create_named_tuple_instance
+from pipelinedp_tpu_torch.obs import costs
 from pipelinedp_tpu_torch.ops import counter_rng
 from pipelinedp_tpu_torch.ops import noise as noise_ops
 from pipelinedp_tpu_torch.ops import partition_selection as ps_ops
@@ -90,21 +90,16 @@ from pipelinedp_tpu_torch.ops import segment as seg_ops
 from pipelinedp_tpu_torch.ops import vector_noise
 from pipelinedp_tpu_torch.ops.kernels import hist, segsum, segtotal
 
-#: VECTOR_SUM's accumulator when ``PIPELINEDP_TPU_VECTOR_ACCUMULATOR`` is
-#: unset: the module seam of the JAX package's ``vector_accumulator`` knob
-#: ("f32" or "fx"). The knob is not dp-safe (the two release different
-#: floats), so nothing but the environment and this seam sets it.
+#: VECTOR_SUM's accumulator, "f32" or "fx": the module seam of the
+#: ``vector_accumulator`` knob (``plan/knobs.py``). The knob is not dp-safe
+#: (the two release different floats), so a plan never sets it.
 _VECTOR_ACCUMULATOR = "f32"
-_VECTOR_ACCUMULATOR_ENV = "PIPELINEDP_TPU_VECTOR_ACCUMULATOR"
-_VECTOR_ACCUMULATORS = ("f32", "fx")
 
 
 def _vector_accumulator() -> str:
-    """The knob's resolution in the JAX package: the environment, then the
-    seam, then "f32"; an unknown value resolves to "f32"."""
-    raw = os.environ.get(_VECTOR_ACCUMULATOR_ENV) or _VECTOR_ACCUMULATOR
-    value = str(raw).strip().lower()
-    return value if value in _VECTOR_ACCUMULATORS else "f32"
+    """The ``vector_accumulator`` knob: the environment, then the seam,
+    then "f32"; an unknown value resolves to "f32"."""
+    return str(plan_mod.knob_value("vector_accumulator"))
 
 
 def _pad_pow2(n: int, minimum: int = 8) -> int:
@@ -545,6 +540,7 @@ def put_on_device(encoded: EncodedData, device: torch.device,
 # ---------------------------------------------------------------------------
 
 
+@costs.instrumented(phase="engine")
 def _fused_body(config: FusedConfig, num_partitions: int, pid, pk, values,
                 noise_scales, keep_table, sel_threshold, sel_scale,
                 sel_min_count, sel_rows_per_uid, key, fx_bits: int):
@@ -984,20 +980,18 @@ def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
 # The percentile walk
 # ---------------------------------------------------------------------------
 
-#: Byte cap of one [Pb, Q, span] int32 subtree histogram when
-#: ``PIPELINEDP_TPU_SUBHIST_CAP`` is unset: the module seam of the JAX
-#: package's ``subhist_byte_cap`` knob. Above it the single-batch walk
-#: walks partition blocks in a host loop, and the streamed pass B tiles
-#: the (quantile x partition) grid; every blocking is bit-identical.
+#: Byte cap of one [Pb, Q, span] int32 subtree histogram: the module seam
+#: of the ``subhist_byte_cap`` knob (``plan/knobs.py``). Above it the
+#: single-batch walk walks partition blocks in a host loop, and the
+#: streamed pass B tiles the (quantile x partition) grid; every blocking
+#: is bit-identical.
 _SUBHIST_BYTE_CAP = 600 << 20
-_SUBHIST_CAP_ENV = "PIPELINEDP_TPU_SUBHIST_CAP"
 
 
 def _subhist_byte_cap() -> int:
-    """The knob's resolution in the JAX package: the environment, then the
-    seam."""
-    raw = os.environ.get(_SUBHIST_CAP_ENV)
-    return int(raw) if raw else int(_SUBHIST_BYTE_CAP)
+    """The ``subhist_byte_cap`` knob: the environment, then the seam, then
+    a plan file, then the default."""
+    return int(plan_mod.knob_value("subhist_byte_cap"))
 
 
 def _qrows(config: FusedConfig, pk, values, kept):
@@ -1279,6 +1273,14 @@ def _percentile_values(config: FusedConfig, P: int, qrows, scale, key):
     lo, hi, target, leaf_lo, done = _walk_top(config, P, mid, key, scale)
     del mid
     blk = _walk_blocks(P, Q, span)
+    if blk == P:
+        obs.inc("walk.path_subhist")
+        obs.event("walk.path", path="subhist", scope="run", P=int(P),
+                  Q=int(Q), span=int(span))
+    else:
+        obs.inc("walk.path_partition_block_chunked")
+        obs.event("walk.path", path="partition_block_chunked",
+                  scope="run", blk=int(blk), P=int(P))
     offset = torch.zeros(1, dtype=torch.int32, device=qpk.device)
     outs = []
     for p0 in range(0, P, blk):
@@ -1293,6 +1295,7 @@ def _percentile_values(config: FusedConfig, P: int, qrows, scale, key):
     return _monotone_in_q(torch.cat(outs, dim=0), quantiles)
 
 
+@costs.instrumented(phase="fetch")
 def _compact_fetch(keep_pk, cols, num_partitions: int, cap: int):
     """Output compaction on the device: a stable sort puts the kept
     partitions first (ascending pk index); the first ``cap`` of every
@@ -1536,6 +1539,83 @@ def _assemble_output(config: FusedConfig, vocab, metric_arrays, rel_sel,
     ]
 
 
+def _record_selection_audit(strategy, pre: int, post: int,
+                            path: str) -> None:
+    """The selection seam's audit counters: pre- and post-selection
+    partition counts and one structured event per selection, behind the
+    run report's ``privacy.partition_selection`` section. Gated on
+    ``PIPELINEDP_TPU_AUDIT``; host bookkeeping only — released values are
+    bit-identical on or off."""
+    if not obs.audit.audit_enabled():
+        return
+    obs.inc("selection.partitions_pre", int(pre))
+    obs.inc("selection.partitions_post", int(post))
+    obs.event("selection.applied", strategy=str(strategy.value),
+              pre=int(pre), post=int(post), path=path)
+
+
+def _audit_expected_errors(config: FusedConfig, specs, metric_arrays,
+                           rel_sel) -> None:
+    """Per-metric expected relative error into the audit registry: the
+    calibrated noise stddev (where the standard predictors apply) against
+    the mean |released aggregate|. Never raises."""
+    if not obs.audit.audit_enabled():
+        return
+    try:
+        names = set(config.metrics)
+        stds: Dict[str, float] = {}
+        if "VARIANCE" in names or "MEAN" in names:
+            # The combiner splits the granted budget evenly into its
+            # count / normalized-sum (/ sum-of-squares) sub-mechanisms;
+            # predict the count leg's noise at that per-sub share.
+            spec = specs["mean_var"]
+            k = 3 if "VARIANCE" in names else 2
+            sub = dataclasses.replace(
+                _release_noise_params(config, spec),
+                eps=spec.eps / k, delta=(spec.delta or 0.0) / k)
+            stds["count"] = dp_computations.compute_dp_count_noise_std(sub)
+        else:
+            if "COUNT" in names:
+                stds["count"] = dp_computations.compute_dp_count_noise_std(
+                    _release_noise_params(config, specs["count"]))
+            if "SUM" in names:
+                stds["sum"] = dp_computations.compute_dp_sum_noise_std(
+                    _release_noise_params(config, specs["sum"]))
+        if "PRIVACY_ID_COUNT" in names:
+            snp = _release_noise_params(config, specs["privacy_id_count"])
+            l0, linf = snp.pid_count_sensitivities()
+            stds["privacy_id_count"] = dp_computations._noise_std(
+                snp.eps, snp.delta, l0, linf, snp.noise_kind)
+        for field in _metric_field_order(config):
+            arr = metric_arrays.get(field)
+            if arr is None:
+                continue
+            arr = np.asarray(arr)
+            if arr.ndim != 1:
+                continue  # vector metrics: no scalar scale
+            released = arr[rel_sel] if len(rel_sel) else arr[:0]
+            scale = (float(np.mean(np.abs(released)))
+                     if released.size else None)
+            std = stds.get(field)
+            rec = {"metric": field, "noise_stddev": std,
+                   "aggregate_scale": scale,
+                   "partitions": int(released.size)}
+            if std is not None and scale:
+                rec["expected_relative_error"] = float(std / scale)
+            obs.audit.record_metric_error(rec)
+    except Exception:
+        pass  # an error estimate must never take the release down
+
+
+def _maybe_append_run_ledger(name: str = "engine.aggregate") -> None:
+    """A traced run persists its run report into the durable ledger store
+    (when a store directory resolves — ``obs.store.ledger_dir``). Each
+    append carries only this request's delta."""
+    if not obs.trace_enabled():
+        return
+    obs.store.maybe_append_run_report(name)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -1629,11 +1709,14 @@ class LazyFusedResult:
     def _execute(self):
         config = self._config
         params = self._params
-        t0 = time.perf_counter()
-        encoded = encode(self._rows, self._extractors, self._public,
-                         require_pid=not config.bounds_already_enforced,
-                         vector_size=config.vector_size)
-        self.timings = {"host_encode_s": time.perf_counter() - t0,
+        # The timing fields are views over the run tracer's "engine.*"
+        # span totals, as in the JAX package.
+        tr = obs.run_tracer()
+        with tr.span("engine.encode", cat="engine"):
+            encoded = encode(self._rows, self._extractors, self._public,
+                             require_pid=not config.bounds_already_enforced,
+                             vector_size=config.vector_size)
+        self.timings = {"host_encode_s": tr.total("engine.encode"),
                         "device_s": 0.0, "host_decode_s": 0.0}
         P = len(encoded.pk_vocab)
         if P == 0:
@@ -1657,8 +1740,45 @@ class LazyFusedResult:
         from pipelinedp_tpu_torch import streaming
         if streaming.should_stream(config, encoded.n_rows):
             return self._execute_streamed(encoded, scales, keep_table, thr,
-                                          s_scale, min_count, rows_per_uid)
-        t0 = time.perf_counter()
+                                          s_scale, min_count, rows_per_uid,
+                                          tr)
+        # The planner's resolution for this single-batch request (a
+        # streamed request resolves inside the stream): the plan.applied
+        # events exist for every request, and mid-request knob reads
+        # bucket at this request's shape.
+        plan_mod.resolve(
+            shape={"rows": int(encoded.n_rows), "partitions": int(P),
+                   "quantiles": len(config.percentiles or ())})
+        with tr.span("engine.device", cat="engine", path="single_batch"):
+            fetched, fx_bits, compact, kept_idx = self._run_device(
+                encoded, scales, keep_table, thr, s_scale, min_count,
+                rows_per_uid)
+        self.timings["device_s"] = tr.total("engine.device")
+        if config.selection is not None:
+            # Every vocab entry is a populated partition: P is the
+            # pre-selection count, the kept index set the post one.
+            _record_selection_audit(config.selection, P, len(kept_idx),
+                                    "single_batch")
+
+        # Only materialize kept partitions. In compact mode the released
+        # arrays already hold only kept rows.
+        if self._public is not None:
+            rel_sel = vocab_idx = np.arange(P)
+        elif compact:
+            rel_sel = np.arange(len(kept_idx))
+            vocab_idx = kept_idx
+        else:
+            rel_sel = vocab_idx = kept_idx
+        return self._finish_release(encoded, fetched, fx_bits, rel_sel,
+                                    vocab_idx)
+
+    def _run_device(self, encoded: EncodedData, scales, keep_table, thr,
+                    s_scale, min_count, rows_per_uid):
+        """The single-batch device path and its fetch, ended by a
+        synchronise on the card. Returns ``(fetched host columns, fx_bits,
+        compact, kept vocab indices)``."""
+        config = self._config
+        P = len(encoded.pk_vocab)
         keep_pk, raw, fx_bits = _run_fused(
             config, encoded, scales, keep_table, thr, s_scale, min_count,
             rows_per_uid, self._rng_seed, self._device)
@@ -1696,53 +1816,45 @@ class LazyFusedResult:
                 else:
                     fetched[name] = arr[:P].cpu().numpy()
         _sync(self._device)
-        self.timings["device_s"] = time.perf_counter() - t0
-
-        # Only materialize kept partitions. In compact mode the released
-        # arrays already hold only kept rows.
-        if self._public is not None:
-            rel_sel = vocab_idx = np.arange(P)
-        elif compact:
-            rel_sel = np.arange(len(kept_idx))
-            vocab_idx = kept_idx
-        else:
-            rel_sel = vocab_idx = kept_idx
-        return self._finish_release(encoded, fetched, fx_bits, rel_sel,
-                                    vocab_idx)
+        return fetched, fx_bits, compact, kept_idx
 
     def _finish_release(self, encoded: EncodedData, fetched, fx_bits: int,
                         rel_sel, vocab_idx):
         """The float64 release tail: integer columns stay integral (the
         release dispatches on dtype, as the host combiners do)."""
         config = self._config
-        t0 = time.perf_counter()
-        part64 = {k: (v.astype(np.int64) if v.dtype.kind in "iu" else
-                      v.astype(np.float64)) for k, v in fetched.items()}
-        _fold_fixedpoint(config, part64, fx_bits)
-        rng = (np.random.default_rng(self._rng_seed)
-               if self._rng_seed is not None else None)
-        # The vector noise is keyed by the global vocab index of each
-        # released row: ``vocab_idx`` when the released rows are the kept
-        # set (compact or public), arange in the full fetch, which
-        # releases every vocab row in order.
-        n_rel_rows = len(part64["count"])
-        row_vocab = (np.asarray(vocab_idx) if len(vocab_idx) == n_rel_rows
-                     else np.arange(n_rel_rows))
-        metric_arrays = _host_release(config, self._specs, part64,
-                                      part64["privacy_id_count_raw"], rng,
-                                      rng_seed=self._rng_seed,
-                                      pk_index=row_vocab,
-                                      device=self._device)
-        # The walk released the percentiles on the device, in float32.
-        for name in _percentile_field_names(config.percentiles):
-            metric_arrays[name] = fetched[name]
-        out = _assemble_output(config, encoded.pk_vocab, metric_arrays,
-                               rel_sel, vocab_idx)
-        self.timings["host_decode_s"] = time.perf_counter() - t0
+        tr = obs.run_tracer()
+        with tr.span("engine.release", cat="engine"):
+            part64 = {k: (v.astype(np.int64) if v.dtype.kind in "iu" else
+                          v.astype(np.float64)) for k, v in fetched.items()}
+            _fold_fixedpoint(config, part64, fx_bits)
+            rng = (np.random.default_rng(self._rng_seed)
+                   if self._rng_seed is not None else None)
+            # The vector noise is keyed by the global vocab index of each
+            # released row: ``vocab_idx`` when the released rows are the
+            # kept set (compact or public), arange in the full fetch,
+            # which releases every vocab row in order.
+            n_rel_rows = len(part64["count"])
+            row_vocab = (np.asarray(vocab_idx)
+                         if len(vocab_idx) == n_rel_rows
+                         else np.arange(n_rel_rows))
+            metric_arrays = _host_release(config, self._specs, part64,
+                                          part64["privacy_id_count_raw"],
+                                          rng, rng_seed=self._rng_seed,
+                                          pk_index=row_vocab,
+                                          device=self._device)
+            # The walk released the percentiles on the device, in float32.
+            for name in _percentile_field_names(config.percentiles):
+                metric_arrays[name] = fetched[name]
+            out = _assemble_output(config, encoded.pk_vocab, metric_arrays,
+                                   rel_sel, vocab_idx)
+        self.timings["host_decode_s"] = tr.total("engine.release")
+        _audit_expected_errors(config, self._specs, metric_arrays, rel_sel)
+        _maybe_append_run_ledger()
         return out
 
     def _execute_streamed(self, encoded: EncodedData, scales, keep_table,
-                          thr, s_scale, min_count, rows_per_uid):
+                          thr, s_scale, min_count, rows_per_uid, tr):
         """More rows than one batch: ``streaming.stream_partials_and_select``
         folds the batches' partials on the host and walks the percentiles
         in two passes; the release covers only the kept partitions, in
@@ -1751,12 +1863,13 @@ class LazyFusedResult:
         from pipelinedp_tpu_torch import streaming
         config = self._config
         P = len(encoded.pk_vocab)
-        t0 = time.perf_counter()
-        keep, part64, stats = streaming.stream_partials_and_select(
-            config, encoded, scales, keep_table, thr, s_scale, min_count,
-            rows_per_uid, self._rng_seed, self._device, **self._stream)
-        _sync(self._device)
-        self.timings["device_s"] = time.perf_counter() - t0
+        with tr.span("engine.device", cat="engine", path="streamed"):
+            keep, part64, stats = streaming.stream_partials_and_select(
+                config, encoded, scales, keep_table, thr, s_scale,
+                min_count, rows_per_uid, self._rng_seed, self._device,
+                **self._stream)
+            _sync(self._device)
+        self.timings["device_s"] = tr.total("engine.device")
         self.timings["stream_batches"] = stats["n_batches"]
         if "resumed_from_batch" in stats:
             self.timings["stream_resumed_from"] = stats["resumed_from_batch"]
@@ -1772,29 +1885,31 @@ class LazyFusedResult:
                       "pass_b_reshipped_bytes", "pass_b_sweep_s"):
                 self.timings[f"stream_{k}"] = stats[k]
 
-        t0 = time.perf_counter()
-        part64 = {k: v[:P] for k, v in part64.items()}
-        if self._public is not None:
-            rel_sel = vocab_idx = np.arange(P)
-        else:
-            kept_idx = np.flatnonzero(keep[:P])
-            part64 = {k: v[kept_idx] for k, v in part64.items()}
-            rel_sel = np.arange(len(kept_idx))
-            vocab_idx = kept_idx
-        rng = (np.random.default_rng(self._rng_seed)
-               if self._rng_seed is not None else None)
-        metric_arrays = _host_release(config, self._specs, part64,
-                                      part64["privacy_id_count_raw"], rng,
-                                      rng_seed=self._rng_seed,
-                                      pk_index=vocab_idx,
-                                      device=self._device)
-        for qi, name in enumerate(_percentile_field_names(
-                config.percentiles)):
-            metric_arrays[name] = stats["percentile_values"][:P,
-                                                             qi][vocab_idx]
-        out = _assemble_output(config, encoded.pk_vocab, metric_arrays,
-                               rel_sel, vocab_idx)
-        self.timings["host_decode_s"] = time.perf_counter() - t0
+        with tr.span("engine.release", cat="engine"):
+            part64 = {k: v[:P] for k, v in part64.items()}
+            if self._public is not None:
+                rel_sel = vocab_idx = np.arange(P)
+            else:
+                kept_idx = np.flatnonzero(keep[:P])
+                part64 = {k: v[kept_idx] for k, v in part64.items()}
+                rel_sel = np.arange(len(kept_idx))
+                vocab_idx = kept_idx
+            rng = (np.random.default_rng(self._rng_seed)
+                   if self._rng_seed is not None else None)
+            metric_arrays = _host_release(config, self._specs, part64,
+                                          part64["privacy_id_count_raw"],
+                                          rng, rng_seed=self._rng_seed,
+                                          pk_index=vocab_idx,
+                                          device=self._device)
+            for qi, name in enumerate(_percentile_field_names(
+                    config.percentiles)):
+                metric_arrays[name] = stats["percentile_values"][
+                    :P, qi][vocab_idx]
+            out = _assemble_output(config, encoded.pk_vocab, metric_arrays,
+                                   rel_sel, vocab_idx)
+        self.timings["host_decode_s"] = tr.total("engine.release")
+        _audit_expected_errors(config, self._specs, metric_arrays, rel_sel)
+        _maybe_append_run_ledger()
         return out
 
 
@@ -1839,7 +1954,9 @@ class LazySelectResult:
             keep, _, _ = streaming.stream_partials_and_select(
                 config, encoded, np.zeros(1, np.float32), keep_table, thr,
                 s_scale, min_count, 1.0, self._rng_seed, self._device)
-            return [encoded.pk_vocab[i] for i in np.flatnonzero(keep[:P])]
+            out = [encoded.pk_vocab[i] for i in np.flatnonzero(keep[:P])]
+            _maybe_append_run_ledger("engine.select_partitions")
+            return out
         keep_pk, _, _ = _run_fused(config, encoded, _noise_scales(config, {}),
                                    keep_table, thr, s_scale, min_count, 1.0,
                                    self._rng_seed, self._device)
@@ -1849,8 +1966,13 @@ class LazySelectResult:
         n_keep = int(packed[0, 0])
         if n_keep > cap:
             keep_np = keep_pk[:P].cpu().numpy()
-            return [vocab[i] for i in np.flatnonzero(keep_np)]
-        return [vocab[i] for i in packed[1, :n_keep].tolist()]
+            out = [vocab[i] for i in np.flatnonzero(keep_np)]
+        else:
+            out = [vocab[i] for i in packed[1, :n_keep].tolist()]
+        _record_selection_audit(config.selection, P, len(out),
+                                "select_partitions")
+        _maybe_append_run_ledger("engine.select_partitions")
+        return out
 
 
 def build_fused_select_partitions(col, params, data_extractors,

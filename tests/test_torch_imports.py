@@ -11,14 +11,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "pipelinedp_tpu")
 
 #: The modules of the sketch-first path, the peeker, the fluent APIs, the
-#: PLD engine and the native library.
+#: PLD engine, the native library, and the obs and plan planes with the
+#: clock and retry policy they use.
 NEW_MODULES = ("sketch/__init__.py", "sketch/hashing.py",
                "sketch/params.py", "sketch/device.py", "sketch/engine.py",
                "sketch/peek.py", "peeker/__init__.py",
                "peeker/data_peeker.py", "peeker/non_private_combiners.py",
                "peeker/peeker_engine.py", "private_collection.py",
                "private_spark.py", "beam_backend.py", "private_beam.py",
-               "pld.py", "native/__init__.py")
+               "pld.py", "native/__init__.py",
+               "obs/__init__.py", "obs/tracer.py", "obs/trace_context.py",
+               "obs/audit.py", "obs/metrics.py", "obs/report.py",
+               "obs/store.py", "obs/costs.py", "obs/monitor.py",
+               "obs/http.py", "plan/__init__.py", "plan/knobs.py",
+               "plan/model.py", "plan/planner.py", "resilience/clock.py",
+               "resilience/retry.py")
 
 
 def _port_files():
@@ -75,7 +82,8 @@ def test_no_jax_or_reference_import(path):
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_new_module_imports_alone(module):
     """Each module of the sketch-first path, the peeker, the fluent APIs,
-    the PLD engine and the native library imports, and pulls in neither
+    the PLD engine, the native library and the obs and plan planes
+    imports, and pulls in neither
     JAX nor the JAX package: checked in a fresh interpreter, where nothing
     else imported them first. The Beam adapters import under the fake
     ``apache_beam`` of ``tests/fake_beam.py``, as

@@ -1,8 +1,10 @@
 """Sketch-first DP heavy hitters on the port (``pipelinedp_tpu_torch/sketch``)
 against the JAX package's (``pipelinedp_tpu/sketch``), on the CPU.
 
-The cases of ``tests/test_sketch.py`` that need no mesh, planner or obs,
-each also held to the JAX package. Bit equality is the rule: the stable
+The cases of ``tests/test_sketch.py`` that need no mesh, each also held to
+the JAX package, their obs halves included: the ``sketch`` section of the
+run report, the phase-1 accountant's audit record and the counters equal
+the JAX package's field for field. Bit equality is the rule: the stable
 hashes, the bucket ids, ``bound_pairs``' kept pairs, the binner's counts
 (both backends, and ``np.bincount``), the selection mask and the released
 float64 values are compared exactly, never within a tolerance. The JAX
@@ -19,6 +21,7 @@ import torch
 import jax
 
 import pipelinedp_tpu as pdp
+from pipelinedp_tpu import obs as jobs
 from pipelinedp_tpu.backends import JaxBackend
 from pipelinedp_tpu.sketch import SketchParams as JaxSketchParams
 from pipelinedp_tpu.sketch import device as jdevice
@@ -26,6 +29,7 @@ from pipelinedp_tpu.sketch import engine as jengine
 from pipelinedp_tpu.sketch import hashing as jhashing
 
 import pipelinedp_tpu_torch as pdt
+from pipelinedp_tpu_torch import obs
 from pipelinedp_tpu_torch.ops import prng
 from pipelinedp_tpu_torch.resilience import faults
 from pipelinedp_tpu_torch.sketch import (SketchParams, bucket_ids,
@@ -42,8 +46,15 @@ KNOB_ENVS = ("PIPELINEDP_TPU_SKETCH_WIDTH", "PIPELINEDP_TPU_SKETCH_DEPTH",
 
 @pytest.fixture(autouse=True)
 def _clean_env(monkeypatch):
-    for name in KNOB_ENVS + ("PIPELINEDP_TPU_STREAM_CHUNK",):
+    for name in KNOB_ENVS + ("PIPELINEDP_TPU_STREAM_CHUNK",
+                             "PIPELINEDP_TPU_AUDIT",
+                             "PIPELINEDP_TPU_PLAN_DIR"):
         monkeypatch.delenv(name, raising=False)
+    obs.reset()
+    jobs.reset()
+    yield
+    obs.reset()
+    jobs.reset()
 
 
 def _params(mod, noise="LAPLACE", l0=3, linf=2):
@@ -527,6 +538,49 @@ class TestEndToEnd:
         assert out == {} == want
         assert res.timings["sketch_candidates"] == 0
         assert "device_s" not in res.timings
+        counters = obs.ledger().snapshot()["counters"]
+        assert counters.get("sketch.runs") == 1
+        assert (counters.get("sketch.runs") ==
+                jobs.ledger().snapshot()["counters"].get("sketch.runs"))
+        names = [e["name"] for e in obs.ledger().snapshot()["events"]]
+        assert "sketch.empty_selection" in names
+
+    def test_audit_record_and_report_section(self):
+        """The run report's ``sketch`` section and the phase-1
+        accountant's audit record equal the JAX package's."""
+        sk = _keep_all_kwargs()
+        jobs.reset()
+        _run(pdp, JaxBackend(rng_seed=7), _dataset(pdp), _params(pdp),
+             JaxSketchParams(**sk))
+        jrep = jobs.build_run_report()
+        obs.reset()
+        out, _, _ = _run(pdt, pdt.TorchBackend("cpu", rng_seed=7),
+                         _dataset(pdt), _params(pdt), SketchParams(**sk))
+        rep = obs.build_run_report()
+        assert rep["schema_version"] == 6 and len(out) > 0
+        runs = rep["sketch"]["runs"]
+        assert len(runs) == 1
+        rec = runs[0]
+        assert rec["width"] == 2048 and rec["depth"] == 2
+        assert rec["buckets_selected"] >= rec["candidates"] > 0
+        assert runs == jrep["sketch"]["runs"]
+        metrics = [m["metric"] for acc in rep["privacy"]["accountants"]
+                   for m in acc["mechanisms"]]
+        assert "sketch_candidate_selection" in metrics
+        sel = [m for acc in rep["privacy"]["accountants"]
+               for m in acc["mechanisms"]
+               if m["metric"] == "sketch_candidate_selection"][0]
+        assert sel["eps"] == pytest.approx(1e6)
+        assert (rep["privacy"]["accountants"] ==
+                jrep["privacy"]["accountants"])
+        for name in ("sketch.runs", "selection.partitions_pre",
+                     "selection.partitions_post"):
+            assert rep["counters"][name] == jrep["counters"][name], name
+        ev = [{k: v for k, v in e.items() if k != "ts"}
+              for e in rep["events"] if e["name"] == "sketch.selected"]
+        jev = [{k: v for k, v in e.items() if k != "ts"}
+               for e in jrep["events"] if e["name"] == "sketch.selected"]
+        assert ev == jev and len(ev) == 1
 
     def test_candidate_cap_is_a_bucket_cap(self):
         data_kw = dict(n_keys=500, seed=6)
@@ -672,6 +726,8 @@ class TestFaults:
                            _params(pdt), _keep_all_sketch())
         assert len(out) > 0
         _assert_same_release(out, whole)
+        counters = obs.ledger().snapshot()["counters"]
+        assert counters.get("faults.injected", 0) >= 1
 
     def test_fault_plan_default_has_no_sketch_kill(self):
         assert faults.FaultPlan().fail_sketch_chunks == ()
@@ -698,12 +754,60 @@ class TestKnobs:
                 knobs.BY_NAME["sketch_candidate_cap"].default)
         assert (sp.resolved_backend() ==
                 knobs.BY_NAME["sketch_backend"].default)
-        for name, (env, _, default) in sketch_params_mod._KNOBS.items():
-            assert knobs.BY_NAME[name].env_var == env
-            assert knobs.BY_NAME[name].default == default
+        from pipelinedp_tpu_torch.plan import knobs as port_knobs
+        for name in ("sketch_width", "sketch_depth", "sketch_candidate_cap",
+                     "sketch_backend"):
+            port, ref = port_knobs.BY_NAME[name], knobs.BY_NAME[name]
+            assert (port.env_var, port.default, port.dp_safe) == (
+                ref.env_var, ref.default, ref.dp_safe)
         assert sp.chunk_rows == JaxSketchParams(eps=1.0,
                                                 delta=0.0).chunk_rows
         assert sketch_params_mod.WIDTH_MULTIPLE == 256
+
+    def test_sketch_knobs_registered(self):
+        from pipelinedp_tpu_torch.plan import knobs
+        for name, dp_safe in (("sketch_width", False),
+                              ("sketch_depth", False),
+                              ("sketch_candidate_cap", False),
+                              ("sketch_backend", True)):
+            spec = knobs.BY_NAME[name]
+            assert spec.dp_safe is dp_safe, name
+            assert spec.seam is None  # SketchParams is the injection
+            assert spec.doc and spec.unit
+        v, src = knobs.resolve_value(knobs.BY_NAME["sketch_backend"],
+                                     {"sketch_backend": "xla"})
+        assert (v, src) == ("xla", "plan")
+        v, src = knobs.resolve_value(knobs.BY_NAME["sketch_width"],
+                                     {"sketch_width": 512})
+        assert (v, src) == (1 << 16, "default")
+
+    def test_autotune_sweeps_sketch_backend(self):
+        from pipelinedp_tpu_torch import plan as plan_mod
+        cands = plan_mod.autotune_candidates()
+        assert {"sketch_backend": "xla"}.items() <= cands[-1].items()
+        assert all("sketch_width" not in c for c in cands)
+
+    def test_plan_file_moves_the_backend_not_the_release(
+            self, tmp_path, monkeypatch):
+        """A plan file may move the dp-safe ``sketch_backend`` (the
+        binner) and nothing of the selection; the release is the same
+        bits as the cold start's."""
+        from pipelinedp_tpu_torch import plan as plan_mod
+        sk = dict(eps=3.0, delta=1e-6, width=1024, depth=2,
+                  candidate_cap=64)
+        cold, _, _ = _run(pdt, pdt.TorchBackend("cpu", rng_seed=4),
+                          _dataset(pdt), _params(pdt), SketchParams(**sk))
+        monkeypatch.setenv(plan_mod.planner.ENV_DIR, str(tmp_path))
+        plan_mod.write_plan(plan_mod.build_plan(
+            {"default": {"knobs": {"sketch_backend": "xla"}}},
+            plan_mod.CostModel(), "cpu", created_by="test"))
+        planned, _, _ = _run(pdt, pdt.TorchBackend("cpu", rng_seed=4),
+                             _dataset(pdt), _params(pdt),
+                             SketchParams(**sk))
+        assert SketchParams(**sk).resolved_backend() == "xla"
+        _assert_same_release(planned, cold)
+        rec = obs.build_run_report()["sketch"]["runs"][-1]
+        assert rec["backend"] == "xla"
 
     def test_env_override_resolves(self, monkeypatch):
         monkeypatch.setenv("PIPELINEDP_TPU_SKETCH_WIDTH", "1000")
