@@ -238,10 +238,6 @@ sys.path.insert(0, HERE)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): the memory rate, and the float32
-# rate outside the tensor cores, taken for the kernel's int32 adds.
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
 FLAGSHIP = dict(rows=25_000_000, users=162_000, partitions=59_000, seed=6)
 # ``bench.py``'s ``bench_dp_vector_sum`` at its full size.
 VECTOR_WIDTHS = (64, 256, 1024)
@@ -429,13 +425,24 @@ def flagship_stack(columns):
         len(enc.pk_vocab))
 
 
+def card_bound(work):
+    """The bound of a kernel's ``work`` on this card, from the cost
+    table's peak row (``obs/costs.py``: the H100's data-sheet memory
+    rate, float32 rate and top SM clock), so the kernels line and the
+    cost table give one bound for one launch."""
+    from pipelinedp_tpu_torch.obs import costs
+    peaks = costs.device_peaks(torch.cuda.get_device_name(0))
+    assert peaks is not None and not peaks["proxy"], peaks
+    return costs.kernel_bound(work, peaks)
+
+
 def time_kernel(cols, pk, P, kernel="segment_sum_lanes"):
     """Median ms of ``kernel``, its plain version and one ``index_add_``
     (the library yardstick), and the bound for these inputs."""
     from pipelinedp_tpu_torch.ops.kernels import segsum
     launch = getattr(segsum, kernel)
     plain = getattr(segsum, kernel + "_plain")
-    n, C = cols.shape
+    C = cols.shape[1]
     pk_long = pk.long()
 
     def library():
@@ -443,26 +450,16 @@ def time_kernel(cols, pk, P, kernel="segment_sum_lanes"):
                            device=cols.device).index_add_(0, pk_long, cols)
 
     assert torch.equal(library(), plain(cols, pk, P))
-    # Least work for these inputs. Every element of cols must be read to
-    # know it is zero, but the answer needs pk only at rows with a nonzero
-    # lane: count the 32-byte sectors of pk those rows touch (the least
-    # the memory moves), plus the output written once. Operations: one
-    # int32 add per nonzero element.
-    nonzero = cols != 0
-    rows = nonzero.any(dim=1).nonzero().squeeze(1)
-    pk_sectors = int(torch.unique((pk.data_ptr() + 4 * rows) // 32).numel())
-    bytes_moved = n * C * 4 + pk_sectors * 32 + P * C * 4
-    adds = int(nonzero.sum())
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = adds / SCALAR_OPS_PER_S * 1e3
+    # Least work for these inputs: ``segsum.work``, the counts the cost
+    # table bounds each launch with.
+    work = segsum.work(cols, pk, P)
+    bound = card_bound(work)
     return dict(
         ms=cuda_ms(lambda: launch(cols, pk, P)),
         plain_ms=cuda_ms(lambda: plain(cols, pk, P)),
         library_ms=cuda_ms(library),
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bound_bytes=bytes_moved, pk_sectors_needed=pk_sectors,
-        nonzero_elements=adds)
+        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+        bound_bytes=work.bytes, nonzero_elements=work.ops)
 
 
 def _aggregate(pdt, columns, params_kw, device, seed, public=None,
@@ -920,19 +917,11 @@ def time_hist(qpk, leaf, kept, starts, offsets, Pb, span):
                                            Pb, span)
     lib = torch.stack(library()).view(T, Qc, Pb, span).permute(0, 2, 1, 3)
     assert torch.equal(lib.to(torch.int32), want)
-    # Least work for these inputs: every kept flag is read, qpk and leaf
-    # only at kept rows (the 32-byte sectors those rows touch, in each),
-    # the starts and offsets once, and the output written once.
-    # Operations: one int32 add per in-range (row, tile, quantile).
-    n = qpk.shape[0]
-    kept_rows = kept.nonzero().squeeze(1)
-    sectors = int(torch.unique(kept_rows // 8).numel())
-    out_bytes = T * Pb * Qc * span * 4
-    bytes_moved = n + 2 * 32 * sectors + starts.numel() * 4 + T * 4 + \
-        out_bytes
-    adds = sum(int(f.numel()) for f in flat)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = adds / SCALAR_OPS_PER_S * 1e3
+    # Least work for these inputs: ``hist.work``, the counts the cost
+    # table bounds each launch with; its adds are the library's bins.
+    work = hist.work(qpk, leaf, kept, starts, offsets, Pb, span)
+    assert work.ops == sum(int(f.numel()) for f in flat)
+    bound = card_bound(work)
     return dict(
         ms=cuda_ms(lambda: hist.subtree_counts_multi(
             qpk, leaf, kept, starts, offsets, Pb, span)),
@@ -942,11 +931,9 @@ def time_hist(qpk, leaf, kept, starts, offsets, Pb, span):
         memset_ms=cuda_ms(lambda: torch.zeros(T, Pb, Qc, span,
                                               dtype=torch.int32,
                                               device=qpk.device)),
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bound_bytes=bytes_moved, kept_rows=int(kept_rows.numel()),
-        row_sectors_needed=sectors, in_range_adds=adds,
-        out_bytes=out_bytes)
+        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+        bound_bytes=work.bytes, kept_rows=int(kept.sum()),
+        in_range_adds=work.ops, out_bytes=T * Pb * Qc * span * 4)
 
 
 def phase_hist_kernel(columns):
@@ -1256,7 +1243,7 @@ def bounded_rows(columns, params_kw, seed):
         enc.n_rows)[0]
 
 
-def time_segtotal(values, new_seg, max_sm_mhz, plain_reps=5):
+def time_segtotal(values, new_seg, plain_reps=5):
     """K4 against its plain version, bit for bit, and the median ms of K4,
     the plain version and one float32 ``index_add_`` over the segment
     ordinals (the library yardstick: per-segment totals, in no fixed order,
@@ -1286,14 +1273,11 @@ def time_segtotal(values, new_seg, max_sm_mhz, plain_reps=5):
                                                             values)
 
     n = values.shape[0]
-    longest = int(lens.max())
-    # Each value and flag read once, each total written once. The adds of
-    # a segment form one chain of dependent float32 adds, about 4 cycles
-    # each at the card's top SM clock, so the longest segment takes at
-    # least its chain.
-    bytes_moved = n * 4 + n * 1 + n * 4
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    chain_ms = longest * 4 / (max_sm_mhz * 1e6) * 1e3
+    # Least work for these inputs: ``segtotal.work``, the counts the cost
+    # table bounds each launch with; the longest segment is one chain of
+    # dependent float32 adds.
+    work = segtotal.work(values, new_seg)
+    bound = card_bound(work)
     return dict(
         max_abs_err=max_abs_err,
         ms=cuda_ms(lambda: segtotal.segment_totals(values, new_seg)),
@@ -1301,10 +1285,10 @@ def time_segtotal(values, new_seg, max_sm_mhz, plain_reps=5):
                   cuda_ms(lambda: segtotal.segment_totals_plain(
                       values, new_seg), reps=plain_reps, warm=1)),
         library_ms=cuda_ms(library),
-        bound_ms=max(bytes_ms, chain_ms),
-        bound_by="bytes" if bytes_ms >= chain_ms else "operations",
-        bytes_ms=bytes_ms, chain_ms=chain_ms, bound_bytes=bytes_moved,
-        rows=n, segments=n_seg, longest_segment=longest,
+        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+        bytes_ms=bound["bytes_ms"], chain_ms=bound["chain_ms"],
+        bound_bytes=work.bytes, rows=n, segments=n_seg,
+        longest_segment=work.chain,
         rows_in_segments_over_64=int(lens[lens > 64].sum()))
 
 
@@ -1356,18 +1340,18 @@ def phase_segtotal_kernel(columns, max_sm_mhz):
     params = sum_bounds_params(pdt)
     config, b, P, fx_bits = bounded_rows(columns, params, FLAGSHIP["seed"])
     masked = b.masked.contiguous()
-    flagship = time_segtotal(masked, b.new_seg, max_sm_mhz)
+    flagship = time_segtotal(masked, b.new_seg)
     stack, _ = te._lane_stack(config, b.masked, b.keep_row, b.seg_marker,
                               fx_bits, b.contrib)
     k1 = time_kernel(stack, b.spk.to(torch.int32).contiguous(), P)
     del b, masked, stack
     hot_values, hot_new_seg = hot_stack()
-    hot_rec = time_segtotal(hot_values, hot_new_seg, max_sm_mhz,
+    hot_rec = time_segtotal(hot_values, hot_new_seg,
                             plain_reps=1)
     assert hot_rec["longest_segment"] == HOT_ROWS
     del hot_values, hot_new_seg
     mid_values, mid_new_seg = mid_stack()
-    mid_rec = time_segtotal(mid_values, mid_new_seg, max_sm_mhz,
+    mid_rec = time_segtotal(mid_values, mid_new_seg,
                             plain_reps=1)
     del mid_values, mid_new_seg
     seams = segtotal_seams()
@@ -1856,7 +1840,7 @@ def capture_k5_stacks(columns, n_cfg, every_row=False):
     return count, moments, layout
 
 
-def time_segkeyed(values, layout, max_sm_mhz):
+def time_segkeyed(values, layout):
     """K5 against its plain version, bit for bit, and the median ms of K5,
     the plain version (one call) and one float32 ``index_add_`` over the
     keys (the library yardstick: per-key column totals in no fixed order,
@@ -1882,21 +1866,19 @@ def time_segkeyed(values, layout, max_sm_mhz):
         return torch.zeros(P, W, dtype=torch.float32,
                            device=values.device).index_add_(0, keys, values)
 
-    longest = int(lens.max())
-    # Each value read once, the offsets and the walk read once, each total
-    # written once; a key's rows are one chain of dependent float32 adds,
-    # about 4 cycles each at the card's top SM clock.
-    bytes_moved = n * W * 4 + (P + 1) * 8 + P * 4 + P * W * 4
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    chain_ms = longest * 4 / (max_sm_mhz * 1e6) * 1e3
+    # Least work for these inputs: ``segkeyed.work``, the counts the cost
+    # table bounds each launch with; a key's rows are one chain of
+    # dependent float32 adds.
+    work = segkeyed.work(values, layout)
+    bound = card_bound(work)
     return dict(
         max_abs_err=max_abs_err,
         ms=cuda_ms(lambda: segkeyed.segmented_sums(values, layout)),
         plain_ms=plain_s * 1e3, library_ms=cuda_ms(library),
-        bound_ms=max(bytes_ms, chain_ms),
-        bound_by="bytes" if bytes_ms >= chain_ms else "operations",
-        bytes_ms=bytes_ms, chain_ms=chain_ms, bound_bytes=bytes_moved,
-        shape=[n, W], keys=P, longest_key_rows=longest,
+        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+        bytes_ms=bound["bytes_ms"], chain_ms=bound["chain_ms"],
+        bound_bytes=work.bytes, shape=[n, W], keys=P,
+        longest_key_rows=work.chain,
         ring="tma" if segkeyed.takes_tiles(n, W, values.data_ptr())
         else "cp.async 4-byte")
 
@@ -1943,16 +1925,16 @@ def phase_segkeyed_kernel(c5_columns, max_sm_mhz):
     layouts."""
     from pipelinedp_tpu_torch.ops.kernels import segkeyed
     count, moments, layout = capture_k5_stacks(c5_columns, 132)
-    rec_count = time_segkeyed(count, layout, max_sm_mhz)
-    rec_moments = time_segkeyed(moments, layout, max_sm_mhz)
+    rec_count = time_segkeyed(count, layout)
+    rec_moments = time_segkeyed(moments, layout)
     one_key = segkeyed.key_layout(
         torch.zeros(count.shape[0], dtype=torch.int32, device="cuda"),
         layout.P)
-    rec_one = time_segkeyed(moments, one_key, max_sm_mhz)
+    rec_one = time_segkeyed(moments, one_key)
     del count, moments
     every, _, every_layout = capture_k5_stacks(c5_columns, 132,
                                                every_row=True)
-    rec_every = time_segkeyed(every, every_layout, max_sm_mhz)
+    rec_every = time_segkeyed(every, every_layout)
     del every, _
     seams = segkeyed_seams()
     log("segkeyed_kernel", kernel="segmented_sums", count_stack=rec_count,
@@ -3129,6 +3111,13 @@ def phase_obs_flagship(columns, reference, kernel, smi):
         assert k1["timer"] == "cuda_event" and k1["ms"] > 0.0
         assert k1["calls"] == 1 and k1["bytes_accessed"] > 0
         assert k1["verdict"] == "bandwidth_bound", k1
+        assert k1["phase"] == "engine", k1
+        # One launch, one bound: the table counts the flagship's launch
+        # with the work phase 2 bounds the same stack with.
+        assert (k1["flops"], k1["bytes_accessed"]) == (
+            kernel["nonzero_elements"], kernel["bound_bytes"]), (k1, kernel)
+        assert abs(k1["bound_ms"] - kernel["bound_ms"]) <= (
+            1e-9 * kernel["bound_ms"]), (k1, kernel)
         assert set(KERNEL_SOURCES) <= set(dc["builds"]), dc["builds"]
         priv = report["privacy"]
         assert priv["enabled"] and priv["accountants"]
@@ -3157,6 +3146,8 @@ def phase_obs_flagship(columns, reference, kernel, smi):
             fingerprint=fp, device_kind=card,
             power_limit=report["env"].get("power_limit"),
             k1_cost_entry=k1, k1_phase2_ms=kernel["ms"],
+            k1_phase2_bound_ms=kernel["bound_ms"],
+            k1_bound_share=kernel["bound_ms"] / k1["ms"],
             phases=dc["phases"], builds=dc["builds"],
             accountants=len(priv["accountants"]),
             ledger_entries=len(mine), trace_events=len(trace["traceEvents"]),

@@ -14,15 +14,17 @@ what it can and counts what it knows:
   environment check: no event, no synchronise, no table entry. Enabled,
   each call is keyed by (function, argument shapes and dtypes) and
   records its time — between two CUDA events on the card, on the host
-  clock for CPU tensors — and, on the card, its peak memory
-  (``reset_peak_memory_stats`` / ``max_memory_allocated``). A phase made
+  clock for CPU tensors — and, on the card, its peak memory where the
+  phase set the process's peak (see :func:`_measure`). A phase made
   of torch operators has no flop or byte count: its entry says so
   (``cost.unavailable``), it never gets a made-up one.
 * :func:`kernel_launch` — the seam of the hand kernels K1-K5
-  (``ops/kernels/*.py``). Each launch is a program of its own whose bytes
-  and integer operations are the analytic counts of its shape (each input
-  read once, each output written once), so K1-K5 get a roofline verdict
-  against :data:`DEVICE_PEAKS`.
+  (``ops/kernels/*.py``). Each launch is a program of its own, booked
+  under the phase it launched in, whose counts are its kernel module's
+  ``work`` of these inputs: the same :class:`Work` that ``chip_smoke.py``
+  bounds each kernel with, so the table's ``bound_ms`` and the kernels
+  line's are one number. K1-K5 get a roofline verdict against
+  :data:`DEVICE_PEAKS`.
 * :func:`build_span` — the first build of each hand kernel
   (``ops/kernels/_build.py``) and native library (``native/``) in a
   process: a ``compile.program`` span and a build record with the
@@ -46,7 +48,7 @@ import functools
 import os
 import threading
 import time as _time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 ENV_VAR = "PIPELINEDP_TPU_COSTS"
 
@@ -62,15 +64,47 @@ ENV_VAR = "PIPELINEDP_TPU_COSTS"
 DEVICE_PEAKS: Tuple[Dict[str, Any], ...] = (
     {"match": ("h100",),
      "kind": "h100_sxm", "flops_per_s": 67e12,
-     "hbm_bytes_per_s": 3.35e12, "proxy": False,
-     "source": "NVIDIA H100 SXM data sheet (float32 non-tensor; HBM3)"},
+     "hbm_bytes_per_s": 3.35e12, "sm_clock_hz": 1.98e9, "proxy": False,
+     "source": "NVIDIA H100 SXM data sheet (float32 non-tensor; HBM3; "
+               "1980 MHz top SM clock)"},
     {"match": ("cpu",),
      "kind": "cpu_proxy", "flops_per_s": 1e11,
-     "hbm_bytes_per_s": 5e10, "proxy": True},
+     "hbm_bytes_per_s": 5e10, "sm_clock_hz": 3e9, "proxy": True},
     {"match": ("interpret", "host"),
      "kind": "cpu_interpret", "flops_per_s": 1e9,
-     "hbm_bytes_per_s": 5e8, "proxy": True},
+     "hbm_bytes_per_s": 5e8, "sm_clock_hz": 3e7, "proxy": True},
 )
+
+#: Cycles of one dependent float32 add: the adds of one segment (K4) or
+#: key (K5) form one chain, so the longest takes at least its length
+#: times this at the top SM clock.
+ADD_CHAIN_CYCLES = 4
+
+
+class Work(NamedTuple):
+    """The least work one kernel launch needs on its inputs, counted
+    from this run's data (each kernel module's ``work``): the adds the
+    result needs, the bytes it must move (each needed input byte read
+    once, each output written once), and the longest chain of dependent
+    adds (0 where the adds are independent)."""
+    ops: int
+    bytes: int
+    chain: int = 0
+
+
+def kernel_bound(work: Work, peaks: Dict[str, Any]) -> Dict[str, Any]:
+    """The least time the device could take for ``work``: the larger of
+    its bytes over the memory rate and its operations — the adds over the
+    peak rate, or the longest add chain at the top SM clock, whichever is
+    longer. {bound_ms, bound_by ("bytes" | "operations"), bytes_ms,
+    ops_ms, chain_ms}."""
+    bytes_ms = 1e3 * work.bytes / peaks["hbm_bytes_per_s"]
+    ops_ms = 1e3 * work.ops / peaks["flops_per_s"]
+    chain_ms = 1e3 * work.chain * ADD_CHAIN_CYCLES / peaks["sm_clock_hz"]
+    op_ms = max(ops_ms, chain_ms)
+    return {"bound_ms": max(bytes_ms, op_ms),
+            "bound_by": "bytes" if bytes_ms >= op_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "chain_ms": chain_ms}
 
 
 def costs_enabled() -> bool:
@@ -119,16 +153,6 @@ def roofline_verdict(flops: Optional[float],
     return out
 
 
-def bound_ms(flops: Optional[float], bytes_accessed: Optional[float],
-             peaks: Optional[Dict[str, Any]]) -> Optional[float]:
-    """The least time the device could take for this work: the larger of
-    bytes over the memory rate and operations over the peak rate."""
-    if flops is None or bytes_accessed is None or peaks is None:
-        return None
-    return 1e3 * max(bytes_accessed / peaks["hbm_bytes_per_s"],
-                     flops / peaks["flops_per_s"])
-
-
 class CostTable:
     """Process-global per-program cost table (thread-safe). One entry
     per (program, shape signature); the run report's ``device_costs``
@@ -155,7 +179,12 @@ class CostTable:
             self._programs[key] = entry
 
     def note_call(self, key: str, ms: Optional[float] = None,
-                  peak_bytes: Optional[int] = None) -> None:
+                  peak_bytes: Optional[int] = None,
+                  work: Optional[Work] = None) -> None:
+        """One call of a recorded program: its time, its peak memory
+        where known, and for a kernel launch its :class:`Work`. A
+        kernel's counts and bound are summed over its calls, as its
+        time is, since each call's data decides its work."""
         with self._lock:
             entry = self._programs.get(key)
             if entry is None:
@@ -163,6 +192,16 @@ class CostTable:
             entry["calls"] = entry.get("calls", 0) + 1
             if ms is not None:
                 entry["ms"] = round(entry.get("ms", 0.0) + ms, 6)
+            if work is not None:
+                entry["flops"] += work.ops
+                entry["bytes_accessed"] += work.bytes
+                peaks = device_peaks(entry.get("device_kind"))
+                if peaks is not None:
+                    entry["bound_ms"] = (entry["bound_ms"] or 0.0) + (
+                        kernel_bound(work, peaks)["bound_ms"])
+                entry.update({k: v for k, v in roofline_verdict(
+                    entry["flops"], entry["bytes_accessed"],
+                    peaks).items() if k in ("intensity", "verdict")})
             if peak_bytes is not None:
                 mem = entry.setdefault("memory", {}) or {}
                 mem["peak_bytes"] = max(mem.get("peak_bytes", 0),
@@ -236,9 +275,14 @@ class CostTable:
 #: re-exports it; ``obs.reset()`` clears it at run boundaries).
 TABLE = CostTable()
 
-#: The open measurements of this thread: a kernel launched inside an
-#: instrumented phase must not reset the phase's peak-memory counter.
-_DEPTH = threading.local()
+#: This thread's open measurements: ``phase``, the phase of the
+#: innermost instrumented call, under which a kernel launched inside it
+#: is booked.
+_STATE = threading.local()
+
+#: The phase a kernel launch is booked under outside every instrumented
+#: call.
+KERNEL_PHASE = "kernel"
 
 
 def _first_tensor(args, kwargs):
@@ -291,60 +335,70 @@ def _note_device(dev) -> Optional[str]:
 
 @contextlib.contextmanager
 def _measure(name: str, phase: str, signature: str, dev,
-             flops: Optional[float] = None,
-             bytes_accessed: Optional[float] = None,
-             kernel: bool = False):
+             work: Optional[Callable[[], Work]] = None):
     """Times the body (CUDA events on the card, the host clock for CPU
-    tensors) and records it under (name, signature)."""
+    tensors) and records it under (name, signature). ``work`` marks a
+    hand kernel's launch: it is called once per launch, before the
+    timed body, for the launch's counts.
+
+    Peak memory: the allocator's peak counter belongs to the process
+    and is never reset here (a caller may be reading it across a run).
+    A phase whose peak passes every earlier peak of the process moves
+    the counter, and that new value is the phase's exact peak; a phase
+    that stays under an earlier peak records none. A kernel's ``work``
+    runs inside the phase that launched it, so its temporaries count
+    toward that phase's peak."""
     from pipelinedp_tpu_torch import obs
-    depth = getattr(_DEPTH, "n", 0)
     on_card = dev is not None and dev.type == "cuda"
-    key = _table_key(name, signature)
+    kernel = work is not None
+    # A kernel launched from two phases is two programs, one per phase.
+    key = _table_key(name, f"{phase}|{signature}" if kernel else signature)
     if not TABLE.has(key):
         device_kind = _note_device(dev)
         unavailable = None
-        if flops is None or bytes_accessed is None:
+        if not kernel:
             # Torch operators: no compiler reports their work, so the
             # entry carries time and memory only.
             unavailable = ["flops/bytes: torch operators"]
             obs.inc("cost.unavailable")
             obs.event("cost.unavailable", program=name,
                       analyses=unavailable[0])
-        verdict = roofline_verdict(flops, bytes_accessed,
-                                   device_peaks(device_kind))
         TABLE.record(key, {
             "program": name, "phase": phase, "signature": signature,
-            "kernel": kernel,
+            "kernel": kernel, "device_kind": device_kind,
             "timer": "cuda_event" if on_card else "host_clock",
-            "flops": flops, "bytes_accessed": bytes_accessed,
-            "intensity": verdict["intensity"],
-            "verdict": verdict["verdict"],
-            "bound_ms": bound_ms(flops, bytes_accessed,
-                                 device_peaks(device_kind)),
+            "flops": 0 if kernel else None,
+            "bytes_accessed": 0 if kernel else None,
+            "intensity": None, "verdict": "unknown",
+            "bound_ms": None,
             "memory": None, "unavailable": unavailable,
             "calls": 0, "ms": 0.0})
         obs.inc("cost.programs_captured")
-    _DEPTH.n = depth + 1
+    counts = work() if kernel else None
+    outer = getattr(_STATE, "phase", None)
+    if not kernel:
+        _STATE.phase = phase
     try:
         if on_card:
             import torch
-            if depth == 0:
-                torch.cuda.reset_peak_memory_stats(dev)
+            peak_before = torch.cuda.max_memory_allocated(dev)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             yield
             end.record()
             end.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev)
             TABLE.note_call(key, ms=start.elapsed_time(end),
-                            peak_bytes=(torch.cuda.max_memory_allocated(dev)
-                                        if depth == 0 else None))
+                            peak_bytes=peak if peak > peak_before else None,
+                            work=counts)
         else:
             t0 = _time.perf_counter()
             yield
-            TABLE.note_call(key, ms=(_time.perf_counter() - t0) * 1e3)
+            TABLE.note_call(key, ms=(_time.perf_counter() - t0) * 1e3,
+                            work=counts)
     finally:
-        _DEPTH.n = depth
+        _STATE.phase = outer
 
 
 class _Instrumented:
@@ -383,18 +437,20 @@ def instrumented(fn: Optional[Callable] = None, *, phase: str = "device"):
     return wrap
 
 
-def kernel_launch(name: str, phase: str, args: Tuple[Any, ...],
-                  flops: float, bytes_accessed: float):
+def kernel_launch(name: str, args: Tuple[Any, ...],
+                  work: Callable[[], Work]):
     """The context a hand kernel's wrapper launches in: under
-    ``PIPELINEDP_TPU_COSTS`` it records the launch as program ``name``
-    with its analytic ``flops`` (integer operations) and
-    ``bytes_accessed``; otherwise the shared no-op context."""
+    ``PIPELINEDP_TPU_COSTS`` it records the launch as program ``name``,
+    booked under the phase of the instrumented call it runs in
+    (:data:`KERNEL_PHASE` outside any), with the counts ``work()``
+    returns for these inputs; otherwise the shared no-op context, and
+    ``work`` is never called."""
     from pipelinedp_tpu_torch.obs.tracer import NOOP_SPAN
     if not costs_enabled():
         return NOOP_SPAN
-    return _measure(name, phase, signature_label(args, {}),
-                    _device_of(args, {}), flops=float(flops),
-                    bytes_accessed=float(bytes_accessed), kernel=True)
+    return _measure(name, getattr(_STATE, "phase", None) or KERNEL_PHASE,
+                    signature_label(args, {}), _device_of(args, {}),
+                    work=work)
 
 
 @contextlib.contextmanager

@@ -169,7 +169,8 @@ def reset_requests() -> None:
     update_tenants(None)
 
 
-# The serve-fusion bucket registry: the fusion layer (serve/fusion.py)
+# The serve-fusion bucket registry: the fusion layer of the resident
+# service (not yet in this package: nothing pushes here before it comes)
 # PUSHES its live bucket occupancy here on every change — the monitor
 # must never import serve/ (the engine-never-imports-serve invariant),
 # so the heartbeat pulls from this registry instead. One document then
@@ -569,10 +570,9 @@ class Monitor:
             # (old shape -> new shape, reason, reshard count).
             hb["mesh"] = mesh
         if counters.get("comms.collectives"):
-            # Collective traffic estimate (parallel/sharded.py's
-            # per-traced-exchange byte accounting): how much of the
-            # exchange volume stays on ICI vs crossing DCN — the
-            # number the mesh_topology knob exists to move.
+            # Collective traffic estimate: how much of the exchange
+            # volume stays inside a host vs crossing hosts. No module
+            # of the port counts it until the mesh is ported.
             hb["comms"] = {
                 "collectives": counters.get("comms.collectives", 0),
                 "ici_bytes": counters.get("comms.ici_bytes", 0),

@@ -111,17 +111,37 @@ def subtree_counts_multi(qpk: torch.Tensor, leaf: torch.Tensor,
     device. With ``out`` the counts are added into it (a streamed sweep
     accumulates its batches there) and ``out`` is returned."""
     _check(qpk, leaf, kept, sub_starts, p_offsets, Pb, span, out)
-    # Cost-table counts: one add per (row, tile, quantile); the rows, the
-    # starts and offsets read once, the counts written once.
-    n = qpk.shape[0]
-    T, _, Qc = sub_starts.shape
     with costs.kernel_launch(
-            "subtree_counts_multi", "pass_b",
+            "subtree_counts_multi",
             (qpk, leaf, kept, sub_starts, p_offsets, Pb, span),
-            n * T * Qc, 9 * n + 4 * (sub_starts.numel() + T) +
-            4 * T * int(Pb) * Qc * int(span)):
+            lambda: work(qpk, leaf, kept, sub_starts, p_offsets, Pb, span)):
         return _subtree_counts_multi(qpk, leaf, kept, sub_starts,
                                      p_offsets, Pb, span, out)
+
+
+def work(qpk: torch.Tensor, leaf: torch.Tensor, kept: torch.Tensor,
+         sub_starts: torch.Tensor, p_offsets: torch.Tensor, Pb: int,
+         span: int) -> costs.Work:
+    """The least work of one K3 call on these inputs, the counts of its
+    bound in the cost table and in ``chip_smoke.py``. Every kept flag is
+    read, ``qpk`` and ``leaf`` only at kept rows (the 32-byte sectors
+    those rows touch, in each), the starts and offsets once, and the
+    counts written once. Operations: one int32 add per in-range (row,
+    tile, quantile)."""
+    T, _, Qc = sub_starts.shape
+    adds = 0
+    for t in range(T):
+        rel_pk = qpk - p_offsets[t]
+        in_blk = kept & (rel_pk >= 0) & (rel_pk < Pb)
+        pk_b = torch.clamp(rel_pk, 0, Pb - 1).long()
+        for q in range(Qc):
+            rel = leaf - sub_starts[t, :, q][pk_b]
+            adds += int((in_blk & (rel >= 0) & (rel < span)).sum())
+    sectors = int(torch.unique(kept.nonzero().squeeze(1) // 8).numel())
+    return costs.Work(
+        ops=adds,
+        bytes=qpk.shape[0] + 2 * 32 * sectors + 4 * sub_starts.numel() +
+        4 * T + 4 * T * int(Pb) * Qc * int(span))
 
 
 def _subtree_counts_multi(qpk, leaf, kept, sub_starts, p_offsets, Pb, span,

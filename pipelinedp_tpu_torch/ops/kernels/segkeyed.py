@@ -306,16 +306,26 @@ def segmented_sums(values: torch.Tensor, layout: KeyLayout) -> torch.Tensor:
     float32 ``[n, W]`` contiguous, its rows in the order of ``layout``
     (``key_layout``), on the layout's device."""
     _check(values, layout)
-    n, W = values.shape
-    P = layout.P
-    # Cost-table counts: one add per element; the values, offsets and
-    # walk read once, the totals written once.
-    with costs.kernel_launch(
-            "segmented_sums", "sweep", (values, layout.offsets, P),
-            n * W, 4 * n * W + 8 * (P + 1) + 4 * P + 4 * P * W):
+    with costs.kernel_launch("segmented_sums", (values, layout.offsets,
+                                                layout.P),
+                             lambda: work(values, layout)):
         if values.device.type == "cpu":
             return segmented_sums_plain(values, layout)
         return _segmented_sums(values, layout)
+
+
+def work(values: torch.Tensor, layout: KeyLayout) -> costs.Work:
+    """The least work of one K5 call on these inputs, the counts of its
+    bound in the cost table and in ``chip_smoke.py``: each value read
+    once, the offsets and the walk read once, each total written once,
+    one float32 add per element, and a key's rows one chain of dependent
+    adds per column, so the longest key is the longest chain."""
+    n, W = values.shape
+    P = layout.P
+    lens = torch.diff(layout.offsets)
+    return costs.Work(ops=n * W,
+                      bytes=4 * n * W + 8 * (P + 1) + 4 * P + 4 * P * W,
+                      chain=int(lens.max()) if P else 0)
 
 
 def _segmented_sums(values: torch.Tensor,

@@ -132,11 +132,19 @@ def _launch(name: str, source: str, symbol: str, cols: torch.Tensor,
     return out
 
 
-def _counts(cols: torch.Tensor, P: int):
-    """(int32 adds, bytes) of one launch for the cost table: one add per
-    element; the lanes and keys read once and the sums written once."""
+def work(cols: torch.Tensor, pk: torch.Tensor, P: int) -> costs.Work:
+    """The least work of one K1 or K2 call on these inputs, the counts
+    of its bound in the cost table and in ``chip_smoke.py``. Every
+    element of ``cols`` must be read to know it is zero, but the answer
+    needs ``pk`` only at rows with a nonzero lane: the 32-byte sectors of
+    ``pk`` those rows touch, plus the sums written once. Operations: one
+    int32 add per nonzero element."""
     n, C = cols.shape
-    return n * C, 4 * (n * C + n + int(P) * C)
+    nonzero = cols != 0
+    rows = nonzero.any(dim=1).nonzero().squeeze(1)
+    sectors = int(torch.unique((pk.data_ptr() + 4 * rows) // 32).numel())
+    return costs.Work(ops=int(nonzero.sum()),
+                      bytes=4 * n * C + 32 * sectors + 4 * int(P) * C)
 
 
 def segment_sum_lanes(cols: torch.Tensor, pk: torch.Tensor,
@@ -145,8 +153,8 @@ def segment_sum_lanes(cols: torch.Tensor, pk: torch.Tensor,
     int32 ``[N, C]`` contiguous, ``pk`` int32 ``[N]``; rows with ``pk``
     outside ``[0, P)`` are dropped."""
     _check("segment_sum_lanes", cols, pk, P)
-    with costs.kernel_launch("segment_sum_lanes", "engine", (cols, pk, P),
-                             *_counts(cols, P)):
+    with costs.kernel_launch("segment_sum_lanes", (cols, pk, P),
+                             lambda: work(cols, pk, P)):
         if cols.device.type == "cpu":
             return segment_sum_lanes_plain(cols, pk, P)
         return _launch("segment_sum_lanes", "segsum_lanes",
@@ -161,8 +169,8 @@ def segment_sum_wide(cols: torch.Tensor, pk: torch.Tensor,
     the shared-memory kernel runs while ``wide_tile(W, P)`` > 0, K1's
     kernels otherwise; either counts one launch here."""
     _check("segment_sum_wide", cols, pk, P)
-    with costs.kernel_launch("segment_sum_wide", "engine", (cols, pk, P),
-                             *_counts(cols, P)):
+    with costs.kernel_launch("segment_sum_wide", (cols, pk, P),
+                             lambda: work(cols, pk, P)):
         if cols.device.type == "cpu":
             return segment_sum_wide_plain(cols, pk, P)
         if wide_tile(cols.shape[1], int(P)):

@@ -198,14 +198,27 @@ def segment_totals(values: torch.Tensor,
     ``[N]``, ``new_seg`` bool ``[N]`` (set on the first row of each
     segment), both contiguous on one device."""
     _check(values, new_seg)
-    n = values.shape[0]
-    # Cost-table counts: one add per row; the values and flags read once,
-    # the totals written once.
-    with costs.kernel_launch("segment_totals", "engine", (values, new_seg),
-                             n, 9 * n):
+    with costs.kernel_launch("segment_totals", (values, new_seg),
+                             lambda: work(values, new_seg)):
         if values.device.type == "cpu":
             return segment_totals_plain(values, new_seg)
         return _segment_totals(values, new_seg)
+
+
+def work(values: torch.Tensor, new_seg: torch.Tensor) -> costs.Work:
+    """The least work of one K4 call on these inputs, the counts of its
+    bound in the cost table and in ``chip_smoke.py``: each value and flag
+    read once, each total written once, one float32 add per row, and
+    the adds of a segment one chain of dependent adds, so the longest
+    segment is the longest chain."""
+    n = values.shape[0]
+    if n == 0:
+        return costs.Work(ops=0, bytes=0)
+    starts = new_seg.clone()
+    starts[0] = True
+    heads = torch.nonzero(starts).squeeze(1)
+    lens = torch.diff(heads, append=heads.new_tensor([n]))
+    return costs.Work(ops=n, bytes=9 * n, chain=int(lens.max()))
 
 
 def _segment_totals(values: torch.Tensor,

@@ -5,7 +5,7 @@ this package decides: the knob forest that used to be hand-set per
 device — ``_SUBHIST_BYTE_CAP``, pass-B tile packing, stream cache
 bytes, ``q_chunk``, the ingest-executor switch — resolves through one
 registry, optionally steered by a ledger-fit cost model persisted as
-a plan file next to the compile cache.
+a plan file.
 
 * :mod:`~pipelinedp_tpu_torch.plan.knobs` — the registry: every tunable's
   unit, hardcoded default, env override, module seam and dp-safety,
@@ -17,13 +17,13 @@ a plan file next to the compile cache.
   peak table; empty/degraded/foreign-fingerprint history predicts
   nothing and leaves the defaults in force.
 * :mod:`~pipelinedp_tpu_torch.plan.planner` — the plan file (atomic JSON
-  next to the compile cache, keyed by the stable env-fingerprint
+  under ``PIPELINEDP_TPU_PLAN_DIR``, keyed by the stable env-fingerprint
   hash; stale fingerprints ignored with a ``plan.stale`` event) and
   per-request :func:`resolve` (one ``plan.applied`` event per knob,
   the run report's schema-v4 ``plan`` section).
 
-A benchmark's ``--autotune`` runs the bounded sweep that writes the plan;
-a subsequent plain run loads it. Planner on vs off is DP-bit-identical
+A tuning run measures :func:`autotune_candidates` and writes the plan
+(:func:`build_plan`, :func:`write_plan`); a subsequent plain run loads it. Planner on vs off is DP-bit-identical
 (PARITY row 32): plans only select among parity-tested paths.
 """
 

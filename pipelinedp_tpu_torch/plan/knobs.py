@@ -5,9 +5,9 @@ Port of ``pipelinedp_tpu/plan/knobs.py``, without two of its knobs:
 the CPU their plain versions do; a knob that could send the card to the
 plain versions would hide the kernels) and ``segsum_wide_d_block`` (a TPU
 VMEM tile hint with no counterpart here). A plan file that names either is
-handled as any knob this registry does not know: ignored.
-``mesh_topology`` and the ``serve_*`` knobs are registered ahead of their
-readers (the mesh and the resident service), with no module seam yet.
+handled as any knob this registry does not know: ignored. The knobs of
+the mesh (``mesh_topology``) and of the resident service (``serve_*``)
+are registered with the modules that read them.
 
 The stack grew a forest of hand-set execution knobs — HBM byte caps,
 stream batch sizing, cache budgets, the ingest-executor switch — each
@@ -23,9 +23,9 @@ Resolution precedence (most explicit wins)::
 
 * **env** — the knob's ``PIPELINEDP_TPU_*`` variable is set (any
   value, including the default: setting it is the explicit act).
-* **seam** — the module constant (``je._SUBHIST_BYTE_CAP``,
+* **seam** — the module constant (``torch_engine._SUBHIST_BYTE_CAP``,
   ``streaming._SELECT_UNITS_CAP``, ...) differs from the registered
-  default. Tests and bench inject caps by mutating these (via
+  default. Tests and ``chip_smoke.py`` inject caps by mutating these (via
   :func:`seam_override`); a mutated seam must outrank any plan file or
   existing suites would silently run planned values.
 * **plan** — the loaded plan file carries the knob AND the knob is
@@ -133,20 +133,23 @@ REGISTRY: Tuple[KnobSpec, ...] = (
         "tiling is bit-identical (PARITY row 3); an infeasible pin "
         "falls back to the search."),
     KnobSpec(
+        # The unit string is the JAX package's, shared by plan files
+        # and ledgers of both packages.
         "sweep_config_batch", "configs per compiled sweep chunk "
         "(0 = widest in-HBM-budget)", 0,
         "PIPELINEDP_TPU_SWEEP_CONFIG_BATCH",
         ("pipelinedp_tpu_torch.analysis.torch_sweep", "_SWEEP_CONFIG_BATCH"),
         True, int,
         "Pins the configuration-axis batch width of the utility-analysis "
-        "megasweep (analysis/torch_sweep.py): every sweep chunk dispatches "
-        "this many configs through ONE warm compiled program whose "
-        "bounds / eps-splits / selection tables / noise kinds are "
-        "runtime inputs. 0 lets the sweep pick the widest chunk inside "
-        "the HBM row-broadcast and selection-window budgets. dp-safe: "
-        "every batch width is bit-identical per config (PARITY row 41 — "
-        "padding-invariant, walked == batched), so --autotune may sweep "
-        "it. Note the sweep checkpoint fingerprint covers the width: a "
+        "megasweep (analysis/torch_sweep.py): every sweep chunk runs "
+        "this many configs through one pass of the sweep's torch "
+        "operators and K5 launches, its bounds / eps-splits / selection "
+        "tables / noise kinds held as tensors. 0 lets the sweep pick the "
+        "widest chunk inside the device-memory row-broadcast and "
+        "selection-window budgets. dp-safe: every batch width is "
+        "bit-identical per config (PARITY row 41 — padding-invariant, "
+        "walked == batched), so a tuning run may sweep it. Note the "
+        "sweep checkpoint fingerprint covers the width: a "
         "resume must run the same batch width it was killed at."),
     KnobSpec(
         "vector_accumulator", "f32 | fx", "f32",
@@ -163,41 +166,6 @@ REGISTRY: Tuple[KnobSpec, ...] = (
         "quantizes at the clip bound), so a plan never flips it — env "
         "override, test seam and default only.",
         choices=("f32", "fx")),
-    KnobSpec(
-        "serve_fusion", "bool", False,
-        "PIPELINEDP_TPU_SERVE_FUSION", None, True, bool,
-        "Shape-bucketed request fusion in the resident service "
-        "(serve/fusion.py): admitted compatible requests batch through "
-        "ONE warm compiled program per pow2 shape bucket. dp-safe: "
-        "fusion on/off is bit-identical per request (PARITY row 35) — "
-        "per-request noise keys, row validity masks and "
-        "padding-invariant tie-breaks keep every request's stream its "
-        "own. Default off; the serve knobs carry no module seam so "
-        "resolving them never imports serve/ into batch mode "
-        "(Service constructor args are the injection point)."),
-    KnobSpec(
-        "serve_fuse_window_ms", "milliseconds", 8,
-        "PIPELINEDP_TPU_SERVE_FUSE_WINDOW_MS", None, True, int,
-        "Bounded wait window of an open fusion bucket: the first "
-        "request in a bucket waits at most this long for companions "
-        "before the batch flushes. A latency<->throughput trade only "
-        "(dp-safe; outputs are window-invariant)."),
-    KnobSpec(
-        "serve_fuse_batch", "requests per fused batch", 8,
-        "PIPELINEDP_TPU_SERVE_FUSE_BATCH", None, True, int,
-        "Max requests one fused batch carries; a full bucket flushes "
-        "immediately, before its window expires. dp-safe (batch "
-        "membership never reaches the per-request noise streams)."),
-    KnobSpec(
-        "serve_fuse_rows_floor", "rows (pow2 bucket floor)", 8192,
-        "PIPELINEDP_TPU_SERVE_FUSE_ROWS_FLOOR", None, True, int,
-        "Smallest row-bucket edge: requests bucket at "
-        "max(floor, solo row shape) — the 8192-row-tile edges the "
-        "solo compile cache already uses, so a fused member's row "
-        "plane is exactly its solo size. Raising the floor merges "
-        "small-request buckets (fewer compiled shapes, more padded "
-        "compute); clamped to >= 8192 (the solo row-padding floor). "
-        "dp-safe: released values are padding-invariant."),
     KnobSpec(
         "sketch_width", "hash buckets (row-0 selection axis)", 1 << 16,
         "PIPELINEDP_TPU_SKETCH_WIDTH", None, False, int,
@@ -223,30 +191,14 @@ REGISTRY: Tuple[KnobSpec, ...] = (
         "sketch_backend", "matmul | xla", "matmul",
         "PIPELINEDP_TPU_SKETCH_BACKEND", None, True, str,
         "Device formulation of the sketch binner: 'matmul' (radix "
-        "one-hot MXU contraction, sketch/device.py — the default) or "
-        "'xla' (the scatter-add reference). dp-safe: both are exact "
-        "integer arithmetic and bit-identical (PARITY row 36), so the "
-        "autotune sweep may measure either. Like the serve knobs, no "
-        "module seam — SketchParams.backend is the injection point, so "
+        "one-hot factors contracted by one torch.matmul, "
+        "sketch/device.py — the default) or 'xla' (the index_add_ "
+        "scatter reference; the name is the JAX package's). dp-safe: "
+        "both are exact integer arithmetic and bit-identical (PARITY row "
+        "36), so a tuning run may measure either. No module seam — "
+        "SketchParams.backend is the injection point, so "
         "resolving the registry never imports sketch/ into non-sketch "
         "runs.", choices=("matmul", "xla")),
-    KnobSpec(
-        "mesh_topology", "flat | hier | auto", "flat",
-        "PIPELINEDP_TPU_MESH_TOPOLOGY", None, True, str,
-        "Cross-shard exchange layout (parallel/sharded.py): 'flat' "
-        "(one exchange over the whole device axis — the historical "
-        "default; cold start is byte-identical to pre-knob behavior), "
-        "'hier' (two-stage reduction: owner-block psum_scatter over "
-        "each host's ici group, then one batch-boundary block "
-        "exchange over the dcn groups — scatter traffic stays on ICI, "
-        "only 1/per_host of the payload crosses DCN) or 'auto' (hier "
-        "iff the mesh spans more than one host; CPU proxy: processes "
-        "are hosts, PIPELINEDP_TPU_MESH_HOSTS simulates hosts in one "
-        "process). dp-safe: both stages run fixed reduction trees over "
-        "exact-integer payloads, so hier and flat release bit-identical "
-        "values and kept sets (PARITY row 43); ragged host groups fall "
-        "back to flat with a mesh.topology_fallback event.",
-        choices=("flat", "hier", "auto")),
     KnobSpec(
         "select_units_cap", "privacy units per partition", _I32_MAX,
         None, ("pipelinedp_tpu_torch.streaming", "_SELECT_UNITS_CAP"),
@@ -307,8 +259,9 @@ def value(name: str, plan_knobs: Optional[Dict[str, Any]] = None) -> Any:
     """The resolved value of one knob (see :func:`resolve_value`).
     With ``plan_knobs`` omitted the current plan file (if any) is
     consulted through the planner's cached load, bucketed at the last
-    resolved request shape — so a mid-request read (the walk's cap at
-    jit-trace time) sees the same vector the request resolved."""
+    resolved request shape — so a mid-request read (the walk's cap, read
+    when the walk plans its partition blocks) sees the same vector the
+    request resolved."""
     spec = BY_NAME[name]
     if plan_knobs is None:
         from pipelinedp_tpu_torch.plan import planner
@@ -332,8 +285,8 @@ def resolve_all(plan_knobs: Optional[Dict[str, Any]] = None
 @contextlib.contextmanager
 def seam_override(name: str, value: Any):
     """Temporarily set a knob's module seam (the blessed injection
-    idiom for tests and bench probe records — a mutated seam outranks
-    any plan file, so injected-cap records measure the injected cap)."""
+    idiom for tests and probe runs — a mutated seam outranks any plan
+    file, so an injected-cap run measures the injected cap)."""
     spec = BY_NAME[name]
     if spec.seam is None:
         raise ValueError(f"knob {name!r} has no module seam")

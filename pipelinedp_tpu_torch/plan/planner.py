@@ -1,13 +1,15 @@
 """The plan resolver: plan file IO + per-request knob resolution.
 
 The decide half of the measure→decide loop. A **plan file** is one
-atomically-replaced JSON document living next to the compile cache
-(``pdp_plan/plan.json`` — ``PIPELINEDP_TPU_PLAN_DIR`` overrides the
-directory, ``0``/``off`` disables loading entirely), keyed by the SAME
+atomically-replaced JSON document (``pdp_plan/plan.json`` in
+``PIPELINEDP_TPU_PLAN_DIR``, or beside ``PIPELINEDP_TPU_COMPILE_CACHE``
+where a deployment shares that variable with the JAX package;
+``0``/``off`` disables loading entirely), keyed by the SAME
 stable environment-fingerprint hash the run ledger uses. It carries,
-per shape-signature bucket, the knob vector a benchmark's ``--autotune``
-measured best, plus the fitted :class:`~pipelinedp_tpu_torch.plan.model.
-CostModel` for predicted-vs-observed accounting.
+per shape-signature bucket, the knob vector a tuning run measured best
+(:func:`build_plan` over the trials of :func:`autotune_candidates`),
+plus the fitted :class:`~pipelinedp_tpu_torch.plan.model.CostModel` for
+predicted-vs-observed accounting.
 
 Resolution (:func:`resolve`) runs once per streamed request: every
 registered knob resolves through the registry precedence (env >
@@ -40,9 +42,8 @@ ENV_DIR = "PIPELINEDP_TPU_PLAN_DIR"
 PLAN_FILENAME = "plan.json"
 PLAN_SCHEMA = 1
 
-#: Process-default plan directory (bench points this at ./.pdp_plan,
-#: mirroring its ./.pdp_ledger store default); None = library runs
-#: resolve no plan file unless the env/compile-cache path names one.
+#: Process-default plan directory (:func:`set_default_dir`); None =
+#: library runs resolve no plan file unless the environment names one.
 _default_dir: Optional[str] = None
 
 _lock = threading.Lock()
@@ -64,8 +65,8 @@ _model_cache: Optional[tuple] = None
 
 
 def set_default_dir(directory: Optional[str]) -> None:
-    """Process fallback for the plan directory (bench calls this with
-    ``./.pdp_plan``; tests use the env var)."""
+    """Process fallback for the plan directory (a driver that keeps its
+    plans under ``./.pdp_plan`` calls this; tests use the env var)."""
     global _default_dir
     _default_dir = directory
 
@@ -73,7 +74,7 @@ def set_default_dir(directory: Optional[str]) -> None:
 def plan_dir(default: Optional[str] = None) -> Optional[str]:
     """Resolve the plan directory: ``PIPELINEDP_TPU_PLAN_DIR`` (the
     values ``0``/``off``/``none`` disable plan loading), else a
-    ``pdp_plan`` sibling of the persistent compile cache, else
+    ``pdp_plan`` sibling of ``PIPELINEDP_TPU_COMPILE_CACHE``, else
     ``default`` / the process default. None = no plan file in force."""
     path = os.environ.get(ENV_DIR)
     if path:
@@ -95,9 +96,9 @@ def plan_path(directory: Optional[str] = None) -> Optional[str]:
 def plan_hash(plan: Dict[str, Any]) -> str:
     """12-hex digest of the plan's execution-relevant content — the
     knob tables ONLY, not the write timestamp or the fitted model
-    blob. A re-autotune that lands on the same knob vector keeps the
-    same identity, so ``--compare``'s plan-vs-plan gate keeps gating
-    instead of refusing forever after the first rewrite."""
+    blob. A re-tune that lands on the same knob vector keeps the same
+    identity, so two runs' records compare as the same plan after the
+    file is rewritten."""
     blob = json.dumps(plan.get("knobs") or {}, sort_keys=True,
                       default=repr)
     return hashlib.sha256(blob.encode("utf-8")).hexdigest()[:12]
@@ -141,7 +142,7 @@ def write_plan(plan: Dict[str, Any],
 def build_plan(best_by_bucket: Dict[str, Dict[str, Any]],
                model: model_mod.CostModel,
                device_kind: Optional[str],
-               created_by: str = "bench --autotune",
+               created_by: str = "autotune",
                trials: int = 0) -> Dict[str, Any]:
     """Assemble a plan document from the autotune decision
     (:func:`model.choose_best_trial`) + the fitted model. Only
@@ -368,7 +369,7 @@ def resolve(shape: Optional[Dict[str, int]] = None, mesh=None,
 def last_resolved_shape() -> Optional[Dict[str, int]]:
     """The request shape of the most recent :func:`resolve` this run
     (None before any request resolved). Shape-blind knob reads deeper
-    in the stack — the walk's subhist-cap lookup at jit-trace time —
+    in the stack — the walk's subhist-cap lookup as it plans its blocks —
     use it so they bucket against the SAME plan vector the request
     resolved, not whichever vector the ``default`` bucket carries."""
     with _lock:
@@ -387,7 +388,7 @@ def note_observed(name: str, seconds: float) -> None:
 
 
 def source_summary() -> Dict[str, Any]:
-    """{plan_source, plan_hash} for bench records: the applied-state
+    """{plan_source, plan_hash} for run records: the applied-state
     when a request resolved this run, else a quiet resolution of the
     current file/env state (no events, no applied-state)."""
     with _lock:
@@ -420,11 +421,11 @@ def reset() -> None:
 
 
 def autotune_candidates() -> list:
-    """The bounded one-factor-at-a-time sweep a benchmark's ``--autotune``
-    measures: the default vector plus single-knob deviations of every
-    dp-safe knob. Small by design — each candidate is one full
-    streamed run; the ledger accumulates across invocations, so depth
-    comes from history, not from one sweep."""
+    """The bounded one-factor-at-a-time sweep a tuning run measures: the
+    default vector plus single-knob deviations of every dp-safe knob.
+    Small by design — each candidate is one full streamed run; the
+    ledger accumulates across invocations, so depth comes from
+    history, not from one sweep."""
     base = {name: spec.default
             for name, spec in knobs_mod.BY_NAME.items() if spec.dp_safe}
     cands = [dict(base)]
@@ -433,27 +434,16 @@ def autotune_candidates() -> list:
             {"stream_cache_bytes": 0},
             {"q_chunk": 1},
             {"subhist_byte_cap": 64 << 20},
-            # Megasweep config-batch widths: dp-safe (every width is
+            # Sweep config-batch widths: dp-safe (every width is
             # bit-identical per config, PARITY row 41); only the
-            # utility-analysis sweep phase reads them, so scalar
-            # trials measure the default's no-op. bench.run_autotune's
-            # sweep_probe dispatches a small megasweep per trial so
-            # the argmin is a measured walked-vs-batched comparison.
+            # utility-analysis sweep reads them, so a trial that runs
+            # no sweep measures the default's no-op.
             {"sweep_config_batch": 64},
             {"sweep_config_batch": 256},
-            # The hierarchical exchange: dp-safe (hier and flat are
-            # bit-identical, PARITY row 43). On a single-host trial
-            # the topology layer degrades to flat so this measures a
-            # no-op; on a multi-host (or simulated-hosts) bench box
-            # the argmin is a measured flat-vs-hier comparison.
-            {"mesh_topology": "hier"},
             # The sketch binner's scatter reference: dp-safe (PARITY
-            # row 36) so it sweeps with the rest. Every autotune trial
-            # dispatches a small sketch-first request with its
-            # vector's backend (bench.run_autotune's sketch_probe), so
-            # this deviation's argmin is a measured matmul-vs-scatter
-            # comparison, not timing noise. Kept LAST: the sketch
-            # suite pins this position.
+            # row 36) so it sweeps with the rest; a trial that runs no
+            # sketch-first request measures the default's no-op. Kept
+            # LAST: the sketch suite pins this position.
             {"sketch_backend": "xla"},
     ):
         vec = dict(base)

@@ -94,19 +94,47 @@ class TestRoofline:
         assert no_peaks["intensity"] == 4.0
 
     def test_segment_sums_classify_bandwidth_bound_on_the_h100(self):
-        """K1's and K2's counts on the H100 row: one int32 add per four
-        bytes read, far below the 20 op/byte ridge, so the bound is the
-        bytes and ``bound_ms`` is bytes over 3.35 TB/s."""
+        """K1's and K2's counts on the H100 row: at most one int32 add
+        per four bytes read, far below the 20 op/byte ridge, so the bound
+        is the bytes and ``bound_ms`` is bytes over 3.35 TB/s. The counts
+        are the data's: zero lanes cost their read and no add, and ``pk``
+        is read only in the 32-byte sectors of rows with a nonzero
+        lane."""
         peaks = costs.device_peaks(H100)
-        n, C, P = 25_000_000, 5, 1 << 16
-        flops, nbytes = segsum._counts(
-            torch.empty(1, C, dtype=torch.int32).expand(n, C), P)
-        assert flops == n * C and nbytes == 4 * (n * C + n + P * C)
-        got = costs.roofline_verdict(flops, nbytes, peaks)
+        n, C, P = 100_000, 5, 1 << 16
+        cols = torch.zeros(n, C, dtype=torch.int32)
+        cols[: n // 2] = 1
+        cols[n // 2:, 0] = 1
+        pk = torch.zeros(n, dtype=torch.int32)
+        w = segsum.work(cols, pk, P)
+        assert w.ops == n // 2 * C + n // 2 and w.chain == 0
+        assert w.bytes == 4 * n * C + 4 * n + 4 * P * C
+        sparse = cols.clone()
+        sparse[:, :] = 0
+        sparse[::8, 0] = 1  # one row in every sector of 8 keys
+        assert segsum.work(sparse, pk, P).bytes == w.bytes
+        sparse[::16, 0] = 0  # every other sector holds no nonzero row
+        assert segsum.work(sparse, pk, P).bytes == (
+            4 * n * C + 4 * n // 2 + 4 * P * C)
+        got = costs.roofline_verdict(w.ops, w.bytes, peaks)
         assert got["verdict"] == "bandwidth_bound"
         assert got["ridge"] == pytest.approx(20.0, rel=1e-3)
-        assert costs.bound_ms(flops, nbytes, peaks) == pytest.approx(
-            1e3 * nbytes / 3.35e12)
+        b = costs.kernel_bound(w, peaks)
+        assert b["bound_by"] == "bytes"
+        assert b["bound_ms"] == pytest.approx(1e3 * w.bytes / 3.35e12)
+
+    def test_kernel_bound_takes_the_longest_add_chain(self):
+        """A chain of dependent adds (K4's segment, K5's key) bounds the
+        time at ``ADD_CHAIN_CYCLES`` cycles per add at the top SM clock
+        when it outlasts the bytes."""
+        peaks = costs.device_peaks(H100)
+        w = costs.Work(ops=1 << 20, bytes=9 << 20, chain=1 << 20)
+        b = costs.kernel_bound(w, peaks)
+        assert b["bound_by"] == "operations"
+        assert b["bound_ms"] == pytest.approx(
+            1e3 * (1 << 20) * costs.ADD_CHAIN_CYCLES / 1.98e9)
+        assert costs.kernel_bound(w._replace(chain=1), peaks)[
+            "bound_by"] == "bytes"
 
 
 class TestSignature:
@@ -188,57 +216,83 @@ class TestInstrumented:
         assert h(cols, pk).tolist() == [[16, 16, 16]] * 4
         snap = costs.TABLE.snapshot()
         assert snap["peaks"]["kind"] == "cpu_proxy"
-        ph_a, ph_e = snap["phases"]["pass_a"], snap["phases"]["engine"]
-        assert ph_a["programs"] == 1 and ph_a["analyzed"] == 0
-        assert ph_a["verdict"] == "unknown"
-        # The kernel launch is a program of its own, in K1's phase, with
-        # its counts and a verdict.
-        assert ph_e["programs"] == 1 and ph_e["analyzed"] == 1
-        assert ph_e["flops"] == 64 * 3
-        assert ph_e["bytes_accessed"] == 4 * (64 * 3 + 64 + 4 * 3)
-        assert ph_e["verdict"] == "bandwidth_bound"
-        assert ph_e["ms"] == 0.0 and ph_e["kernel_ms"] >= 0.0
+        assert set(snap["phases"]) == {"pass_a"}
+        ph_a = snap["phases"]["pass_a"]
+        # The kernel launch is a program of its own, booked under the
+        # phase it launched in, with its counts and a verdict; the phase
+        # of torch operators around it has neither.
+        assert ph_a["programs"] == 2 and ph_a["analyzed"] == 1
+        assert ph_a["flops"] == 64 * 3
+        assert ph_a["bytes_accessed"] == 4 * (64 * 3 + 64 + 4 * 3)
+        assert ph_a["verdict"] == "bandwidth_bound"
+        assert ph_a["ms"] >= 0.0 and ph_a["kernel_ms"] >= 0.0
+        [kernel] = [e for e in snap["programs"].values() if e["kernel"]]
+        assert kernel["phase"] == "pass_a"
+        # Outside every instrumented call the launch is booked under the
+        # neutral kernel phase.
+        segsum.segment_sum_lanes(cols, pk, 4)
+        assert costs.TABLE.snapshot()["phases"]["kernel"]["programs"] == 1
 
     @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5"])
     def test_each_kernel_launch_is_a_program(self, kernel, monkeypatch):
-        """Every hand kernel's wrapper records its launch with the
-        analytic counts of its shape: each input read once, each output
-        written once, one integer add per element it folds."""
+        """Every hand kernel's wrapper records its launch with its
+        module's ``work`` of these inputs, the counts ``chip_smoke.py``
+        bounds it with; its counts and bound sum over its calls."""
         monkeypatch.setenv(costs.ENV_VAR, "1")
         n = 96
         pk = (torch.arange(n) % 5).to(torch.int32)
         if kernel in ("K1", "K2"):
             fn = (segsum.segment_sum_lanes if kernel == "K1"
                   else segsum.segment_sum_wide)
-            fn(torch.ones(n, 4, dtype=torch.int32), pk, 5)
-            name, phase = fn.__name__, "engine"
-            want = (n * 4, 4 * (n * 4 + n + 5 * 4))
+            args = (torch.ones(n, 4, dtype=torch.int32), pk, 5)
+            w = segsum.work(*args)
+            fn(*args)
+            name = fn.__name__
+            want = (n * 4, 4 * (n * 4 + n + 5 * 4), 0)
         elif kernel == "K3":
             starts = torch.zeros(2, 3, 1, dtype=torch.int32)
             offs = torch.tensor([0, 3], dtype=torch.int32)
-            hist.subtree_counts_multi(pk, pk, torch.ones(n, dtype=bool),
-                                      starts, offs, 3, 8)
-            name, phase = "subtree_counts_multi", "pass_b"
-            want = (n * 2 * 1, 9 * n + 4 * (starts.numel() + 2) +
-                    4 * 2 * 3 * 1 * 8)
+            fn = hist.subtree_counts_multi
+            args = (pk, pk, torch.ones(n, dtype=bool), starts, offs, 3, 8)
+            w = hist.work(*args)
+            fn(*args)
+            name = "subtree_counts_multi"
+            # Tile 0 takes keys 0-2 (20 + 19 + 19 rows), tile 1 keys 3-4
+            # (19 + 19), every leaf inside the span.
+            want = (96, 9 * n + 4 * (starts.numel() + 2) +
+                    4 * 2 * 3 * 1 * 8, 0)
         elif kernel == "K4":
             new_seg = torch.zeros(n, dtype=bool)
             new_seg[::7] = True
-            segtotal.segment_totals(torch.ones(n), new_seg)
-            name, phase = "segment_totals", "engine"
-            want = (n, 9 * n)
+            fn = segtotal.segment_totals
+            args = (torch.ones(n), new_seg)
+            w = segtotal.work(*args)
+            fn(*args)
+            name = "segment_totals"
+            want = (n, 9 * n, 7)
         else:
             layout = segkeyed.key_layout(pk, 5)
-            segkeyed.segmented_sums(torch.ones(n, 2), layout)
-            name, phase = "segmented_sums", "sweep"
-            want = (n * 2, 4 * n * 2 + 8 * 6 + 4 * 5 + 4 * 5 * 2)
+            fn = segkeyed.segmented_sums
+            args = (torch.ones(n, 2), layout)
+            w = segkeyed.work(*args)
+            fn(*args)
+            name = "segmented_sums"
+            want = (n * 2, 4 * n * 2 + 8 * 6 + 4 * 5 + 4 * 5 * 2, 20)
+        assert tuple(w) == want
         (entry,) = costs.TABLE.snapshot()["programs"].values()
         assert (entry["program"], entry["phase"], entry["kernel"]) == (
-            name, phase, True)
-        assert (entry["flops"], entry["bytes_accessed"]) == want
+            name, costs.KERNEL_PHASE, True)
+        assert (entry["flops"], entry["bytes_accessed"]) == want[:2]
         assert entry["unavailable"] is None and entry["calls"] == 1
         assert entry["verdict"] in ("compute_bound", "bandwidth_bound")
-        assert entry["bound_ms"] > 0.0
+        bound = costs.kernel_bound(w, costs.device_peaks("cpu"))["bound_ms"]
+        assert entry["bound_ms"] == pytest.approx(bound) and bound > 0.0
+        fn(*args)
+        (entry,) = costs.TABLE.snapshot()["programs"].values()
+        assert entry["calls"] == 2
+        assert (entry["flops"], entry["bytes_accessed"]) == (
+            2 * want[0], 2 * want[1])
+        assert entry["bound_ms"] == pytest.approx(2 * bound)
 
     def test_wrapper_passes_attributes_through(self):
         @instrumented(phase="t")
@@ -260,7 +314,7 @@ class TestInstrumented:
 
         with pytest.raises(ValueError):
             boom(torch.zeros(1))
-        assert getattr(costs._DEPTH, "n", 0) == 0
+        assert getattr(costs._STATE, "phase", None) is None
 
     def test_build_span_records_hit_and_miss(self, monkeypatch):
         monkeypatch.setenv(obs.ENV_VAR, "1")
@@ -503,11 +557,14 @@ class TestAcceptanceEndToEnd:
         for name, ph in dc["phases"].items():
             if ph["verdict"] == "unknown":
                 assert ph["analyzed"] == 0 and unavailable, name
-        assert {"pass_a", "pass_b", "walk", "select",
-                "engine"} <= set(dc["phases"])
-        kernels = {e["program"] for e in dc["programs"].values()
-                   if e["kernel"]}
-        assert {"segment_sum_lanes", "subtree_counts_multi"} <= kernels
+        assert {"pass_a", "pass_b", "walk",
+                "select"} <= set(dc["phases"])
+        # Each kernel is booked under the streamed phase it launched in:
+        # K1 in pass A's reductions, K3 in pass B's histogram.
+        kernels = {(e["program"], e["phase"])
+                   for e in dc["programs"].values() if e["kernel"]}
+        assert {("segment_sum_lanes", "pass_a"),
+                ("subtree_counts_multi", "pass_b")} <= kernels
 
 
 class TestNoDirectMeasurementCalls:
@@ -535,3 +592,56 @@ class TestNoDirectMeasurementCalls:
                             node.func.attr in self.BANNED):
                         found.append(f"{rel}:{node.lineno}")
         assert found == []
+
+
+class TestPeakMemoryOnTheCard:
+    """On the card the allocator's peak counter belongs to the process:
+    the table reads it and never resets it, so a caller reading
+    ``max_memory_allocated`` across a run keeps its reading. A phase
+    that passes the process's earlier peak records that new peak; one
+    that stays under it records none. The card's calls are stood in for
+    on the CPU."""
+
+    def test_peak_is_read_and_never_reset(self, monkeypatch):
+        monkeypatch.setenv(costs.ENV_VAR, "1")
+        monkeypatch.setattr(costs.TABLE, "_device_kind",
+                            costs.TABLE._device_kind)
+        monkeypatch.setattr(costs.TABLE, "_platform", costs.TABLE._platform)
+        peak = {"bytes": 1000}
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                pass
+
+            def record(self):
+                pass
+
+            def synchronize(self):
+                pass
+
+            def elapsed_time(self, end):
+                return 2.5
+
+        def no_reset(*args, **kwargs):
+            raise AssertionError("the process's peak counter was reset")
+
+        monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", no_reset)
+        monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                            lambda dev=None: peak["bytes"])
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "get_device_name",
+                            lambda dev=None: H100)
+        card = torch.device("cuda")
+        with costs._measure("rises", "engine", "s", card):
+            peak["bytes"] = 5000
+        with costs._measure("stays_under", "engine", "s", card):
+            pass
+        with costs._measure("rises", "engine", "s", card):
+            peak["bytes"] = 7000
+        progs = {e["program"]: e
+                 for e in costs.TABLE.snapshot()["programs"].values()}
+        assert progs["rises"]["memory"] == {"peak_bytes": 7000}
+        assert progs["rises"]["calls"] == 2 and progs["rises"]["ms"] == 5.0
+        assert progs["rises"]["timer"] == "cuda_event"
+        assert progs["stays_under"]["memory"] is None
+        assert peak["bytes"] == 7000

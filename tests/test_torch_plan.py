@@ -39,6 +39,11 @@ PORT_DIR = os.path.join(os.path.dirname(os.path.dirname(
 BIG_EPS = 1e12
 #: The knobs the port leaves out of the JAX package's registry.
 NOT_PORTED = ("kernel_backend", "segsum_wide_d_block")
+#: The knobs the port registers with the modules that read them: the
+#: mesh's (ROADMAP step 5) and the resident service's (step 6).
+WITH_THEIR_READERS = ("mesh_topology", "serve_fusion", "serve_fuse_window_ms",
+                      "serve_fuse_batch", "serve_fuse_rows_floor")
+JAX_ONLY = NOT_PORTED + WITH_THEIR_READERS
 
 #: Today's hardcoded defaults, restated literally: the cold-start
 #: criterion is byte identity against these values, so the test must not
@@ -51,15 +56,10 @@ HARDCODED_DEFAULTS = {
     "q_chunk": 0,
     "sweep_config_batch": 0,
     "vector_accumulator": "f32",
-    "serve_fusion": False,
-    "serve_fuse_window_ms": 8,
-    "serve_fuse_batch": 8,
-    "serve_fuse_rows_floor": 8192,
     "sketch_width": 1 << 16,
     "sketch_depth": 2,
     "sketch_candidate_cap": 4096,
     "sketch_backend": "matmul",
-    "mesh_topology": "flat",
     "select_units_cap": int(np.iinfo(np.int32).max),
     "tree_rows_cap": int(np.iinfo(np.int32).max),
 }
@@ -74,6 +74,11 @@ def fresh_plan_state(monkeypatch):
             monkeypatch.delenv(spec.env_var, raising=False)
     for var in (plan_planner.ENV_DIR, "PIPELINEDP_TPU_KERNEL_BACKEND",
                 "PIPELINEDP_TPU_SEGSUM_WIDE_D_BLOCK",
+                "PIPELINEDP_TPU_MESH_TOPOLOGY",
+                "PIPELINEDP_TPU_SERVE_FUSION",
+                "PIPELINEDP_TPU_SERVE_FUSE_WINDOW_MS",
+                "PIPELINEDP_TPU_SERVE_FUSE_BATCH",
+                "PIPELINEDP_TPU_SERVE_FUSE_ROWS_FLOOR",
                 "PIPELINEDP_TPU_COMPILE_CACHE"):
         monkeypatch.delenv(var, raising=False)
     obs.reset()
@@ -600,13 +605,13 @@ class TestNoDirectKnobReads:
 
 class TestCrossPackageKnobs:
     """The port's registry is the JAX package's, less the two knobs the
-    port leaves out, and resolves the same under the same environment
-    and plan file."""
+    port leaves out and the knobs whose readers it has not ported yet,
+    and resolves the same under the same environment and plan file."""
 
     def test_registry_matches_the_jax_package(self):
         jspecs = {s.name: s for s in jplan.knobs.REGISTRY}
         tspecs = {s.name: s for s in plan_knobs.REGISTRY}
-        assert set(jspecs) - set(tspecs) == set(NOT_PORTED)
+        assert set(jspecs) - set(tspecs) == set(JAX_ONLY)
         assert set(tspecs) <= set(jspecs)
         for name, t in tspecs.items():
             j = jspecs[name]
@@ -630,7 +635,8 @@ class TestCrossPackageKnobs:
         {"stream_cache_bytes": 0, "ingest_executor": 0, "q_chunk": 2},
         {"subhist_byte_cap": 1 << 20, "sketch_backend": "xla",
          "stream_chunk_rows": 1234, "kernel_backend": "pallas",
-         "segsum_wide_d_block": 128, "sweep_config_batch": 64},
+         "segsum_wide_d_block": 128, "sweep_config_batch": 64,
+         "mesh_topology": "hier", "serve_fusion": True},
     ]
 
     @pytest.mark.parametrize("env", range(len(ENVS)))
@@ -652,15 +658,15 @@ class TestCrossPackageKnobs:
                              o.ledger().snapshot()["events"]
                              if e["name"] == "plan.skipped_dp_unsafe")
             got[name] = ({k: (r.values[k], r.sources[k])
-                          for k in r.values if k not in NOT_PORTED},
+                          for k in r.values if k not in JAX_ONLY},
                          r.plan_source, skipped)
         assert got["port"] == got["jax"]
 
     def test_autotune_candidates_match(self):
-        jc = [{k: v for k, v in c.items() if k not in NOT_PORTED}
+        jc = [{k: v for k, v in c.items() if k not in JAX_ONLY}
               for c in jplan.autotune_candidates()]
-        # The JAX package's deviations of the two knobs the port leaves
-        # out are the default vector again once those knobs are dropped.
+        # The JAX package's deviations of the knobs the port does not
+        # register are the default vector again once they are dropped.
         base = jc[0]
         jc = [jc[0]] + [c for c in jc[1:] if c != base]
         tc = plan_pkg.autotune_candidates()
