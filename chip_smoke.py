@@ -208,7 +208,24 @@ Phases, one line each; any failure raises and exits non-zero:
     serial executor and the re-shipped pass B; (c) the flagship's wall
     with every plane off and every plane on, three runs each in turns,
     their medians and difference beside the card's name and power limit;
-29. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
+29. the resident service (``pipelinedp_tpu_torch.serve``) on the card,
+    at the JAX bench's serve records (``bench.py:1301-1560``: keys
+    ``zipf(1.3) % 2000``, pids in ``[0, rows / 8)``, COUNT + SUM + MEAN,
+    Laplace, L0 = 4, Linf = 2, three tenants, eps 0.5 per request), in
+    three parts: (a) ``serve_request_latency`` at 500,000 rows with
+    fusion off: a cold request, 12 sequential and 16 concurrent warm
+    ones, each released bit for bit as the same request through
+    ``DPEngine`` on the card (PARITY row 34), with the cold wall, warm
+    p50 and p99, and sequential and concurrent requests/s; (b)
+    ``serve_fused_throughput`` at 20,000 rows: 8 concurrent requests, a
+    warm-up burst and 3 timed rounds, solo then fused; the warm-up
+    bursts bit for bit between the modes and against the port's CPU solo
+    run, every response served, at least one fused batch, K1 launched
+    exactly once per fused batch (and once per request served solo),
+    fused and solo requests/s; (c) one fused burst of 8 requests x
+    500,000 rows: one batch, one K1 launch over the 4M rows, that stack
+    timed against its plain version, its bound and ``index_add_``;
+30. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
     the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
@@ -3212,6 +3229,296 @@ def phase_obs_plan_config4(columns, reference):
         obs.reset()
 
 
+SERVE_ROWS = 500_000
+SERVE_FUSED_ROWS = 20_000
+SERVE_PARTS = 2_000
+SERVE_SEQ, SERVE_CONC, SERVE_FUSED_CONC, SERVE_ROUNDS = 12, 16, 8, 3
+
+
+def serve_columns(n_rows, seed=23):
+    """The columns of the JAX bench's serve records: pids in
+    ``[0, max(rows / 8, 1000))``, keys ``zipf(1.3) % 2000``, values in
+    [0, 10), from one numpy generator in that order."""
+    rng = np.random.default_rng(seed)
+    pids = rng.integers(0, max(n_rows // 8, 1_000), n_rows)
+    keys = (rng.zipf(1.3, n_rows) % SERVE_PARTS).astype(np.int64)
+    values = rng.uniform(0.0, 10.0, n_rows)
+    return pids, keys, values
+
+
+def serve_params(pdt):
+    return pdt.AggregateParams(
+        metrics=[pdt.Metrics.COUNT, pdt.Metrics.SUM, pdt.Metrics.MEAN],
+        noise_kind=pdt.NoiseKind.LAPLACE, max_partitions_contributed=4,
+        max_contributions_per_partition=2, min_value=0.0, max_value=10.0)
+
+
+SERVE_TENANTS = {f"bench-t{i}": (1e6, 1e-3) for i in range(3)}
+
+
+def _serve_request(pdt, columns, i, seed):
+    """Request ``i``: a fresh ``ArrayDataset`` over the shared columns
+    (its own encode cache, as distinct traffic has), tenant ``i % 3``."""
+    from pipelinedp_tpu_torch import serve
+    return serve.ServeRequest(
+        tenant=f"bench-t{i % 3}", params=serve_params(pdt),
+        dataset=pdt.ArrayDataset(*columns), epsilon=0.5, delta=1e-8,
+        rng_seed=seed)
+
+
+def _direct(pdt, columns, seed, device):
+    """The same request through ``DPEngine`` (PARITY row 34)."""
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=0.5, total_delta=1e-8)
+    engine = pdt.DPEngine(acc, pdt.TorchBackend(device, rng_seed=seed))
+    result = engine.aggregate(pdt.ArrayDataset(*columns), serve_params(pdt),
+                              pdt.DataExtractors())
+    acc.compute_budgets()
+    return list(result)
+
+
+def _timed_submit(svc, request):
+    t0 = time.perf_counter()
+    out = svc.submit(request)
+    wall = time.perf_counter() - t0
+    assert out.ok, f"serve refused: {out}"
+    return wall, out
+
+
+def _burst(svc, requests):
+    """Submits ``requests`` from one thread each; returns (wall seconds,
+    per-request walls, responses)."""
+    import threading
+    walls = [None] * len(requests)
+    outs = [None] * len(requests)
+    errors = []
+
+    def one(i):
+        try:
+            walls[i], outs[i] = _timed_submit(svc, requests[i])
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return wall, walls, outs
+
+
+def _serve_counters():
+    from pipelinedp_tpu_torch import obs
+    return {k: v for k, v in obs.ledger().snapshot()["counters"].items()
+            if k.startswith("serve.")}
+
+
+def _counter_delta(before, after, name):
+    return int(after.get(name, 0)) - int(before.get(name, 0))
+
+
+def phase_serve_latency(pdt, tmp):
+    """Phase 29 (a): ``serve_request_latency``, fusion off."""
+    from pipelinedp_tpu_torch import serve
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    columns = serve_columns(SERVE_ROWS)
+    names = sorted(SERVE_TENANTS)
+    seeds = [0] + list(range(1, SERVE_SEQ + 1)) + list(
+        range(100, 100 + SERVE_CONC))
+    outs = {}
+    _reset_launches()
+    with serve.Service(os.path.join(tmp, "latency"), tenants=SERVE_TENANTS,
+                       max_queue=2 * SERVE_CONC,
+                       max_inflight_per_tenant=SERVE_CONC, workers=4,
+                       fusion=False) as svc:
+        cold_s, outs[0] = _timed_submit(
+            svc, _serve_request(pdt, columns, 0, 0))
+        warm = []
+        t0 = time.perf_counter()
+        for i in range(1, SERVE_SEQ + 1):
+            wall, outs[i] = _timed_submit(
+                svc, _serve_request(pdt, columns, i, i))
+            warm.append(wall)
+        seq_s = time.perf_counter() - t0
+        conc_s, conc_walls, conc_outs = _burst(svc, [
+            _serve_request(pdt, columns, i, 100 + i)
+            for i in range(SERVE_CONC)])
+        for i, out in enumerate(conc_outs):
+            outs[100 + i] = out
+    launches = segsum.LAUNCHES["segment_sum_lanes"]
+    assert launches == 1 + SERVE_SEQ + SERVE_CONC, launches
+    warm.sort()
+    # PARITY row 34: each served release is the direct engine's, bytes.
+    for seed in seeds:
+        want = _direct(pdt, columns, seed, "cuda")
+        got = outs[seed].results
+        assert len(want) > 0, "the serve workload kept no partition"
+        _released_identical(got, want, f"serve vs direct, seed {seed}")
+    counters = _serve_counters()
+    rec = dict(rows_per_request=SERVE_ROWS, partitions=SERVE_PARTS,
+               tenants=len(names), sequential_requests=SERVE_SEQ,
+               concurrent_requests=SERVE_CONC, cold_s=cold_s,
+               warm_p50_s=warm[len(warm) // 2],
+               warm_p99_s=warm[min(len(warm) - 1, int(len(warm) * 0.99))],
+               sequential_req_per_s=SERVE_SEQ / seq_s,
+               concurrent_req_per_s=SERVE_CONC / conc_s,
+               concurrent_p50_s=sorted(conc_walls)[SERVE_CONC // 2],
+               kept=len(outs[0].results), k1_launches=launches,
+               identical_to_direct=len(seeds),
+               warm_hits=counters.get("serve.warm_hits", 0),
+               cold_builds=counters.get("serve.cold_builds", 0))
+    log("serve_latency", **rec)
+    return rec
+
+
+def phase_serve_fused(pdt, tmp):
+    """Phase 29 (b): ``serve_fused_throughput``, solo then fused."""
+    from pipelinedp_tpu_torch import obs, serve
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    columns = serve_columns(SERVE_FUSED_ROWS)
+    n = SERVE_FUSED_CONC
+    results = {}
+    for fusion in (False, True):
+        obs.reset()
+        before = _serve_counters()
+        _reset_launches()
+        with serve.Service(os.path.join(tmp, f"fused-{fusion}"),
+                           tenants=SERVE_TENANTS, max_queue=2 * n,
+                           max_inflight_per_tenant=n, workers=4,
+                           fusion=fusion, fuse_window_ms=250,
+                           fuse_max_batch=n) as svc:
+            _, _, warm_outs = _burst(svc, [
+                _serve_request(pdt, columns, i, 1_000 + i)
+                for i in range(n)])
+            best = None
+            for r in range(SERVE_ROUNDS):
+                wall, _, _ = _burst(svc, [
+                    _serve_request(pdt, columns, i, 1_100 + 100 * r + i)
+                    for i in range(n)])
+                best = wall if best is None else min(best, wall)
+        after = _serve_counters()
+        launches = segsum.LAUNCHES["segment_sum_lanes"]
+        served = _counter_delta(before, after, "serve.requests_served")
+        batches = _counter_delta(before, after, "serve.fused_batches")
+        fused_requests = _counter_delta(before, after,
+                                        "serve.fused_requests")
+        fallbacks = _counter_delta(before, after, "serve.fusion_fallbacks")
+        assert served == n * (1 + SERVE_ROUNDS), served
+        assert fallbacks == 0, fallbacks
+        # One K1 launch per request served solo (fusion off, or a window
+        # of one); what is left was launched by the fused batches.
+        solo_served = served - fused_requests
+        per_batch = None
+        if batches:
+            per_batch = (launches - solo_served) / batches
+            assert per_batch == 1, (launches, batches, served,
+                                    fused_requests)
+        else:
+            assert launches == solo_served, (launches, served)
+        results[fusion] = dict(req_per_s=n / best, k1_launches=launches,
+                               k1_per_fused_batch=per_batch,
+                               fused_batches=batches,
+                               fused_requests=fused_requests,
+                               outs=[o.results for o in warm_outs])
+    assert results[True]["fused_batches"] >= 1, "the bursts never fused"
+    for i in range(n):
+        seed = 1_000 + i
+        solo, fused = results[False]["outs"][i], results[True]["outs"][i]
+        assert len(solo) > 0
+        _released_identical(fused, solo, f"fused vs solo, seed {seed}")
+        _released_identical(fused, _direct(pdt, columns, seed, "cpu"),
+                            f"fused on the card vs CPU, seed {seed}")
+    fused = results[True]
+    rec = dict(rows_per_request=SERVE_FUSED_ROWS, concurrent_requests=n,
+               rounds=SERVE_ROUNDS,
+               fused_req_per_s=fused["req_per_s"],
+               solo_req_per_s=results[False]["req_per_s"],
+               speedup_vs_solo=(fused["req_per_s"] /
+                                results[False]["req_per_s"]),
+               fused_batches=fused["fused_batches"],
+               fused_requests=fused["fused_requests"],
+               k1_launches_fused=fused["k1_launches"],
+               k1_launches_solo=results[False]["k1_launches"],
+               k1_per_fused_batch=fused["k1_per_fused_batch"],
+               parity_ok=True, gpu_equals_cpu=True)
+    log("serve_fused", **rec)
+    return rec
+
+
+def phase_serve_burst(pdt, tmp):
+    """Phase 29 (c): one fused burst of 8 requests x 500,000 rows, and
+    its one K1 launch's stack timed."""
+    from pipelinedp_tpu_torch import obs, serve
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    columns = serve_columns(SERVE_ROWS)
+    n = SERVE_FUSED_CONC
+    calls = []
+    real = segsum.segment_sum_lanes
+
+    def capture(cols, pk, P):
+        calls.append((cols, pk, P))
+        return real(cols, pk, P)
+
+    obs.reset()
+    _reset_launches()
+    segsum.segment_sum_lanes = capture
+    try:
+        with serve.Service(os.path.join(tmp, "burst"),
+                           tenants=SERVE_TENANTS, max_queue=2 * n,
+                           max_inflight_per_tenant=n, workers=4,
+                           fusion=True, fuse_window_ms=2_000,
+                           fuse_max_batch=n) as svc:
+            wall, _, outs = _burst(svc, [
+                _serve_request(pdt, columns, i, 2_000 + i)
+                for i in range(n)])
+    finally:
+        segsum.segment_sum_lanes = real
+    counters = _serve_counters()
+    launches = segsum.LAUNCHES["segment_sum_lanes"]
+    assert counters.get("serve.fused_batches") == 1, counters
+    assert counters.get("serve.fused_requests") == n, counters
+    assert launches == 1 and len(calls) == 1, (launches, len(calls))
+    cols, pk, P = calls[0]
+    assert cols.shape[0] == n * SERVE_ROWS, cols.shape
+    got = real(cols, pk, P)
+    want = segsum.segment_sum_lanes_plain(cols, pk, P)
+    torch.cuda.synchronize()
+    max_abs_err = int((got.long() - want.long()).abs().max())
+    assert max_abs_err == 0, f"fused stack mismatch: {max_abs_err}"
+    timings = time_kernel(cols, pk, P)
+    rec = dict(requests=n, rows_per_request=SERVE_ROWS,
+               stack=[int(P), int(cols.shape[1]), int(cols.shape[0])],
+               wall_s=wall,
+               req_per_s=n / wall, k1_launches=launches,
+               kept=[len(o.results) for o in outs],
+               max_abs_err=max_abs_err, **timings)
+    log("serve_burst", **rec)
+    return rec
+
+
+def phase_serve(smi):
+    """Phase 29: the resident service on the card."""
+    import shutil
+    import tempfile
+    import pipelinedp_tpu_torch as pdt
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        latency = phase_serve_latency(pdt, tmp)
+        fused = phase_serve_fused(pdt, tmp)
+        burst = phase_serve_burst(pdt, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("serve", card=smi, latency_concurrent_req_per_s=latency[
+        "concurrent_req_per_s"], fused_req_per_s=fused["fused_req_per_s"],
+        solo_req_per_s=fused["solo_req_per_s"],
+        burst_k1_ms=burst["ms"], burst_k1_bound_ms=burst["bound_ms"])
+    return fused, burst
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3315,12 +3622,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_pld_secure(smi)
     RECORD["pld_secure_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_fused, _ = phase_serve(smi)
+    RECORD["serve_s"] = time.perf_counter() - t0
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
         "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:76",
         "parity": "bit-equal", "launches": launches,
         "launches_heavy_hitters": hh_full["launches"]["segment_sum_lanes"],
+        "launches_serve_fused": serve_fused["k1_launches_fused"],
         "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]}, {

@@ -8,6 +8,11 @@ loaded. The first load in a process records a ``compile.program`` span
 and a build record (``obs/costs.py``) with the build cache's hit or miss.
 Nothing here runs at import time: the CPU tests import every module
 on a host with no ``nvcc``.
+
+The resident service (``serve/``) calls the kernels from several worker
+threads, so a first build holds a per-source lock (one ``nvcc`` per source
+and process, the others wait for its library), and each wrapper counts its
+launches through :func:`count_launch`, under one lock.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -28,6 +34,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_build_locks: Dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
+_launch_lock = threading.Lock()
+
+
+def count_launch(launches: Dict[str, int], name: str) -> None:
+    """``launches[name] += 1``, safe against the service's threads."""
+    with _launch_lock:
+        launches[name] += 1
+
+
+def reset_counts(launches: Dict[str, int]) -> None:
+    """Sets every count of ``launches`` to 0, under the same lock."""
+    with _launch_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def find_nvcc() -> str:
@@ -55,6 +77,16 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
+    with _locks_lock:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
+        lib = _libs.get(name)  # another thread may have built it meanwhile
+        if lib is None:
+            lib = _build_and_load(name)
+    return lib
+
+
+def _build_and_load(name: str) -> ctypes.CDLL:
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
@@ -64,7 +96,7 @@ def load(name: str) -> ctypes.CDLL:
     with costs.build_span(name, cached):
         if not cached:
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
+            tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
             proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                                   capture_output=True, text=True)
             if proc.returncode != 0:

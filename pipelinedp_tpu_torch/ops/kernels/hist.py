@@ -29,14 +29,14 @@ from typing import Dict, Optional
 import torch
 
 from pipelinedp_tpu_torch.obs import costs
+from pipelinedp_tpu_torch.ops.kernels import _build
 
 #: Kernel launches since the last reset (the CPU path never counts).
 LAUNCHES: Dict[str, int] = {"subtree_counts_multi": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 def subtree_counts_multi_plain(qpk: torch.Tensor, leaf: torch.Tensor,
@@ -150,7 +150,6 @@ def _subtree_counts_multi(qpk, leaf, kept, sub_starts, p_offsets, Pb, span,
         counts = subtree_counts_multi_plain(qpk, leaf, kept, sub_starts,
                                             p_offsets, Pb, span)
         return counts if out is None else out.add_(counts)
-    from pipelinedp_tpu_torch.ops.kernels import _build
     fn = _build.load("hist_bin").hist_bin_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -169,5 +168,5 @@ def _subtree_counts_multi(qpk, leaf, kept, sub_starts, p_offsets, Pb, span,
                  qpk.shape[0], T, int(Pb), Qc, int(span), stream)
     if err != 0:
         raise RuntimeError(f"hist_bin launch failed: CUDA error {err}")
-    LAUNCHES["subtree_counts_multi"] += 1
+    _build.count_launch(LAUNCHES, "subtree_counts_multi")
     return out

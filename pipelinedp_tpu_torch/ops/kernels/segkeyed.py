@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from pipelinedp_tpu_torch.obs import costs
+from pipelinedp_tpu_torch.ops.kernels import _build
 
 #: Kernel launches since the last reset (the CPU path never counts).
 LAUNCHES: Dict[str, int] = {"segmented_sums": 0}
@@ -76,8 +77,7 @@ class KeyLayout(NamedTuple):
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 def key_layout(keys: torch.Tensor, P: int,
@@ -284,7 +284,6 @@ def _launcher():
     """``segkeyed_launch`` of the built ``csrc/segkeyed.cu``, loaded once:
     the call per launch is then a ctypes call and nothing more."""
     if not _LAUNCH:
-        from pipelinedp_tpu_torch.ops.kernels import _build
         lib = _build.load("segkeyed")
         if ((lib.segkeyed_ring_rows(), lib.segkeyed_ring_stages(),
              lib.segkeyed_box_rows(), lib.segkeyed_box_stages()) !=
@@ -342,5 +341,5 @@ def _segmented_sums(values: torch.Tensor,
                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"segkeyed launch failed: CUDA error {err}")
-    LAUNCHES["segmented_sums"] += 1
+    _build.count_launch(LAUNCHES, "segmented_sums")
     return out

@@ -33,6 +33,7 @@ from typing import Dict
 import torch
 
 from pipelinedp_tpu_torch.obs import costs
+from pipelinedp_tpu_torch.ops.kernels import _build
 
 #: Calls of each wrapper that launched on the card since the last reset,
 #: one per call whatever the kernels it launched: K1's call is its
@@ -52,8 +53,7 @@ MAX_COLS = 1 << 28
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 def wide_tile(W: int, P: int) -> int:
@@ -61,7 +61,6 @@ def wide_tile(W: int, P: int) -> int:
     over ``P`` partitions, or 0 where ``segment_sum_wide`` launches K1's
     kernels: ``segsum_wide_tile`` of ``csrc/segsum_wide.cu``, which holds
     the rule (this builds the library on first use)."""
-    from pipelinedp_tpu_torch.ops.kernels import _build
     fn = _build.load("segsum_wide").segsum_wide_tile
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -106,7 +105,6 @@ def _launch(name: str, source: str, symbol: str, cols: torch.Tensor,
     """Launches ``symbol`` of ``csrc/<source>.cu`` on PyTorch's current
     stream and counts the call under ``name``; ``hot_words`` > 0 hands
     it a scratch of that many int32 words before the stream."""
-    from pipelinedp_tpu_torch.ops.kernels import _build
     fn = getattr(_build.load(source), symbol)
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
@@ -128,7 +126,7 @@ def _launch(name: str, source: str, symbol: str, cols: torch.Tensor,
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{source} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    _build.count_launch(LAUNCHES, name)
     return out
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from pipelinedp_tpu_torch.obs import costs
+from pipelinedp_tpu_torch.ops.kernels import _build
 
 #: Kernel launches since the last reset (the CPU path never counts).
 LAUNCHES: Dict[str, int] = {"segment_totals": 0}
@@ -58,8 +59,7 @@ SEAM_LAYOUTS = ("thread", "warp", "tile", "tile_last_row", "two_tiles",
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _build.reset_counts(LAUNCHES)
 
 
 def segment_totals_plain(values: torch.Tensor,
@@ -178,7 +178,6 @@ def _launcher():
     """``segtotal_launch`` of the built ``csrc/segtotal.cu``, loaded once:
     the call per launch is then a ctypes call and nothing more."""
     if not _LAUNCH:
-        from pipelinedp_tpu_torch.ops.kernels import _build
         lib = _build.load("segtotal")
         lib.segtotal_tile_rows.restype = ctypes.c_int
         if lib.segtotal_tile_rows() != TILE_ROWS:
@@ -246,5 +245,5 @@ def _segment_totals(values: torch.Tensor,
                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"segtotal launch failed: CUDA error {err}")
-    LAUNCHES["segment_totals"] += 1
+    _build.count_launch(LAUNCHES, "segment_totals")
     return out

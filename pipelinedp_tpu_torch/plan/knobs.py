@@ -5,9 +5,10 @@ Port of ``pipelinedp_tpu/plan/knobs.py``, without two of its knobs:
 the CPU their plain versions do; a knob that could send the card to the
 plain versions would hide the kernels) and ``segsum_wide_d_block`` (a TPU
 VMEM tile hint with no counterpart here). A plan file that names either is
-handled as any knob this registry does not know: ignored. The knobs of
-the mesh (``mesh_topology``) and of the resident service (``serve_*``)
-are registered with the modules that read them.
+handled as any knob this registry does not know: ignored. The mesh's
+knob (``mesh_topology``) is registered with the module that reads it
+(ROADMAP step 5); the resident service's (``serve_*``) are read by
+``serve/service.py`` and ``serve/fusion.py``.
 
 The stack grew a forest of hand-set execution knobs — HBM byte caps,
 stream batch sizing, cache budgets, the ingest-executor switch — each
@@ -166,6 +167,40 @@ REGISTRY: Tuple[KnobSpec, ...] = (
         "quantizes at the clip bound), so a plan never flips it — env "
         "override, test seam and default only.",
         choices=("f32", "fx")),
+    KnobSpec(
+        "serve_fusion", "bool", False,
+        "PIPELINEDP_TPU_SERVE_FUSION", None, True, bool,
+        "Shape-bucketed request fusion in the resident service "
+        "(serve/fusion.py): admitted compatible requests of one shape "
+        "bucket run as ONE batched device path (one K1 launch per fused "
+        "batch). dp-safe: fusion on/off is bit-identical per request — "
+        "per-request noise keys, per-request row tie-breaks and run "
+        "boundaries that break at every request keep every request's "
+        "stream its own. Default off; the serve knobs carry no module "
+        "seam, so resolving them never imports serve/ into batch mode "
+        "(Service constructor args are the injection point)."),
+    KnobSpec(
+        "serve_fuse_window_ms", "milliseconds", 8,
+        "PIPELINEDP_TPU_SERVE_FUSE_WINDOW_MS", None, True, int,
+        "Bounded wait window of an open fusion bucket: the first "
+        "request in a bucket waits at most this long for companions "
+        "before the batch flushes. A latency<->throughput trade only "
+        "(dp-safe; outputs are window-invariant)."),
+    KnobSpec(
+        "serve_fuse_batch", "requests per fused batch", 8,
+        "PIPELINEDP_TPU_SERVE_FUSE_BATCH", None, True, int,
+        "Max requests one fused batch carries; a full bucket flushes "
+        "immediately, before its window expires. dp-safe (batch "
+        "membership never reaches the per-request noise streams)."),
+    KnobSpec(
+        "serve_fuse_rows_floor", "rows (pow2 bucket floor)", 8192,
+        "PIPELINEDP_TPU_SERVE_FUSE_ROWS_FLOOR", None, True, int,
+        "Smallest row-bucket edge: requests bucket at max(floor, the "
+        "next 8192-row multiple of their rows), the JAX package's "
+        "buckets. Raising the floor merges small-request buckets into "
+        "bigger batches; clamped to >= 8192. dp-safe: the batched path "
+        "concatenates its members' rows unpadded, so the edge decides "
+        "only who fuses with whom."),
     KnobSpec(
         "sketch_width", "hash buckets (row-0 selection axis)", 1 << 16,
         "PIPELINEDP_TPU_SKETCH_WIDTH", None, False, int,

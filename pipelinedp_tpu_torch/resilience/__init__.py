@@ -1,6 +1,8 @@
 """Checkpoint and resume of a stream, the fault injection that tests them,
 and the clock and retry policy the live monitor and the health probes use.
-The chaos harness and the fault transport are ROADMAP step 7b."""
+``health.DEGRADED_ENV`` arms the resident service's degraded mode. The
+chaos harness and the fault transport are ROADMAP step 7b; the health
+probe and the mesh supervisor step 5."""
 
 from pipelinedp_tpu_torch.resilience.clock import (Clock, FakeClock,
                                                    SystemClock)
@@ -13,9 +15,10 @@ from pipelinedp_tpu_torch.resilience.checkpoint import (CheckpointMismatch,
                                                         as_store)
 from pipelinedp_tpu_torch.resilience.faults import (ChunkFailure,
                                                     FaultInjected, FaultPlan,
+                                                    ServeKill,
                                                     injected_faults)
 
 __all__ = ["CheckpointMismatch", "CheckpointStore", "ChunkFailure", "Clock",
            "FakeClock", "FaultInjected", "FaultPlan", "RetriesExhausted",
-           "RetryPolicy", "StreamCheckpoint", "SystemClock", "as_store",
-           "call_with_retry", "injected_faults"]
+           "RetryPolicy", "ServeKill", "StreamCheckpoint", "SystemClock",
+           "as_store", "call_with_retry", "injected_faults"]

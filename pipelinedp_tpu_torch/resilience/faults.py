@@ -15,13 +15,17 @@ sites:
   and the chunk's dispatch;
 * ``check_sketch_chunk(b)``: raise ``ChunkFailure`` when the sketch-first
   phase-1 accumulation (``sketch/engine.py``) dispatches chunk ``b``,
-  between the stager's handoff and the binner.
+  between the stager's handoff and the binner;
+* ``check_serve_request(i)``: raise ``ServeKill`` when the resident
+  service (``serve/``) reaches admitted request ``i``, between the
+  durable budget reserve and its commit (the reserve must survive a
+  restart).
 
 A plan installs in process, with the ``injected_faults(plan)`` context
-manager. A port of the chunk, sweep and sketch sites of
-``pipelinedp_tpu/resilience/faults.py``; its other sites (serve,
-coordinator, mesh) and its ``PIPELINEDP_TPU_FAULTS`` transport to
-subprocess harnesses belong to later ROADMAP steps.
+manager. A port of the chunk, sweep, sketch and serve sites of
+``pipelinedp_tpu/resilience/faults.py``; its other sites (coordinator,
+mesh, fetch holds) and its ``PIPELINEDP_TPU_FAULTS`` transport to
+subprocess harnesses belong to ROADMAP steps 5 and 7b.
 """
 
 from __future__ import annotations
@@ -39,6 +43,11 @@ class ChunkFailure(FaultInjected):
     """Injected failure while processing one streaming chunk."""
 
 
+class ServeKill(FaultInjected):
+    """Injected hard kill of a resident-service request mid-compute
+    (between the durable budget reserve and its commit/release)."""
+
+
 @dataclasses.dataclass(frozen=True)
 class FaultPlan:
     #: streaming batch indices whose pass-A dispatch raises
@@ -54,6 +63,12 @@ class FaultPlan:
     #: ``ChunkFailure`` (kills a sketch-first phase 1 mid-stream; the
     #: ingest stager must drain to zero orphan ``pdp-*`` threads).
     fail_sketch_chunks: Tuple[int, ...] = ()
+    #: serve-request admission indices (0-based, in admission order)
+    #: whose compute raises ``ServeKill`` mid-request — AFTER the
+    #: durable budget reserve, BEFORE commit/release. The resident
+    #: service treats any ``FaultInjected`` as a hard process kill:
+    #: the reserved debit stands (noise may already have been drawn).
+    fail_serve_requests: Tuple[int, ...] = ()
 
 
 _plan: Optional[FaultPlan] = None
@@ -115,3 +130,17 @@ def check_sketch_chunk(index: int) -> None:
     if plan is not None and index in plan.fail_sketch_chunks:
         _record("sketch_chunk_failure", index=int(index))
         raise ChunkFailure(f"injected failure at sketch chunk {index}")
+
+
+def check_serve_request(index: int) -> None:
+    """Raise :class:`ServeKill` when the active plan kills serve
+    request ``index`` (admission order) mid-compute. The serve worker
+    lets this propagate WITHOUT releasing the budget reserve —
+    simulating the process dying between reserve and commit, the
+    window the durable ledger's replay semantics exist for."""
+    plan = _plan
+    if plan is not None and index in plan.fail_serve_requests:
+        _record("serve_kill", index=int(index))
+        raise ServeKill(
+            f"injected hard kill at serve request {index} (reserved "
+            "budget debit must survive the restart)")

@@ -106,6 +106,13 @@ def _pad_pow2(n: int, minimum: int = 8) -> int:
     return max(minimum, 1 << (n - 1).bit_length())
 
 
+def _pad_rows(n: int) -> int:
+    """``jax_engine._pad_rows``: the next multiple of 8192 rows. The port
+    pads no rows (``put_on_device``); the serve fusion layer uses this
+    edge only to bucket requests as the JAX package does."""
+    return max(8192, -(-n // 8192) * 8192)
+
+
 def _f32(v: float) -> float:
     """``v`` rounded to float32, as JAX's weak typing rounds a Python
     float that meets a float32 array."""
@@ -557,14 +564,22 @@ def _fused_body(config: FusedConfig, num_partitions: int, pid, pk, values,
 
 
 def _lexsort_pid_hpk_tie(pid: torch.Tensor, hpk: torch.Tensor,
-                         tie: torch.Tensor) -> torch.Tensor:
+                         tie: torch.Tensor,
+                         req: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``jnp.lexsort((tie, hpk, pid))``: the permutation that orders rows
     by pid, then hpk, then tie, ties by position. Two stable sorts, last
     key first: (hpk, tie) packed into one int64 — hpk shifted into the
-    signed range, since unsigned order must survive in int64 — then pid."""
+    signed range, since unsigned order must survive in int64 — then pid.
+    A fused batch (``fused_aggregate_batch``) passes each row's request
+    index ``req`` as the most significant key: the second sort then takes
+    ``req << 32 | (pid + 2^31)``, one int64, so the batch sorts as often
+    as one request does."""
     inner = ((hpk - 2**31) << 32) | tie
     order = torch.sort(inner, stable=True).indices
-    by_pid = torch.sort(pid[order], stable=True).indices
+    outer = pid[order]
+    if req is not None:
+        outer = (req[order] << 32) | (outer + 2**31)
+    by_pid = torch.sort(outer, stable=True).indices
     return order[by_pid]
 
 
@@ -600,9 +615,10 @@ class Bounded(NamedTuple):
     sorted row order: pk; the clipped values zeroed outside the kept rows
     (or None); the kept-row mask; the kept-segment marker (None without
     privacy ids); the first row of each (pid, pk) segment (None without
-    privacy ids); the unclipped values (or None); and, for the
+    privacy ids); the unclipped values (or None); for the
     per-partition-sum-bounds SUM, each contributing segment's clipped
-    float32 total on its marker row, zero elsewhere (or None)."""
+    float32 total on its marker row, zero elsewhere (or None); and in a
+    fused batch each row's request index (None for one request)."""
     spk: torch.Tensor
     masked: Optional[torch.Tensor]
     keep_row: torch.Tensor
@@ -610,6 +626,7 @@ class Bounded(NamedTuple):
     new_seg: Optional[torch.Tensor]
     svalues: Optional[torch.Tensor]
     contrib: Optional[torch.Tensor]
+    sreq: Optional[torch.Tensor] = None
 
 
 def _clip_sum(config: FusedConfig, x):
@@ -619,53 +636,97 @@ def _clip_sum(config: FusedConfig, x):
                        _f32(config.max_sum_per_partition))
 
 
-def _bound_rows(config: FusedConfig, pid, pk, values, key) -> Bounded:
-    """Contribution bounding in row space (``jax_engine._partials`` up to
-    the reduction); see ``Bounded``."""
+class _Streams(NamedTuple):
+    """One request's bounding streams over its rows: the segment hash
+    ``hpk``, the row tie-breaks and the total-cap sample bits (a
+    zero-argument function: they are drawn after the sort has freed
+    ``hpk`` and the tie-breaks, so the three never sit in memory
+    together)."""
+    hpk: torch.Tensor
+    tiebreak: torch.Tensor
+    tie_m: Any
+
+
+def _bounding_streams(pid, pk, key) -> _Streams:
+    """The bounding streams of one request under its bounding key: the
+    tie-breaks keyed by row position, the per-run salt of the segment
+    hash, and the total-cap sample bits."""
     n = pid.shape[0]
     device = pid.device
-
-    if config.bounds_already_enforced:
-        # No privacy ids: every row is its own "segment"; no sampling.
-        row_keep = torch.ones(n, dtype=torch.bool, device=device)
-        masked = (_clip_values(config, values) if config.needs_values
-                  else None)
-        contrib = None
-        if config.per_partition_bounds:
-            # One row = one segment: the per-segment sum clip is a row
-            # clip, and the clipped row is also the masked value.
-            masked = contrib = _clip_sum(config, masked)
-        return Bounded(pk, masked, row_keep, None, None, values, contrib)
-
-    # Bounding streams: tie-breaks keyed by row position, the per-run
-    # salt, and the total-cap sample bits.
     k_tie, k_salt, k_m = prng.split(key, 3)
     salt = int(prng.bits(k_salt, ()))
     tiebreak = counter_rng.row_bits(k_tie, n, device)
-    big_pid = pid.to(torch.int64)
-    big_pk = pk.to(torch.int64)
     # Sampling priority of segment (pid, pk): an independent uniform
     # permutation of each pid's partitions. For fixed (pid, salt),
     # pk -> hpk is injective, so (pid, hpk) identifies the segment.
-    hpk = seg_ops.fmix32(seg_ops.fmix32(big_pid ^ salt) ^ big_pk)
-    sort_idx = _lexsort_pid_hpk_tie(big_pid, hpk, tiebreak)
-    del hpk, tiebreak
+    hpk = seg_ops.fmix32(seg_ops.fmix32(pid.to(torch.int64) ^ salt)
+                         ^ pk.to(torch.int64))
+    return _Streams(hpk, tiebreak,
+                    lambda: counter_rng.row_bits(k_m, n, device))
+
+
+def _bound_rows(config: FusedConfig, pid, pk, values, key) -> Bounded:
+    """Contribution bounding in row space (``jax_engine._partials`` up to
+    the reduction); see ``Bounded``."""
+    if config.bounds_already_enforced:
+        return _bound_enforced(config, pk, values)
+    return _bound_sorted(config, pid, pk, values,
+                         _bounding_streams(pid, pk, key))
+
+
+def _bound_enforced(config: FusedConfig, pk, values, req=None) -> Bounded:
+    """No privacy ids: every row is its own "segment"; no sampling."""
+    row_keep = torch.ones(pk.shape[0], dtype=torch.bool, device=pk.device)
+    masked = _clip_values(config, values) if config.needs_values else None
+    contrib = None
+    if config.per_partition_bounds:
+        # One row = one segment: the per-segment sum clip is a row clip,
+        # and the clipped row is also the masked value.
+        masked = contrib = _clip_sum(config, masked)
+    return Bounded(pk, masked, row_keep, None, None, values, contrib, req)
+
+
+def _bound_sorted(config: FusedConfig, pid, pk, values, streams: _Streams,
+                  req=None) -> Bounded:
+    """The bounding proper: one sort by (pid, hpk, tie), then Linf/L0 (or
+    total-cap) sampling in row space. ``req`` (int64 [N], a fused batch's
+    request index of each row) is the most significant sort key, and
+    every run boundary also breaks where it changes, so no run crosses
+    from one request into the next."""
+    n = pid.shape[0]
+    device = pid.device
+    big_pid = pid.to(torch.int64)
+    sort_idx = _lexsort_pid_hpk_tie(big_pid, streams.hpk, streams.tiebreak,
+                                    req)
+    tie_m = streams.tie_m
+    del streams  # the only reference: frees hpk and the tie-breaks
     spid = big_pid[sort_idx]
     spk = pk[sort_idx]
     svalues = values[sort_idx] if config.needs_values else None
     idx = torch.arange(n, device=device)
 
     new_pid = (idx == 0) | (spid != torch.roll(spid, 1))
+    sreq = None
+    if req is not None:
+        sreq = req[sort_idx]
+        new_pid = new_pid | (sreq != torch.roll(sreq, 1))
     new_seg = new_pid | (spk != torch.roll(spk, 1))
     if config.max_contributions is not None:
         # Total-cap mode: a uniform without-replacement sample of M rows
         # per privacy unit, ranked by an independent random key
         # (``lexsort((tie_m, pid))``: pid < 2^31, so pid << 32 | tie_m is
-        # one int64 key), carried back through the permutations.
-        tie_m = counter_rng.row_bits(k_m, n, device)
-        order_m = torch.sort((big_pid << 32) | tie_m, stable=True).indices
+        # one int64 key), carried back through the permutations. A fused
+        # batch puts the request first with one more stable sort: the
+        # three keys need 66 bits.
+        order_m = torch.sort((big_pid << 32) | tie_m(),
+                             stable=True).indices
+        if req is not None:
+            order_m = order_m[torch.sort(req[order_m], stable=True).indices]
         mpid = big_pid[order_m]
         new_pid_m = (idx == 0) | (mpid != torch.roll(mpid, 1))
+        if req is not None:
+            mreq = req[order_m]
+            new_pid_m = new_pid_m | (mreq != torch.roll(mreq, 1))
         keep_sorted = (seg_ops.rank_in_run(new_pid_m) <
                        config.max_contributions)
         keep_m = torch.zeros(n, dtype=torch.bool, device=device)
@@ -697,7 +758,7 @@ def _bound_rows(config: FusedConfig, pid, pk, values, key) -> Bounded:
         tot = segtotal.segment_totals(masked.contiguous(), new_seg)
         contrib = torch.where(seg_marker, _clip_sum(config, tot), 0.0)
     return Bounded(spk, masked, keep_row, seg_marker, new_seg, svalues,
-                   contrib)
+                   contrib, sreq)
 
 
 # Fixed-point value accumulation: quantization grid (2^23 steps over the
@@ -788,24 +849,29 @@ def _clip_values(config: FusedConfig, values):
 
 
 def _lane_stack(config: FusedConfig, masked, keep_row, seg_marker=None,
-                fx_bits: int = 7, contrib=None):
+                fx_bits: int = 7, contrib=None,
+                capacity_rows: Optional[int] = None):
     """The int32 [N, C] stack that ``_reduce_per_pk`` reduces, and the
     names of its value lanes: the kept-row count, the segment marker (when
     given) and the fixed-point lanes of each value column; the
     per-partition-bounds ``sum`` column quantizes ``contrib`` on the
     marker rows. The value arithmetic is float32, as in the JAX package:
     ``y * scale`` rounds ``scale`` to float32 first (JAX's weak typing),
-    and ``torch.round`` rounds half to even like ``jnp.round``."""
+    and ``torch.round`` rounds half to even like ``jnp.round``.
+    ``capacity_rows`` bounds the rows of any one partition (a fused
+    batch's largest member; all rows by default): lanes of ``fx_bits``
+    bits must sum that many rows exactly."""
     int_cols = [keep_row.to(torch.int32)]
     lane_names: List[str] = []
     if seg_marker is not None:
         int_cols.append(seg_marker.to(torch.int32))
     n_lanes = -(-_FX_PAYLOAD_BITS // fx_bits)
     layout = _fixedpoint_layout(config)
-    if (layout or _vector_fx(config)) and max(keep_row.shape[0], 1) * (
+    rows = keep_row.shape[0] if capacity_rows is None else capacity_rows
+    if (layout or _vector_fx(config)) and max(rows, 1) * (
             (1 << fx_bits) - 1) >= _LANE_SUM_CAP:
         raise NotImplementedError(
-            f"{keep_row.shape[0]} rows overflow {fx_bits}-bit fixed-point "
+            f"{rows} rows overflow {fx_bits}-bit fixed-point "
             "lanes; pass a smaller fx_bits (see _fx_plan)")
     if any(spec.name != "sum" for spec in layout):
         middle = _f32(dp_computations.compute_middle(config.min_value,
@@ -848,7 +914,8 @@ def _vector_lanes(config: FusedConfig, masked, keep_row, fx_bits: int):
 
 
 def _reduce_per_pk(config: FusedConfig, pk_safe, masked, keep_row, P,
-                   seg_marker=None, fx_bits: int = 7, contrib=None):
+                   seg_marker=None, fx_bits: int = 7, contrib=None,
+                   capacity_rows: Optional[int] = None):
     """Per-pk accumulator columns straight from row space, as (columns
     dict, privacy-id-count column or None), all int32 [P]: the lane stack
     reduced by ONE ``segment_sum_lanes`` call (kernel K1 on the card).
@@ -858,7 +925,7 @@ def _reduce_per_pk(config: FusedConfig, pk_safe, masked, keep_row, P,
     package's float32 ``jax.ops.segment_sum``, which adds in another
     order."""
     stack, lane_names = _lane_stack(config, masked, keep_row, seg_marker,
-                                    fx_bits, contrib)
+                                    fx_bits, contrib, capacity_rows)
     pk32 = pk_safe.to(torch.int32).contiguous()
     stacked = segsum.segment_sum_lanes(stack, pk32, P)
     part = {"count": stacked[:, 0]}
@@ -1120,9 +1187,10 @@ def _walk_level(noise_kind, key, scale, raw, base, level_offset, lo, hi,
     The float32 arithmetic is XLA's CPU code for the walk's program, as
     measured against it (``tests/test_torch_percentile.py``): the total of
     the children is a tree of halves at every level, and the noisy counts
-    are one FMA, except at the root, where XLA recomputes the counts
-    unfused (two roundings) for the running sum and the total and
-    contracts the rank's numerator ``target * total - cum`` instead."""
+    are one FMA, except at the root, where XLA contracts the rank's
+    numerator ``target * total - cum`` instead and, when the counts are
+    broadcast over more than one quantile, recomputes them unfused (two
+    roundings) for the running sum and the total."""
     node_ids = (level_offset + base)[..., None] + torch.arange(
         b, dtype=torch.int32, device=base.device)
     root = level_offset == 0
@@ -1134,7 +1202,10 @@ def _walk_level(noise_kind, key, scale, raw, base, level_offset, lo, hi,
         draw, factor = _scaled_node_noise(noise_kind, key, node_ids, scale,
                                           pk_index)
     noisy = torch.clamp_min(prng.fma32(draw, factor, raw), 0.0)
-    scan = torch.clamp_min(raw + draw * factor, 0.0) if root else None
+    # With one quantile there is no broadcast over Q, and XLA's root
+    # takes its running sum and total over the fused counts too.
+    scan = (torch.clamp_min(raw + draw * factor, 0.0)
+            if root and node_ids.shape[1] > 1 else None)
     return _walk_step(noisy, lo, hi, target, leaf_lo, done, b, w, scan=scan,
                       halves_total=True, rank_fma=root)
 
@@ -1646,6 +1717,161 @@ def _run_fused(config: FusedConfig, encoded: EncodedData, scales,
     return keep_pk, raw, fx_bits
 
 
+def fused_fx_bits(config: FusedConfig, padded_rows: int) -> int:
+    """``jax_engine.fused_fx_bits``: the fixed-point lane width of a fused
+    bucket, sized from the bucket's row edge, a bound on every member's
+    rows. A solo request sizes from its own rows and may pick wider lanes;
+    both are exact integer decompositions of the same quantized values,
+    so the folded float64 release is bit-identical either way."""
+    if _fixedpoint_layout(config) or _vector_fx(config):
+        return _fx_plan(max(int(padded_rows), 1))[0]
+    return 12
+
+
+@dataclasses.dataclass
+class FusionPrep:
+    """One request's host-side preparation for a fused batch
+    (``jax_engine.FusionPrep``): exactly the inputs a solo run would feed
+    the device path. Built only by ``LazyFusedResult.prepare_fused``
+    (after ``compute_budgets()``); consumed by ``serve/fusion.py``, which
+    hands a group of them to ``fused_aggregate_batch``."""
+    lazy: "LazyFusedResult"
+    encoded: EncodedData
+    P: int
+    P_pad: int
+    scales: np.ndarray
+    keep_table: np.ndarray
+    thr: float
+    s_scale: float
+    min_count: float
+    rows_per_uid: float
+    key: torch.Tensor
+
+    def stack_signature(self) -> Tuple:
+        """The JAX package's rule for which members of a bucket batch
+        together: its stacked program needs equal keep-table and
+        noise-scale shapes. The port's batch takes any mix, but splits a
+        bucket's batch by the same rule, so its batches, events and
+        counters are the JAX package's."""
+        return (self.scales.shape, self.keep_table.shape,
+                int(np.asarray(self.encoded.values).ndim))
+
+
+@costs.instrumented(phase="serve_fused")
+def _fused_batch_body(config: FusedConfig, num_partitions: int, pid, pk,
+                      values, sizes: Tuple[int, ...], preps, fx_bits: int):
+    """The device path of a fused batch of requests without percentiles:
+    ``pid``/``pk``/``values`` are the members' rows concatenated (member
+    ``b`` holds ``sizes[b]`` rows, unpadded). Each member keeps its own
+    root split, bounding streams, selection and noise keys; the bounding
+    sorts all rows once by (request, pid, hpk, tie) with every run
+    breaking at a request boundary, K4 runs once on the flat rows, and the
+    reduction offsets each member's partitions by ``b * num_partitions``,
+    so ONE ``segment_sum_lanes`` call (K1) reduces the whole batch (and
+    one ``segment_sum_wide`` call, K2, its fixed-point VECTOR_SUM). K1 and
+    K2 give exact int32 totals per segment, so each member's columns are
+    its solo columns bit for bit. Returns (keep [B, P], columns
+    [B, P] or [B, P, W])."""
+    P = num_partitions
+    device = pk.device
+    roots = [prng.split(prep.key, 3) for prep in preps]
+    req = torch.repeat_interleave(
+        torch.arange(len(sizes), device=device),
+        torch.as_tensor(sizes, device=device))
+    if config.bounds_already_enforced:
+        b = _bound_enforced(config, pk, values, req)
+    else:
+        starts = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+        parts = [_bounding_streams(pid[lo:hi], pk[lo:hi], k[0])
+                 for lo, hi, k in zip(starts, starts[1:], roots)]
+        tie_ms = [s.tie_m for s in parts]
+        streams = _Streams(torch.cat([s.hpk for s in parts]),
+                           torch.cat([s.tiebreak for s in parts]),
+                           lambda: torch.cat([f() for f in tie_ms]))
+        del parts
+        b = _bound_sorted(config, pid, pk, values, streams, req)
+        del streams
+    flat_pk = (b.spk.to(torch.int64) + b.sreq * P).to(torch.int32)
+    part, nseg = _reduce_per_pk(config, flat_pk, b.masked, b.keep_row,
+                                len(sizes) * P, seg_marker=b.seg_marker,
+                                fx_bits=fx_bits, contrib=b.contrib,
+                                capacity_rows=max(sizes))
+    del b, flat_pk
+    if config.bounds_already_enforced:
+        nseg = part["count"]
+    keeps, outs = [], []
+    for i, (prep, (_, k_sel, k_noise)) in enumerate(zip(preps, roots)):
+        rows = slice(i * P, (i + 1) * P)
+        keep_i, out_i = _selection_and_metrics(
+            config, P, {k: v[rows] for k, v in part.items()}, nseg[rows],
+            prep.keep_table, prep.thr, prep.s_scale, prep.min_count,
+            prep.rows_per_uid, k_sel, k_noise=k_noise,
+            noise_scales=prep.scales)
+        keeps.append(keep_i)
+        outs.append(out_i)
+    return torch.stack(keeps), {k: torch.stack([o[k] for o in outs])
+                                for k in outs[0]}
+
+
+def fused_aggregate_batch(config: FusedConfig, num_partitions: int,
+                          preps: Sequence[FusionPrep], fx_bits: int,
+                          device) -> Tuple[np.ndarray, Dict[str, Any]]:
+    """The port's ``jax_engine.fused_aggregate_batch_kernel``: one device
+    path for a whole group of prepared requests of one bucket, fetched to
+    the host once. Returns (keep [B, P] bool, columns [B, P] or
+    [B, P, W]) as host arrays; member ``b``'s slice is what its solo run
+    computes (``LazyFusedResult.finish_from_fused`` releases it).
+
+    Without percentiles the members' rows run concatenated through
+    ``_fused_batch_body``: one K1 launch for the batch. A bucket whose
+    config has PERCENTILE runs its members through the solo
+    ``_fused_body`` one after another (K1 and K3 launch per member);
+    batching the quantile walk is the next step (ROADMAP step 6)."""
+    device = torch.device(device)
+    with obs.device_annotation("pdp.fused_aggregate_batch"):
+        if config.percentiles:
+            runs = []
+            for prep in preps:
+                pid, pk, values = put_on_device(
+                    prep.encoded, device, with_values=config.needs_values)
+                runs.append(_fused_body(
+                    config, num_partitions, pid, pk, values, prep.scales,
+                    prep.keep_table, prep.thr, prep.s_scale, prep.min_count,
+                    prep.rows_per_uid, prep.key, fx_bits))
+            keep = torch.stack([k for k, _ in runs])
+            raw = {k: torch.stack([r[k] for _, r in runs])
+                   for k in runs[0][1]}
+            del runs
+        else:
+            cols = [put_on_device(prep.encoded, device,
+                                  with_values=config.needs_values)
+                    for prep in preps]
+            pid = torch.cat([c[0] for c in cols])
+            pk = torch.cat([c[1] for c in cols])
+            values = (torch.cat([c[2] for c in cols])
+                      if config.needs_values else None)
+            del cols
+            keep, raw = _fused_batch_body(
+                config, num_partitions, pid, pk, values,
+                tuple(int(prep.encoded.n_rows) for prep in preps), preps,
+                fx_bits)
+        # The [B, P] columns ride one packed int32 block (float columns
+        # bitcast into it), as the solo fetch does; [B, P, W] columns
+        # follow one each.
+        flat = sorted(k for k, v in raw.items() if v.dim() == 2)
+        block = torch.stack([keep.to(torch.int32)] + [
+            raw[k] if raw[k].dtype == torch.int32 else
+            raw[k].contiguous().view(torch.int32) for k in flat]).cpu().numpy()
+        raw_h = {k: (block[1 + i] if raw[k].dtype == torch.int32 else
+                     block[1 + i].view(np.float32))
+                 for i, k in enumerate(flat)}
+        for k, v in raw.items():
+            if v.dim() != 2:
+                raw_h[k] = v.cpu().numpy()
+        _sync(device)
+    return block[0] > 0, raw_h
+
+
 class LazyFusedResult:
     """Iterable of (partition_key, MetricsTuple); runs the device path on
     first iteration — after ``compute_budgets()``, honoring the two-phase
@@ -1681,6 +1907,11 @@ class LazyFusedResult:
         self._device = torch.device(device)
         self._stream = dict(stream or {})
         self._cache = None
+        #: Serve-fusion seam: the encoding a fusion offer already built
+        #: for exactly these rows; ``_execute`` takes it instead of
+        #: encoding again, so a fused request that runs solo after all
+        #: (a window of one, an unfusable prep) encodes its rows once.
+        self._encoded_hint: Optional[EncodedData] = None
         self.timings: Optional[Dict[str, float]] = None
 
     def __iter__(self):
@@ -1704,38 +1935,24 @@ class LazyFusedResult:
             raise RuntimeError(
                 "cannot rebind rows after the fused result executed")
         self._rows = rows
+        self._encoded_hint = None
         self.timings = None
 
     def _execute(self):
         config = self._config
-        params = self._params
         # The timing fields are views over the run tracer's "engine.*"
         # span totals, as in the JAX package.
         tr = obs.run_tracer()
         with tr.span("engine.encode", cat="engine"):
-            encoded = encode(self._rows, self._extractors, self._public,
-                             require_pid=not config.bounds_already_enforced,
-                             vector_size=config.vector_size)
+            encoded = (self._encoded_hint if self._encoded_hint is not None
+                       else self._encode())
         self.timings = {"host_encode_s": tr.total("engine.encode"),
                         "device_s": 0.0, "host_decode_s": 0.0}
         P = len(encoded.pk_vocab)
         if P == 0:
             return []
-        scales = _noise_scales(config, self._specs)
-        # Without privacy ids the selection user-count estimate divides by
-        # the max rows one user may own.
-        if config.bounds_already_enforced:
-            rows_per_uid = float(params.max_contributions or
-                                 params.max_contributions_per_partition)
-        else:
-            rows_per_uid = 1.0
-        if self._selection_spec is not None:
-            keep_table, thr, s_scale, min_count = selection_inputs(
-                config, self._selection_spec.eps,
-                self._selection_spec.delta, params.pre_threshold)
-        else:
-            keep_table, thr, s_scale, min_count = selection_inputs(
-                config, 1.0, 1e-9, None)
+        scales, keep_table, thr, s_scale, min_count, rows_per_uid = (
+            self._device_inputs())
 
         from pipelinedp_tpu_torch import streaming
         if streaming.should_stream(config, encoded.n_rows):
@@ -1771,6 +1988,104 @@ class LazyFusedResult:
             rel_sel = vocab_idx = kept_idx
         return self._finish_release(encoded, fetched, fx_bits, rel_sel,
                                     vocab_idx)
+
+    def _encode(self) -> EncodedData:
+        config = self._config
+        return encode(self._rows, self._extractors, self._public,
+                      require_pid=not config.bounds_already_enforced,
+                      vector_size=config.vector_size)
+
+    def _device_inputs(self):
+        """(noise scales, keep table, threshold, selection scale, min
+        count, rows per unit): the device path's inputs besides the rows
+        and the key."""
+        config = self._config
+        params = self._params
+        scales = _noise_scales(config, self._specs)
+        # Without privacy ids the selection user-count estimate divides by
+        # the max rows one user may own.
+        if config.bounds_already_enforced:
+            rows_per_uid = float(params.max_contributions or
+                                 params.max_contributions_per_partition)
+        else:
+            rows_per_uid = 1.0
+        if self._selection_spec is not None:
+            keep_table, thr, s_scale, min_count = selection_inputs(
+                config, self._selection_spec.eps,
+                self._selection_spec.delta, params.pre_threshold)
+        else:
+            keep_table, thr, s_scale, min_count = selection_inputs(
+                config, 1.0, 1e-9, None)
+        return scales, keep_table, thr, s_scale, min_count, rows_per_uid
+
+    # --- serve-fusion seams (phase 1 / phase 2 of a fused execution) ---
+
+    def prepare_fused(self, encoded: Optional[EncodedData] = None
+                      ) -> Optional[FusionPrep]:
+        """Serve-fusion seam, phase 1 (``jax_engine.LazyFusedResult.
+        prepare_fused``): the host-side preparation a solo run does before
+        the device path — encode, noise scales, selection inputs, the
+        request's PRNG key — without running it. Runs after
+        ``compute_budgets()``, like iteration. An unseeded request draws
+        its seed here, at the JAX package's point of the host sequence.
+        Returns None when the request cannot join a fused batch (an empty
+        vocabulary, or so many rows that it streams): the fusion layer
+        then runs it solo, visibly."""
+        config = self._config
+        tr = obs.run_tracer()
+        with tr.span("engine.encode", cat="engine"):
+            if encoded is None:
+                encoded = self._encode()
+        P = len(encoded.pk_vocab)
+        if P == 0:
+            return None
+        from pipelinedp_tpu_torch import streaming
+        if streaming.should_stream(config, encoded.n_rows):
+            return None
+        self.timings = {"host_encode_s": tr.total("engine.encode"),
+                        "device_s": 0.0, "host_decode_s": 0.0,
+                        "fused": True}
+        scales, keep_table, thr, s_scale, min_count, rows_per_uid = (
+            self._device_inputs())
+        return FusionPrep(
+            lazy=self, encoded=encoded, P=P, P_pad=_pad_pow2(P),
+            scales=np.asarray(scales), keep_table=np.asarray(keep_table),
+            thr=float(thr), s_scale=float(s_scale),
+            min_count=float(min_count), rows_per_uid=float(rows_per_uid),
+            key=prng.PRNGKey(_run_seed(self._rng_seed)))
+
+    def finish_from_fused(self, prep: FusionPrep, keep_np, raw_np,
+                          fx_bits: int):
+        """Serve-fusion seam, phase 2 (``jax_engine.LazyFusedResult.
+        finish_from_fused``): release THIS request from its slice of the
+        batch's host arrays. The compact-vs-full release choice is the
+        solo fetch's, made here on the host: it decides which rows
+        consume a seeded host rng's draws, so it is part of the
+        bit-identity contract. Installs the result as the lazy cache."""
+        config = self._config
+        P = prep.P
+        keep = np.asarray(keep_np)[:P]
+        kept_idx = np.flatnonzero(keep > 0)
+        if self._public is not None:
+            fetched = {k: np.asarray(v)[:P] for k, v in raw_np.items()}
+            rel_sel = vocab_idx = np.arange(P)
+        elif len(kept_idx) <= min(P, _COMPACT_FETCH_CAP):
+            # The solo path's packed compact fetch: release ONLY the kept
+            # rows, in ascending pk order.
+            fetched = {k: np.asarray(v)[:P][kept_idx]
+                       for k, v in raw_np.items()}
+            rel_sel = np.arange(len(kept_idx))
+            vocab_idx = kept_idx
+        else:
+            fetched = {k: np.asarray(v)[:P] for k, v in raw_np.items()}
+            rel_sel = vocab_idx = kept_idx
+        if config.selection is not None:
+            _record_selection_audit(config.selection, P, len(kept_idx),
+                                    "fused_batch")
+        out = self._finish_release(prep.encoded, fetched, fx_bits, rel_sel,
+                                   vocab_idx)
+        self._cache = out
+        return out
 
     def _run_device(self, encoded: EncodedData, scales, keep_table, thr,
                     s_scale, min_count, rows_per_uid):

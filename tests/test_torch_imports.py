@@ -11,8 +11,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "pipelinedp_tpu")
 
 #: The modules of the sketch-first path, the peeker, the fluent APIs, the
-#: PLD engine, the native library, and the obs and plan planes with the
-#: clock and retry policy they use.
+#: PLD engine, the native library, the obs and plan planes with the
+#: clock and retry policy they use, and the resident service.
 NEW_MODULES = ("sketch/__init__.py", "sketch/hashing.py",
                "sketch/params.py", "sketch/device.py", "sketch/engine.py",
                "sketch/peek.py", "peeker/__init__.py",
@@ -25,7 +25,9 @@ NEW_MODULES = ("sketch/__init__.py", "sketch/hashing.py",
                "obs/store.py", "obs/costs.py", "obs/monitor.py",
                "obs/http.py", "plan/__init__.py", "plan/knobs.py",
                "plan/model.py", "plan/planner.py", "resilience/clock.py",
-               "resilience/retry.py")
+               "resilience/retry.py", "resilience/health.py",
+               "serve/__init__.py", "serve/budget_ledger.py",
+               "serve/service.py", "serve/fusion.py")
 
 
 def _port_files():

@@ -466,13 +466,14 @@ class TestFsck:
         assert s2.skipped_lines == 1  # the torn line, counted not lost
 
     def test_corrupt_budget_doc_reported_never_rewritten(self, tmp_path):
-        # A tenant budget document as the resident service writes it
-        # (atomically replaced JSON); the service itself is ROADMAP
-        # step 6.
-        os.makedirs(str(tmp_path / "budgets"))
-        path = str(tmp_path / "budgets" / "budget-acme.json")
-        doc = json.dumps({"tenant": "acme", "epsilon": 4.0,
-                          "delta": 1e-6, "spent": []}).encode()
+        # A real tenant budget ledger, as the resident service writes it.
+        from pipelinedp_tpu_torch.serve.budget_ledger import (
+            TenantBudgetLedger)
+        led = TenantBudgetLedger(str(tmp_path / "budgets"))
+        led.open_tenant("acme", 4.0, 1e-6)
+        path = led.path_for("acme")
+        with open(path, "rb") as f:
+            doc = f.read()
         torn = doc[:len(doc) // 2]
         with open(path, "wb") as f:
             f.write(torn)

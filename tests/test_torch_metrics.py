@@ -4,9 +4,12 @@ endpoint (``pipelinedp_tpu_torch/obs/trace_context.py``, ``metrics.py``,
 no serve and no chaos harness. Context isolation and propagation across
 threads, span parentage, histogram exactness and the Prometheus
 exposition, the endpoint's lifecycle and routes, and the store's
-``--trace-id`` view of an aggregation run under a bound context. Serve's
-metric families stay registered; their producer is the resident service
-(ROADMAP step 6).
+``--trace-id`` view of an aggregation run under a bound context; and the
+resident service's cases (``Service(device="cpu")``): a killed request
+leaves the endpoint answering and no listener behind, a fused batch
+comes back as one causal tree per request, context stamping leaves the
+release bit-identical, and the per-tenant gauges and heartbeat section
+under load. The chaos episode waits for ``chaos.py`` (ROADMAP step 7b).
 """
 
 import json
@@ -18,10 +21,11 @@ import numpy as np
 import pytest
 
 import pipelinedp_tpu_torch as pdt
-from pipelinedp_tpu_torch import obs
+from pipelinedp_tpu_torch import obs, serve
 from pipelinedp_tpu_torch.obs import http as obs_http
 from pipelinedp_tpu_torch.obs import metrics as obs_metrics
 from pipelinedp_tpu_torch.obs import monitor as obs_monitor
+from pipelinedp_tpu_torch.obs import report as obs_report
 from pipelinedp_tpu_torch.obs import store as obs_store
 from pipelinedp_tpu_torch.obs import trace_context
 
@@ -41,8 +45,36 @@ def fresh_state(monkeypatch, tmp_path):
     obs_monitor.stop()
     obs.reset()
     orphans = [t.name for t in threading.enumerate()
-               if t.name == "pdp-obs-http" and t.is_alive()]
+               if (t.name.startswith("pdp-serve")
+                   or t.name == "pdp-obs-http") and t.is_alive()]
     assert not orphans, f"orphan threads: {orphans}"
+
+
+def make_ds(seed=0, n=3_000, users=800, parts=8):
+    rng = np.random.default_rng(seed)
+    return pdt.ArrayDataset(privacy_ids=rng.integers(0, users, n),
+                            partition_keys=rng.integers(0, parts, n),
+                            values=rng.uniform(0.0, 10.0, n))
+
+
+def count_params(parts=8):
+    return pdt.AggregateParams(
+        metrics=[pdt.Metrics.COUNT, pdt.Metrics.SUM],
+        max_partitions_contributed=parts,
+        max_contributions_per_partition=20,
+        min_value=0.0, max_value=10.0)
+
+
+def request(tenant, ds, eps=1.0, delta=1e-8, seed=7, rid=None):
+    return serve.ServeRequest(tenant=tenant, params=count_params(),
+                              dataset=ds, epsilon=eps, delta=delta,
+                              rng_seed=seed, request_id=rid)
+
+
+def Service(*args, **kwargs):
+    """``serve.Service`` on the CPU (its default device is the card)."""
+    kwargs.setdefault("device", "cpu")
+    return serve.Service(*args, **kwargs)
 
 
 def http_get(url):
@@ -270,6 +302,171 @@ class TestEndpointLifecycle:
         server = obs_http.IntrospectionServer(0).start()
         server.stop()
         server.stop()
+
+    def test_serve_kill_leaves_no_orphan_listener(self, monkeypatch,
+                                                  tmp_path):
+        """A ServeKill mid-request does not wedge the wire surface:
+        the endpoint still answers afterwards, and ``close()`` joins
+        the accept loop."""
+        from pipelinedp_tpu_torch.resilience import (FaultPlan,
+                                                     injected_faults)
+        from pipelinedp_tpu_torch.resilience import faults
+        monkeypatch.setenv(obs_http.ENV_VAR, "0")
+        ds = make_ds()
+        with injected_faults(FaultPlan(fail_serve_requests=(0,))):
+            with Service(str(tmp_path / "svc"),
+                         tenants={"t": (10.0, 1e-6)}) as svc:
+                assert svc._http is not None
+                base = svc._http.url
+                with pytest.raises(faults.ServeKill):
+                    svc.submit(request("t", ds, rid="req-0"))
+                code, _ = http_get(f"{base}/healthz")
+                assert code == 200
+                ds.invalidate_cache()
+                out = svc.submit(request("t", ds, rid="req-1"))
+                assert out.ok, out
+        assert not any(t.name == "pdp-obs-http"
+                       for t in threading.enumerate() if t.is_alive())
+
+
+class TestServeTraceAcceptance:
+
+    def _walk(self, roots):
+        names = []
+
+        def rec(nodes):
+            for node in nodes:
+                names.append(node["name"])
+                rec(node["children"])
+
+        rec(roots)
+        return names
+
+    def test_fused_batch_reconstructs_per_request_trees(
+            self, monkeypatch, tmp_path):
+        """One fused batch of two tenants' requests comes back as two
+        complete per-request causal trees (admission -> execution ->
+        books commit) via the live ``/trace/<id>`` endpoint AND the
+        durable ``store --summarize --trace-id`` twin, with flow events
+        in the Chrome export and per-member links on the fused-dispatch
+        span."""
+        monkeypatch.setenv("PIPELINEDP_TPU_TRACE", "1")
+        monkeypatch.setenv(obs_http.ENV_VAR, "0")
+        obs.reset()
+        ds = make_ds()
+        outs = {}
+        with Service(str(tmp_path / "svc"),
+                     tenants={"tA": (10.0, 1e-6), "tB": (10.0, 1e-6)},
+                     fusion=True, fuse_window_ms=500,
+                     fuse_max_batch=4) as svc:
+            base = svc._http.url
+
+            def run(tenant):
+                outs[tenant] = svc.submit(request(tenant, ds))
+
+            threads = [threading.Thread(target=run, args=(t,))
+                       for t in ("tA", "tB")]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            assert all(o.ok for o in outs.values()), outs
+            trace_ids = {t: o.trace_id for t, o in outs.items()}
+            assert len(set(trace_ids.values())) == 2
+
+            # (a) live endpoint: a complete tree per request.
+            for tenant, tid in trace_ids.items():
+                code, tree = http_get(f"{base}/trace/{tid}")
+                assert code == 200
+                assert tree["tenant"] == tenant
+                names = self._walk(tree["roots"])
+                for want in ("serve.admit", "serve.request",
+                             "serve.commit"):
+                    assert want in names, (tenant, names)
+
+            # (b) the fused dispatch span links every member's trace.
+            snap = obs.ledger().snapshot()
+            fused = [s for s in snap["spans"]
+                     if s.name == "serve.fused_dispatch"]
+            assert fused, "burst did not fuse"
+            members = fused[0].args["members"].split(",")
+            assert set(trace_ids.values()) <= set(members)
+
+            # (c) Chrome export: flow events connect each arc.
+            events = obs_report.chrome_trace_events(snap)
+            flows = [e for e in events if e.get("cat") == "flow"]
+            assert {e["ph"] for e in flows} == {"s", "f"}
+            assert len({e["id"] for e in flows}) >= 2
+
+        # (d) durable twin, after close: the obs-store run reports
+        # carry the span deltas; the CLI reconstructs both chains.
+        store_dir = str(tmp_path / "obs_ledger")
+        for tenant, tid in trace_ids.items():
+            rc = obs_store.main(["--summarize", "--dir", store_dir,
+                                 "--trace-id", tid, "--json"])
+            assert rc == 0
+        rc = obs_store.main(["--summarize", "--dir", store_dir,
+                             "--trace-id", trace_ids["tA"]])
+        assert rc == 0
+
+    def test_trace_context_on_off_bit_identical(self, monkeypatch,
+                                                tmp_path):
+        """PARITY row 42: context stamping changes only the record —
+        the same seeded request through a traced+scraped service and a
+        dark one releases bit-identical partitions."""
+        results = {}
+        for mode in ("off", "on"):
+            obs.reset()
+            if mode == "on":
+                monkeypatch.setenv("PIPELINEDP_TPU_TRACE", "1")
+                monkeypatch.setenv(obs_http.ENV_VAR, "0")
+            else:
+                monkeypatch.delenv("PIPELINEDP_TPU_TRACE",
+                                   raising=False)
+                monkeypatch.delenv(obs_http.ENV_VAR, raising=False)
+            ds = make_ds(seed=3)
+            with Service(str(tmp_path / f"svc-{mode}"),
+                         tenants={"t": (10.0, 1e-6)}) as svc:
+                out = svc.submit(request("t", ds, seed=11))
+                assert out.ok, out
+                # The context itself is always-on (books entries carry
+                # the id either way); only SPAN recording is gated.
+                assert out.trace_id
+                results[mode] = dict(out.results)
+        assert set(results["off"]) == set(results["on"])
+        for k in results["off"]:
+            assert tuple(results["off"][k]) == tuple(results["on"][k])
+
+    def test_metrics_and_heartbeat_tenants_under_load(
+            self, monkeypatch, tmp_path):
+        """/metrics serves per-tenant budget gauges + the request
+        latency histogram under a multi-tenant workload, and the
+        heartbeat document grows the ``tenants`` section fed by the
+        durable budget ledger."""
+        monkeypatch.setenv(obs_http.ENV_VAR, "0")
+        ds = make_ds()
+        with Service(str(tmp_path / "svc"),
+                     tenants={"tA": (10.0, 1e-6),
+                              "tB": (4.0, 1e-6)}) as svc:
+            for tenant in ("tA", "tB"):
+                ds.invalidate_cache()
+                assert svc.submit(request(tenant, ds)).ok
+            code, text = http_get(f"{svc._http.url}/metrics")
+            assert code == 200
+            assert 'pdp_tenant_epsilon_remaining{tenant="tA"} 9' in text
+            assert 'pdp_tenant_epsilon_remaining{tenant="tB"} 3' in text
+            assert 'pdp_tenant_reserves_in_flight{tenant="tA"} 0' in text
+            assert "pdp_serve_request_seconds_bucket" in text
+            assert "pdp_serve_queue_depth" in text
+            assert "pdp_tenant_epsilon_burn_per_s" in text
+            code, hb = http_get(f"{svc._http.url}/heartbeat")
+            assert code == 200
+            tenants = hb["tenants"]
+            assert tenants["tA"]["epsilon_remaining"] == pytest.approx(
+                9.0)
+            assert tenants["tB"]["epsilon_remaining"] == pytest.approx(
+                3.0)
+            assert tenants["tA"]["reserves_in_flight"] == 0
 
 
 class TestTraceIdCli:

@@ -354,6 +354,31 @@ def test_percentile_values_bit_equal(noise, cap, blocks, monkeypatch):
     _assert_bit_equal(got, want)
 
 
+@pytest.mark.parametrize("scale,seed", [(0.2, 4), (0.05, 1), (1.0, 3)])
+def test_percentile_values_one_quantile_bit_equal(scale, seed):
+    """One quantile and a small noise scale: with nothing to broadcast
+    over Q, XLA's root step takes its running sum and its total over the
+    fused noisy counts. (0.2, 4) released a value one float32 step off
+    the JAX package's while the port summed a second, unfused copy
+    there."""
+    P = 12
+    cfg_j, cfg_t, _ = _config(percentiles=(50,))
+    rng = np.random.default_rng(seed)
+    n = 600
+    qpk = rng.integers(0, P, n).astype(np.int32)
+    leaf = rng.integers(0, 65536, n).astype(np.int32)
+    kept = rng.random(n) < 0.8
+    qrows = (qpk * kept, leaf, kept)
+    key = jax.random.PRNGKey(seed)
+    want = jax.jit(functools.partial(je._percentile_values, cfg_j, P))(
+        tuple(jnp.asarray(x) for x in qrows), jnp.float32(scale), key)
+    got = te._percentile_values(cfg_t, P,
+                                tuple(torch.from_numpy(x) for x in qrows),
+                                float(np.float32(scale)),
+                                convert.key_from_jax(key))
+    _assert_bit_equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # The whole slice: DPEngine.aggregate with PERCENTILE
 # ---------------------------------------------------------------------------
@@ -460,4 +485,35 @@ def test_aggregate_full_fetch_bit_identical(monkeypatch):
     got, _ = _run_torch(convert.dataset_from_arrays(pid, pk, values),
                         params, None, 4)
     assert len(want) > 4
+    _assert_identical(got, want)
+
+
+@pytest.mark.parametrize("seed", [7, 17, 19, 104])
+def test_aggregate_one_percentile_bit_identical(seed):
+    """COUNT and one PERCENTILE at a large budget (the resident service's
+    cross-package case): each seed here released one percentile one
+    float32 step off the JAX package's before the port's root step
+    followed XLA's one-quantile program."""
+    rng = np.random.default_rng(17)
+    n = 3000
+    pid = rng.integers(0, 150, n)
+    pk = rng.integers(0, 12, n)
+    values = rng.uniform(0.0, 10.0, n)
+    params = pdp.AggregateParams(
+        metrics=[M.COUNT, M.PERCENTILE(50)], min_value=0.0, max_value=10.0,
+        noise_kind=pdp.NoiseKind.LAPLACE, max_partitions_contributed=3,
+        max_contributions_per_partition=2)
+    acc = pdp.NaiveBudgetAccountant(total_epsilon=20.0, total_delta=1e-6)
+    result = pdp.DPEngine(acc, JaxBackend(rng_seed=seed)).aggregate(
+        je.ArrayDataset(pid, pk, values), params, pdp.DataExtractors())
+    acc.compute_budgets()
+    want = list(result)
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=20.0, total_delta=1e-6)
+    result = pdt.DPEngine(acc, pdt.TorchBackend("cpu", rng_seed=seed)
+                          ).aggregate(
+        convert.dataset_from_arrays(pid, pk, values),
+        convert.params_from_reference(params), pdt.DataExtractors())
+    acc.compute_budgets()
+    got = list(result)
+    assert len(want) > 0
     _assert_identical(got, want)

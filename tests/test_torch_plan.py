@@ -40,9 +40,8 @@ BIG_EPS = 1e12
 #: The knobs the port leaves out of the JAX package's registry.
 NOT_PORTED = ("kernel_backend", "segsum_wide_d_block")
 #: The knobs the port registers with the modules that read them: the
-#: mesh's (ROADMAP step 5) and the resident service's (step 6).
-WITH_THEIR_READERS = ("mesh_topology", "serve_fusion", "serve_fuse_window_ms",
-                      "serve_fuse_batch", "serve_fuse_rows_floor")
+#: mesh's (ROADMAP step 5).
+WITH_THEIR_READERS = ("mesh_topology",)
 JAX_ONLY = NOT_PORTED + WITH_THEIR_READERS
 
 #: Today's hardcoded defaults, restated literally: the cold-start
@@ -56,6 +55,10 @@ HARDCODED_DEFAULTS = {
     "q_chunk": 0,
     "sweep_config_batch": 0,
     "vector_accumulator": "f32",
+    "serve_fusion": False,
+    "serve_fuse_window_ms": 8,
+    "serve_fuse_batch": 8,
+    "serve_fuse_rows_floor": 8192,
     "sketch_width": 1 << 16,
     "sketch_depth": 2,
     "sketch_candidate_cap": 4096,
