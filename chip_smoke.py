@@ -225,7 +225,24 @@ Phases, one line each; any failure raises and exits non-zero:
     fused and solo requests/s; (c) one fused burst of 8 requests x
     500,000 rows: one batch, one K1 launch over the 4M rows, that stack
     timed against its plain version, its bound and ``index_add_``;
-30. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
+30. the mesh (``pipelinedp_tpu_torch/parallel``), after the rest, in
+    two parts: (a) 4 gloo ranks (``parallel.launch.RankPool``) sharing
+    ``cuda:0``, and the same 4 ranks on the CPU, at 200,000 rows of each
+    generator: the flagship's COUNT+SUM+MEAN with its caps, config 4's
+    P50/90/99 + VARIANCE (the walk on owned blocks), VECTOR_SUM at D = 64
+    under ``fx``, the per-partition SUM, config 4 streamed in four
+    batches, config 5's sweep over 1,024 configs and sketch-first at its
+    smoke shape: every rank's release the same and the card's the CPU's,
+    bit for bit, each workload's kernels launched on every card rank and
+    on no CPU rank, and the flagship and config 4 under ``hier`` with two
+    simulated hosts equal to ``flat``; (b) the 25M-row flagship on a
+    one-rank NCCL mesh and on the 4-rank gloo mesh on the card: with the
+    data's own maxima as caps both equal the single-device card release
+    bit for bit; with the flagship's caps the wall, each rank's K1 ms and
+    launches, the comms bytes and each rank's peak memory, beside the
+    card's name and power limit (four ranks on one card measure no
+    multi-GPU speed);
+31. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
     the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
@@ -3519,6 +3536,308 @@ def phase_serve(smi):
     return fused, burst
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the mesh (``parallel/``) on the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+# The smoke shapes of phase 30 (a): 200,000 rows of each generator, the
+# partitions scaled with the rows (the flagship's 424 rows per partition,
+# config 4's 100, config 5's 500) and the users too (config 4's 50 rows
+# per user, config 5's 25), but for the flagship's: 154 rows per user
+# would leave about ten users per partition, too few for selection to
+# keep a partition, so it has 10 rows per user.
+MESH_SMOKE_ROWS = 200_000
+MESH_SHAPES = {
+    "flagship": dict(rows=MESH_SMOKE_ROWS, users=20_000, partitions=472,
+                     seed=6),
+    "config4": dict(rows=MESH_SMOKE_ROWS, users=4_000, partitions=2_000,
+                    seed=4),
+    "config5": dict(rows=MESH_SMOKE_ROWS, users=8_000, partitions=400,
+                    seed=1),
+}
+MESH_SWEEP_CONFIGS = 1_024
+# Rows per rank per batch of the streamed case: four batches of 200,000.
+MESH_STREAM_CHUNK = 16_000
+MESH_HIER_ENV = {"PIPELINEDP_TPU_MESH_TOPOLOGY": "hier",
+                 "PIPELINEDP_TPU_MESH_HOSTS": "2"}
+# A rank's cache of generated columns: a pool's ranks live for the whole
+# phase, and the 25M-row flagship takes seconds to draw.
+_RANK_COLUMNS = {}
+
+
+def _rank_columns(name):
+    if name not in _RANK_COLUMNS:
+        if name == "flagship_full":
+            _RANK_COLUMNS[name] = zipf_columns(
+                FLAGSHIP["rows"], FLAGSHIP["users"], FLAGSHIP["partitions"],
+                FLAGSHIP["seed"])
+        elif name == "vector":
+            rng = np.random.default_rng(29)
+            n = MESH_SMOKE_ROWS
+            _RANK_COLUMNS[name] = (
+                rng.integers(0, n // 8, n),
+                (rng.zipf(1.3, n) % VECTOR_PARTITIONS).astype(np.int32),
+                rng.uniform(-1.0, 1.0, (n, 64)).astype(np.float32))
+        elif name == "heavy_hitters":
+            _RANK_COLUMNS[name] = hh_columns(HH_SMOKE_ROWS)[:3]
+        else:
+            s = MESH_SHAPES[name]
+            _RANK_COLUMNS[name] = zipf_columns(s["rows"], s["users"],
+                                               s["partitions"], s["seed"])
+    return _RANK_COLUMNS[name]
+
+
+def _release_digest(rows):
+    """sha256 of the kept keys and of every released value's float64 bits
+    (vectors included), and the kept count."""
+    import hashlib
+    h = hashlib.sha256()
+    for key, metrics in rows:
+        h.update(repr(key).encode())
+        for field in metrics._fields:
+            h.update(field.encode())
+            h.update(np.asarray(getattr(metrics, field),
+                                np.float64).tobytes())
+    return h.hexdigest(), len(rows)
+
+
+def _nonbinding_caps(columns):
+    """(L0, Linf) at the data's own maxima: the most partitions one user
+    contributes to and the most rows of one (user, partition) pair."""
+    pids, pks, _ = columns
+    pairs, per_pair = np.unique(pids.astype(np.int64) * (1 << 32) + pks,
+                                return_counts=True)
+    per_user = np.unique(pairs >> 32, return_counts=True)[1]
+    return int(per_user.max()), int(per_pair.max())
+
+
+def mesh_rank_case(case, device, caps=None, time_k1=False):
+    """On every rank of a phase-30 pool: one workload on this rank's mesh
+    on ``device`` (``mesh=False``: on one device, no mesh), with every
+    kernel count zeroed just before the run and read just after. Returns
+    the release digest, the launches, the wall, the peak device memory,
+    the comms counters and, with ``time_k1``, the CUDA-event ms of this
+    rank's first K1 launch (the partials) re-run on its own stack."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis as tan
+    from pipelinedp_tpu_torch import obs
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    from pipelinedp_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(device=device) if case != "single" else None
+    on_card = torch.device(device).type == "cuda"
+    seed = 61
+    calls = []
+    real_k1 = segsum.segment_sum_lanes
+    if time_k1:
+        def capture(cols, pk, P):
+            if not calls:
+                calls.append((cols, pk, P))
+            return real_k1(cols, pk, P)
+        segsum.segment_sum_lanes = capture
+    obs.reset()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        if case in ("flagship_full", "single"):
+            columns = _rank_columns("flagship_full")
+            params = flagship_params(pdt)
+            if caps is not None:
+                params.update(max_partitions_contributed=caps[0],
+                              max_contributions_per_partition=caps[1])
+            rows, _ = _aggregate(pdt, columns, params, device, seed,
+                                 mesh=mesh)
+        elif case == "sweep":
+            n_cfg, options = sweep_options(tan, pdt, MESH_SWEEP_CONFIGS)
+            assert n_cfg == MESH_SWEEP_CONFIGS, n_cfg
+            _, result, _, _ = run_sweep(
+                _rank_columns("config5"), options, device,
+                backend=pdt.TorchBackend(device=device, mesh=mesh))
+            import hashlib
+            rows = None
+            digest = (hashlib.sha256(sweep_bits(result).tobytes())
+                      .hexdigest(), len(result))
+        elif case == "heavy_hitters":
+            pids, keys, values = _rank_columns("heavy_hitters")
+            acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0,
+                                            total_delta=1e-6)
+            engine = pdt.DPEngine(acc, pdt.TorchBackend(
+                device=device, rng_seed=seed, mesh=mesh))
+            result = engine.aggregate(
+                pdt.ArrayDataset(privacy_ids=pids, partition_keys=keys,
+                                 values=values),
+                pdt.AggregateParams(**hh_params(pdt)), pdt.DataExtractors(),
+                sketch_first=hh_sketch(pdt, smoke=True))
+            acc.compute_budgets()
+            rows = list(result)
+        else:
+            data, params = {
+                "flagship": ("flagship", flagship_params(pdt)),
+                "config4": ("config4", config4_params(pdt)),
+                "stream": ("config4", config4_params(pdt)),
+                "vector": ("vector", vector_params(pdt, 64)),
+                "sum_bounds": ("flagship", sum_bounds_params(pdt)),
+            }[case]
+            rows, timings = _aggregate(pdt, _rank_columns(data), params,
+                                       device, seed, mesh=mesh)
+            if case == "stream":
+                assert timings["stream_batches"] >= 3, timings
+        if on_card:
+            torch.cuda.synchronize()
+    finally:
+        segsum.segment_sum_lanes = real_k1
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    if rows is not None:
+        digest = _release_digest(rows)
+    rec = dict(digest=digest[0], kept=digest[1], launches=launches,
+               wall_s=wall_s, index=mesh.index if mesh else 0,
+               comms={k: v for k, v in
+                      obs.ledger().snapshot()["counters"].items()
+                      if k.startswith("comms.")})
+    if on_card:
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if time_k1 and calls:
+        cols, pk, P = calls[0]
+        rec["k1_stack"] = [int(P), int(cols.shape[1]), int(cols.shape[0])]
+        rec["k1_ms"] = cuda_ms(lambda: real_k1(cols, pk, P), reps=11)
+    return rec
+
+
+def mesh_rank_caps():
+    """On a rank: the flagship's non-binding caps."""
+    return _nonbinding_caps(_rank_columns("flagship_full"))
+
+
+# Phase 30 (a)'s workloads and the kernel each must launch on every rank
+# of the card's mesh.
+MESH_CASES = {
+    "flagship": ("segment_sum_lanes",),
+    "config4": ("segment_sum_lanes",),
+    "vector": ("segment_sum_wide",),
+    "sum_bounds": ("segment_totals", "segment_sum_lanes"),
+    "stream": ("subtree_counts_multi", "segment_sum_lanes"),
+    "sweep": ("segmented_sums", "segment_totals"),
+    "heavy_hitters": ("segment_sum_lanes",),
+}
+
+
+def _same_on_every_rank(outs, what):
+    digests = {o["digest"] for o in outs}
+    assert len(digests) == 1, f"{what}: the ranks' releases differ"
+    return outs[0]
+
+
+def phase_mesh_smoke(pool):
+    """Phase 30 (a): each workload on the 4-rank gloo mesh on the card and
+    on the CPU: every rank's release the same, the card's the CPU's, the
+    kernels launched on every card rank and on no CPU rank; the flagship
+    and config 4 once more under ``hier`` with two simulated hosts, equal
+    to ``flat``."""
+    out = {}
+    for case, kernels in MESH_CASES.items():
+        env = {}
+        if case == "vector":
+            env["PIPELINEDP_TPU_VECTOR_ACCUMULATOR"] = "fx"
+        if case == "stream":
+            env[CHUNK_ENV] = str(MESH_STREAM_CHUNK)
+        recs = {}
+        for device in ("cuda", "cpu"):
+            outs = pool.run(mesh_rank_case, case, device, env=env)
+            recs[device] = _same_on_every_rank(outs, f"{case} on {device}")
+            for o in outs:
+                for k in kernels:
+                    got = o["launches"][k]
+                    assert (got > 0) == (device == "cuda"), (
+                        case, device, o["index"], k, got)
+            recs[device]["launches_per_rank"] = [o["launches"]
+                                                 for o in outs]
+            recs[device]["wall_s_per_rank"] = [o["wall_s"] for o in outs]
+        assert recs["cuda"]["digest"] == recs["cpu"]["digest"], (
+            f"{case}: the card's mesh release differs from the CPU's")
+        if case in ("flagship", "config4"):
+            hier = _same_on_every_rank(
+                pool.run(mesh_rank_case, case, "cuda",
+                         env=dict(env, **MESH_HIER_ENV)), f"{case} hier")
+            assert hier["digest"] == recs["cuda"]["digest"], (
+                f"{case}: hier differs from flat")
+            recs["hier_equals_flat"] = True
+        out[case] = recs
+        first = recs["cuda"]
+        log(f"mesh_smoke_{case}", ranks=MESH_RANKS, kept=first["kept"],
+            gpu_equals_cpu=True,
+            hier_equals_flat=recs.get("hier_equals_flat"),
+            launches_per_rank=first["launches_per_rank"],
+            wall_s_per_rank=first["wall_s_per_rank"],
+            cpu_wall_s_per_rank=recs["cpu"]["wall_s_per_rank"])
+    return out
+
+
+def phase_mesh_full(gloo_pool, smi):
+    """Phase 30 (b): the flagship at full width on a one-rank NCCL mesh
+    and on the 4-rank gloo mesh sharing the card. With the data's own
+    maxima as caps (bounding keeps every row) both releases are the
+    single-device card release, bit for bit; with the flagship's caps,
+    the wall, each rank's K1 ms and launches, the comms bytes and each
+    rank's peak memory."""
+    from pipelinedp_tpu_torch.parallel import launch
+    caps = gloo_pool.run(mesh_rank_caps)[0]
+    rec = dict(card=smi, caps_nonbinding=list(caps),
+               note=("four ranks share one card: these times measure no "
+                     "multi-GPU speed"))
+    with launch.RankPool(1, backend="nccl", deadline_s=600) as nccl:
+        single = nccl.run(mesh_rank_case, "single", "cuda", caps)[0]
+        one = nccl.run(mesh_rank_case, "flagship_full", "cuda", caps)[0]
+        assert one["digest"] == single["digest"], (
+            "the one-rank NCCL mesh differs from the single device")
+        cold = nccl.run(mesh_rank_case, "flagship_full", "cuda")[0]
+        warm = nccl.run(mesh_rank_case, "flagship_full", "cuda",
+                        time_k1=True)[0]
+    four = _same_on_every_rank(
+        gloo_pool.run(mesh_rank_case, "flagship_full", "cuda", caps),
+        "flagship nonbinding, gloo")
+    assert four["digest"] == single["digest"], (
+        "the 4-rank gloo mesh differs from the single device")
+    cold4 = gloo_pool.run(mesh_rank_case, "flagship_full", "cuda")
+    warm4 = gloo_pool.run(mesh_rank_case, "flagship_full", "cuda",
+                          time_k1=True)
+    assert len({o["digest"] for o in warm4}) == 1
+    rec.update(
+        nonbinding_equal_single_device=True, kept_nonbinding=single["kept"],
+        nccl_1=dict(wall_s=warm["wall_s"], cold_wall_s=cold["wall_s"],
+                    k1_ms=warm.get("k1_ms"), k1_stack=warm.get("k1_stack"),
+                    k1_launches=warm["launches"]["segment_sum_lanes"],
+                    comms=one["comms"],
+                    peak_mem_bytes=warm["peak_mem_bytes"],
+                    kept=warm["kept"]),
+        gloo_4=dict(wall_s=max(o["wall_s"] for o in warm4),
+                    cold_wall_s=max(o["wall_s"] for o in cold4),
+                    k1_ms_per_rank=[o.get("k1_ms") for o in warm4],
+                    k1_stack_per_rank=[o.get("k1_stack") for o in warm4],
+                    k1_launches_per_rank=[
+                        o["launches"]["segment_sum_lanes"] for o in warm4],
+                    comms=four["comms"],
+                    peak_mem_bytes_per_rank=[o["peak_mem_bytes"]
+                                             for o in warm4],
+                    kept=warm4[0]["kept"]))
+    log("mesh_full", **rec)
+    return rec
+
+
+def phase_mesh(smi):
+    """Phase 30: the mesh on the card."""
+    from pipelinedp_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    with launch.RankPool(MESH_RANKS, deadline_s=900, threads=2) as pool:
+        smoke = phase_mesh_smoke(pool)
+        full = phase_mesh_full(pool, smi)
+    RECORD["mesh_s"] = time.perf_counter() - t0
+    return smoke, full
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3625,6 +3944,7 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_fused, _ = phase_serve(smi)
     RECORD["serve_s"] = time.perf_counter() - t0
+    phase_mesh(smi)
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",

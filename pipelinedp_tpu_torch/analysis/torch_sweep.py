@@ -30,9 +30,16 @@ Per-partition rows past ``_PP_BYTE_CAP`` run the host analysis graph on
 the sweep's backend, as the JAX package's do. The chunk width is the
 ``sweep_config_batch`` knob, else the static widest-in-budget width, which
 a fitted plan's measured sweep peak rescales (``_plan_chunk``). Not ported
-here: the TPU lane alignment of the JAX package (``_lane_align``), its
-compile cache, and the mesh (ROADMAP step 5), which raises
-``NotImplementedError`` naming its step.
+here: the TPU lane alignment of the JAX package (``_lane_align``) and its
+compile cache.
+
+On a mesh (``parallel.make_mesh``) every rank runs stage A on all rows
+(K4), then each chunk's configuration axis splits over the ranks: the
+rank at position ``d`` runs the chunk's ``d``-th slice of ``chunk / n``
+configs (K5 on its slice) and one all-gather per output field gives every
+rank the whole chunk, the JAX package's multi-process branch. Each
+configuration's outputs are a pure function of (data, config), so the
+mesh equals one device bit for bit.
 """
 
 from __future__ import annotations
@@ -100,12 +107,6 @@ def _pad_rows(n: int) -> int:
     pads no rows, but the chunk width's row budget is taken over this
     count, so both packages chunk alike."""
     return max(8192, -(-n // 8192) * 8192)
-
-
-def _not_ported(what: str, step: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to pipelinedp_tpu_torch yet (ROADMAP step "
-        f"{step})")
 
 
 def sweep_is_supported(options: data_structures.UtilityAnalysisOptions,
@@ -617,6 +618,33 @@ def _sweep_chunk_body(metric_names, strategy, noise_kind, P, public,
     return out, sel_stats
 
 
+def _sharded_chunk(mesh, metric_names, strategy, noise_kind, P, public,
+                   chunk, start, marker, layout, count_u, sum_u, npart_u,
+                   users_pk, cfg, consts, per_partition):
+    """One chunk over the mesh (``jax_sweep._sweep_chunk_sharded``): this
+    rank runs its slice of ``chunk / n`` configs, and the outputs are
+    gathered along the configuration axis (dim 1 of the [P, Cc]
+    per-partition blocks), so every rank holds the whole chunk. Returns
+    (out, sel, per-partition blocks or None)."""
+    from pipelinedp_tpu_torch.parallel import sharded as psh
+    local = chunk // mesh.size
+    out, sel = _sweep_chunk_body(
+        metric_names, strategy, noise_kind, P, public, local,
+        start + mesh.index * local, marker, layout, count_u, sum_u, npart_u,
+        users_pk, cfg, consts, per_partition=per_partition)
+    pp = _split_pp(out, metric_names) if per_partition else None
+
+    def gather(tree, dim, site):
+        return {k: (gather(v, dim, f"{site}.{k}") if isinstance(v, dict)
+                    else psh.gather_blocks(v, mesh, dim, f"{site}.{k}"))
+                for k, v in sorted(tree.items())}
+
+    out = gather(out, 0, "sweep.out")
+    sel = gather(sel, 0, "sweep.sel") if sel is not None else None
+    pp = gather(pp, 1, "sweep.pp") if pp is not None else None
+    return out, sel, pp
+
+
 #: The [P, Cc] per-partition blocks _metric_chunk emits (plus the
 #: metric-independent "_pp_keep").
 _PP_FIELDS = ("pp_sum", "pp_err_min", "pp_err_max", "pp_exp_l0",
@@ -850,14 +878,16 @@ class LazySweepResult:
 
     def __init__(self, col, options, data_extractors, public_partitions,
                  budgets, selection_budget, device, backend,
-                 return_per_partition=False, checkpoint=None):
+                 return_per_partition=False, checkpoint=None, mesh=None):
         self._col = col
+        self._mesh = mesh
         self._options = options
         self._extractors = data_extractors
         self._public = public_partitions
         self._budgets = budgets
         self._selection_budget = selection_budget
-        self._device = torch.device(device)
+        self._device = (mesh.device if mesh is not None
+                        else torch.device(device))
         self._return_per_partition = return_per_partition
         self._backend = backend  # host-graph fallback past _PP_BYTE_CAP
         self._checkpoint = checkpoint  # budget-safe chunk-prefix resume
@@ -1015,6 +1045,11 @@ class LazySweepResult:
                               bool)
 
         chunk = _chunk_width(C, n_pad, P_pad, device)
+        mesh = self._mesh
+        n_dev = mesh.size if mesh is not None else 1
+        if n_dev > 1:
+            # Every rank takes an equal slice of each chunk's configs.
+            chunk = max(chunk // n_dev, 1) * n_dev
         C_pad = -(-C // chunk) * chunk
 
         def cpad(a, axis=0):
@@ -1063,12 +1098,14 @@ class LazySweepResult:
                       options.partitions_sampling_prob,
                       bool(options.pre_aggregated_data))),
                 C, chunk, P_pad, data=ckpt_mod.data_digest(encoded),
-                arrays=list(host_cfg.values()))
+                arrays=list(host_cfg.values()), n_dev=n_dev)
             saved = ckpt_store.load_for(ckpt_fp)
             if saved is not None:
                 done_chunks = saved.next_batch
                 acc_flat = dict(saved.arrays)
         self._resumed_from_chunk = done_chunks
+        # On a mesh every rank reads the store; position 0 writes it.
+        ckpt_writer = mesh is None or mesh.index == 0
 
         def flatten_host(out, sel):
             flat = {}
@@ -1106,18 +1143,28 @@ class LazySweepResult:
             })
             with obs.span("sweep.chunk", cat="sweep", chunk=ci,
                           start=int(start)):
-                out, sel = _sweep_chunk_body(
-                    metric_names, strategy, noise_kind, P_pad, public,
-                    chunk, start, marker, layout, count_u, sum_u, npart_u,
-                    users_in, cfg, consts, per_partition=per_partition)
+                if n_dev > 1:
+                    out, sel, pp = _sharded_chunk(
+                        mesh, metric_names, strategy, noise_kind, P_pad,
+                        public, chunk, start, marker, layout, count_u,
+                        sum_u, npart_u, users_in, cfg, consts,
+                        per_partition)
+                else:
+                    out, sel = _sweep_chunk_body(
+                        metric_names, strategy, noise_kind, P_pad, public,
+                        chunk, start, marker, layout, count_u, sum_u,
+                        npart_u, users_in, cfg, consts,
+                        per_partition=per_partition)
+                    pp = (_split_pp(out, metric_names) if per_partition
+                          else None)
             if per_partition:
-                pp_chunks.append(_split_pp(out, metric_names))
+                pp_chunks.append(pp)
             if ckpt_store is not None:
                 flat = flatten_host(out, sel)
                 acc_flat = (flat if acc_flat is None else
                             {k: np.concatenate([acc_flat[k], flat[k]])
                              for k in flat})
-                if (ci + 1) % ckpt_every == 0:
+                if (ci + 1) % ckpt_every == 0 and ckpt_writer:
                     ckpt_store.save(ckpt_mod.StreamCheckpoint(
                         ckpt_fp, ci + 1, acc_flat))
             else:
@@ -1154,7 +1201,7 @@ class LazySweepResult:
 
         result = self._pack(all_params, fields, sel_cat, noise_rows,
                             metric_names)
-        if ckpt_store is not None:
+        if ckpt_store is not None and ckpt_writer:
             # A finished run must not be resumable.
             ckpt_store.clear()
         return result
@@ -1317,9 +1364,11 @@ def build_fused_sweep(col, options, data_extractors, public_partitions,
     ``_PP_BYTE_CAP`` the rows come from the host analysis graph on
     ``backend``. ``checkpoint`` (a path or ``resilience.checkpoint.CheckpointStore``)
     enables budget-safe chunk-prefix resume through a ``<path>.sweep``
-    sibling file; the save cadence follows ``PIPELINEDP_TPU_CKPT_EVERY``."""
+    sibling file; the save cadence follows ``PIPELINEDP_TPU_CKPT_EVERY``.
+    ``mesh`` splits each chunk's configurations over the mesh's ranks."""
     if mesh is not None:
-        raise _not_ported("the utility-analysis sweep on a mesh", 5)
+        from pipelinedp_tpu_torch.parallel import sharded
+        sharded.require_mesh(mesh)
     params = options.aggregate_params
     mechanism_type = data_structures.analysis_mechanism_type(options)
     selection_budget = None
@@ -1334,4 +1383,4 @@ def build_fused_sweep(col, options, data_extractors, public_partitions,
                            public_partitions, budgets, selection_budget,
                            device, backend,
                            return_per_partition=return_per_partition,
-                           checkpoint=checkpoint)
+                           checkpoint=checkpoint, mesh=mesh)

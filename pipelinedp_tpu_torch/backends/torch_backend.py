@@ -6,9 +6,10 @@ the fused device path (``torch_engine``), plus the options that path
 reads, the streaming ones included. Everything the fused path does not
 take (custom combiners, a percentile range too small for its float32 leaf
 constant, the host analysis graphs, a user's own ``map``) runs on the
-host generators it inherits, exactly where ``JaxBackend`` runs them. It
-has no mesh (multi-GPU is ROADMAP step 5), no health probe and no compile
-cache.
+host generators it inherits, exactly where ``JaxBackend`` runs them. On
+a mesh (``parallel.make_mesh``) the device path runs sharded over the
+mesh's ranks. It has no health probe with a CPU degrade (ROADMAP step 5b)
+and no compile cache.
 """
 
 from __future__ import annotations
@@ -40,6 +41,10 @@ class TorchBackend(LocalBackend):
       stream_cache: the pass-B device cache's budget in bytes; None (the
         default) follows ``PIPELINEDP_TPU_STREAM_CACHE`` (4 GiB unless
         set); 0 re-ships every batch.
+      mesh: a ``parallel.Mesh``: the fused path, the stream, the sweep and
+        sketch-first run sharded over its ranks, on the mesh's device
+        (``device`` is then the mesh's). Every rank builds the same
+        backend and runs the same calls.
     """
 
     supports_fused_aggregation = True
@@ -49,9 +54,8 @@ class TorchBackend(LocalBackend):
                  ingest_executor: Optional[bool] = None,
                  stream_cache: Optional[int] = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "a mesh is not ported to pipelinedp_tpu_torch yet "
-                "(multi-GPU, and streaming on a mesh, are ROADMAP step 5)")
+            from pipelinedp_tpu_torch.parallel import sharded
+            device = sharded.require_mesh(mesh).device
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -62,6 +66,7 @@ class TorchBackend(LocalBackend):
             raise ValueError(f"TorchBackend runs on cuda or cpu, not "
                              f"{device}")
         self.device = device
+        self.mesh = mesh
         self.rng_seed = rng_seed
         self.checkpoint = checkpoint
         self.ingest_executor = ingest_executor
@@ -69,6 +74,7 @@ class TorchBackend(LocalBackend):
         from pipelinedp_tpu_torch import obs
         # seed_fixed, never the seed itself: run reports are meant to be
         # shared, and noise draws are pure functions of the seed.
-        obs.event("backend.created", degraded=False, mesh_devices=0,
+        obs.event("backend.created", degraded=False,
+                  mesh_devices=mesh.size if mesh is not None else 0,
                   seed_fixed=rng_seed is not None,
                   checkpoint=bool(checkpoint), device=str(device))

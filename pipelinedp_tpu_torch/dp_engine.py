@@ -261,7 +261,8 @@ class DPEngine:
                 "sketch_first needs privacy ids for the phase-1 "
                 "per-user sketch bounding; "
                 "contribution_bounds_already_enforced mode has none")
-        fused, rng_seed, device, stream = self._fused_backend_options()
+        fused, rng_seed, device, mesh, stream = (
+            self._fused_backend_options())
         if not fused:
             raise NotImplementedError(
                 "sketch_first requires the fused backend (TorchBackend) — "
@@ -276,7 +277,7 @@ class DPEngine:
             return sketch_engine.build_sketch_first_aggregation(
                 col, params, data_extractors, sketch_params,
                 self._budget_accountant, self._current_report_generator,
-                rng_seed=rng_seed, device=device, stream=stream)
+                rng_seed=rng_seed, device=device, stream=stream, mesh=mesh)
 
         return build
 
@@ -285,23 +286,24 @@ class DPEngine:
     _supports_fused_dispatch = True
 
     def _fused_backend_options(self):
-        """(fused?, rng_seed, device, stream options): the one place that
-        probes the backend's fused capability and options."""
+        """(fused?, rng_seed, device, mesh, stream options): the one place
+        that probes the backend's fused capability and options."""
         if not (self._supports_fused_dispatch and getattr(
                 self._backend, "supports_fused_aggregation", False)):
-            return False, None, None, None
+            return False, None, None, None, None
         b = self._backend
-        return (True, b.rng_seed, b.device,
+        return (True, b.rng_seed, b.device, getattr(b, "mesh", None),
                 dict(checkpoint=b.checkpoint, executor=b.ingest_executor,
                      cache_bytes=b.stream_cache))
 
     def _aggregate(self, col, params, data_extractors, public_partitions):
-        fused, rng_seed, device, stream = self._fused_backend_options()
+        fused, rng_seed, device, mesh, stream = (
+            self._fused_backend_options())
         if fused and torch_engine.params_are_fusable(params):
             return torch_engine.build_fused_aggregation(
                 col, params, data_extractors, public_partitions,
                 self._budget_accountant, self._current_report_generator,
-                rng_seed=rng_seed, device=device, stream=stream)
+                rng_seed=rng_seed, device=device, stream=stream, mesh=mesh)
         if isinstance(col, torch_engine.ArrayDataset):
             col, data_extractors = torch_engine.array_dataset_to_rows(
                 col, data_extractors,
@@ -388,12 +390,12 @@ class DPEngine:
                                           budget=budget)
 
     def _select_partitions(self, col, params, data_extractors):
-        fused, rng_seed, device, _ = self._fused_backend_options()
+        fused, rng_seed, device, mesh, _ = self._fused_backend_options()
         if fused:
             return torch_engine.build_fused_select_partitions(
                 col, params, data_extractors, self._budget_accountant,
                 self._current_report_generator, rng_seed=rng_seed,
-                device=device)
+                device=device, mesh=mesh)
         max_partitions_contributed = params.max_partitions_contributed
         col = self._backend.map(
             col, lambda row: (data_extractors.privacy_id_extractor(row),

@@ -6,9 +6,9 @@ the CPU their plain versions do; a knob that could send the card to the
 plain versions would hide the kernels) and ``segsum_wide_d_block`` (a TPU
 VMEM tile hint with no counterpart here). A plan file that names either is
 handled as any knob this registry does not know: ignored. The mesh's
-knob (``mesh_topology``) is registered with the module that reads it
-(ROADMAP step 5); the resident service's (``serve_*``) are read by
-``serve/service.py`` and ``serve/fusion.py``.
+knob (``mesh_topology``) is read by ``parallel/sharded.py``; the
+resident service's (``serve_*``) are read by ``serve/service.py`` and
+``serve/fusion.py``.
 
 The stack grew a forest of hand-set execution knobs — HBM byte caps,
 stream batch sizing, cache budgets, the ingest-executor switch — each
@@ -234,6 +234,24 @@ REGISTRY: Tuple[KnobSpec, ...] = (
         "SketchParams.backend is the injection point, so "
         "resolving the registry never imports sketch/ into non-sketch "
         "runs.", choices=("matmul", "xla")),
+    KnobSpec(
+        "mesh_topology", "flat | hier | auto", "flat",
+        "PIPELINEDP_TPU_MESH_TOPOLOGY",
+        ("pipelinedp_tpu_torch.parallel.sharded", "_MESH_TOPOLOGY"),
+        True, str,
+        "Cross-shard exchange layout (parallel/sharded.py): 'flat' "
+        "(one collective over the whole rank axis — the default), "
+        "'hier' (two stages: an owner-block reduce_scatter over each "
+        "host's ici group, then one block exchange over the dcn groups "
+        "— scatter traffic stays within the host, only 1/per_host of "
+        "the payload crosses hosts) or 'auto' (hier iff the mesh spans "
+        "more than one host; ranks group into hosts by host name, "
+        "PIPELINEDP_TPU_MESH_HOSTS simulates hosts). dp-safe: every "
+        "payload is exact integer data, so hier and flat release "
+        "bit-identical values and kept sets (PARITY row 43); ragged "
+        "host groups fall back to flat with a mesh.topology_fallback "
+        "event.",
+        choices=("flat", "hier", "auto")),
     KnobSpec(
         "select_units_cap", "privacy units per partition", _I32_MAX,
         None, ("pipelinedp_tpu_torch.streaming", "_SELECT_UNITS_CAP"),

@@ -440,6 +440,10 @@ def autotune_candidates() -> list:
             # no sweep measures the default's no-op.
             {"sweep_config_batch": 64},
             {"sweep_config_batch": 256},
+            # The hierarchical exchange: dp-safe (hier and flat are
+            # bit-identical, PARITY row 43). On a single-host trial the
+            # topology layer degrades to flat, so this measures a no-op.
+            {"mesh_topology": "hier"},
             # The sketch binner's scatter reference: dp-safe (PARITY
             # row 36) so it sweeps with the rest; a trial that runs no
             # sketch-first request measures the default's no-op. Kept

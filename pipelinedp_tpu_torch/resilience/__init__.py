@@ -2,7 +2,7 @@
 and the clock and retry policy the live monitor and the health probes use.
 ``health.DEGRADED_ENV`` arms the resident service's degraded mode. The
 chaos harness and the fault transport are ROADMAP step 7b; the health
-probe and the mesh supervisor step 5."""
+probe and the mesh supervisor step 5b."""
 
 from pipelinedp_tpu_torch.resilience.clock import (Clock, FakeClock,
                                                    SystemClock)

@@ -28,9 +28,15 @@ The format is the port's own, modelled on
 ``pipelinedp_tpu/resilience/checkpoint.py``: the fingerprint hashes the
 port's ``FusedConfig``. A checkpoint written by the port is resumed by
 the port; the port makes no promise to resume a file written by the JAX
-package, and refuses one with ``CheckpointMismatch``. The mesh fields of
-the JAX package's checkpoint (the saved batch assignment an elastic
-reshard adopts, the reshard history) wait for multi-GPU, ROADMAP step 5.
+package, and refuses one with ``CheckpointMismatch``. The fingerprint
+binds the mesh size, so a checkpoint of another mesh shape is refused
+too. The fields an elastic reshard adopts (the saved batch assignment,
+the reshard history) wait for ROADMAP step 5b.
+
+On a mesh every rank folds the same accumulators and reads the one
+store; only the rank at position 0 writes and clears it. Every rank reads
+before its first collective and the first save follows one, so no rank
+reads a file that another is writing.
 """
 
 from __future__ import annotations
@@ -85,16 +91,17 @@ def data_digest(encoded) -> str:
 
 def run_fingerprint(config, n_rows: int, n_batches: int, seed: int,
                     num_partitions: int, fx_bits: int,
-                    data: str = "") -> str:
+                    data: str = "", n_dev: int = 1) -> str:
     """Identity of one streamed run: everything that decides the batch
-    assignment, the per-batch arithmetic and the noise keys, plus the
-    ``data_digest``."""
+    assignment (the mesh size included), the per-batch arithmetic and the
+    noise keys, plus the ``data_digest``."""
     blob = json.dumps({
         "config": repr(config),
         "n_rows": int(n_rows),
         "n_batches": int(n_batches),
         "seed": int(seed),
         "num_partitions": int(num_partitions),
+        "n_dev": int(n_dev),
         "fx_bits": int(fx_bits),
         "data": data,
         # The val: columns hold exact fixed-point step totals; the scale
@@ -106,7 +113,7 @@ def run_fingerprint(config, n_rows: int, n_batches: int, seed: int,
 
 def sweep_fingerprint(spec_repr: str, n_configs: int, chunk: int,
                       num_partitions: int, data: str = "",
-                      arrays=()) -> str:
+                      arrays=(), n_dev: int = 1) -> str:
     """Identity of one utility-analysis sweep (``analysis/torch_sweep.py``):
     everything that decides the chunk boundaries and each chunk's
     arithmetic (the static spec, the chunking, the per-config parameter
@@ -122,6 +129,7 @@ def sweep_fingerprint(spec_repr: str, n_configs: int, chunk: int,
         "n_configs": int(n_configs),
         "chunk": int(chunk),
         "num_partitions": int(num_partitions),
+        "n_dev": int(n_dev),
         "vectors": h.hexdigest(),
         "data": data,
     }, sort_keys=True)

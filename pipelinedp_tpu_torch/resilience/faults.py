@@ -25,7 +25,7 @@ A plan installs in process, with the ``injected_faults(plan)`` context
 manager. A port of the chunk, sweep, sketch and serve sites of
 ``pipelinedp_tpu/resilience/faults.py``; its other sites (coordinator,
 mesh, fetch holds) and its ``PIPELINEDP_TPU_FAULTS`` transport to
-subprocess harnesses belong to ROADMAP steps 5 and 7b.
+subprocess harnesses belong to ROADMAP steps 5b and 7b.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@
 Set, it says the runtime came up degraded, and the resident service
 (``serve/service.py``) then refuses every submit with the structured
 ``"degraded"`` reason before any budget reserve. The device-health probe
-with its CPU degrade, and ``MeshSupervisor``, are ROADMAP step 5.
+with its CPU degrade, ``MeshSupervisor`` and ``collective_failure_to_loss``
+are ROADMAP step 5b.
 """
 
 #: Set when degradation steered this process off its accelerator.

@@ -20,10 +20,9 @@ Padding rows carry bucket id ``-1``: ``-1 // 256 == -1`` matches no
 The counts are exact integers, so any order of adds gives the same bits:
 no hand kernel is due here (the JAX package's binner is XLA, not a Pallas
 kernel). Chunked accumulation is exact too, so the streamed loop in
-``sketch/engine.py`` can feed any batch sizing through the binner. The
-JAX package's mesh twin (``sharded_sketch_chunk_program``) belongs to
-multi-GPU (ROADMAP step 5); ``TorchBackend`` refuses a mesh, so no path
-reaches it.
+``sketch/engine.py`` can feed any batch sizing through the binner, and on
+a mesh it bins each rank's slice of a chunk here and sums the ranks'
+sketches (the JAX package's ``sharded_sketch_chunk_program``).
 """
 
 from __future__ import annotations

@@ -52,8 +52,13 @@ filtered rows ARE the input rows, and phase 2 is bit-for-bit the dense
 path under the same engine accountant and seed.
 
 Phase timings are views over the run tracer's ``sketch.*`` spans, and a
-run leaves the JAX package's events, counters and audit records. Not
-ported: the mesh branch of the accumulation stream (ROADMAP step 5).
+run leaves the JAX package's events, counters and audit records.
+
+On a mesh each chunk pads to a multiple of ``n * ROW_BLOCK`` rows, the
+rank at position ``d`` bins the ``d``-th slice, and one replicating
+all-reduce gives every rank the chunk's sketch (the JAX package's
+multi-process branch); the counts are exact integers, so the mesh equals
+one device bit for bit. Phase 2 runs the fused path on the mesh.
 """
 
 from __future__ import annotations
@@ -189,13 +194,15 @@ def _stage_chunk(chunk: np.ndarray, device: torch.device, copy_stream):
 
 def _accumulate_stream(pair_buckets: np.ndarray, width: int,
                        backend: str, chunk_rows: int,
-                       device: torch.device, tr
+                       device: torch.device, tr, mesh=None
                        ) -> Tuple[np.ndarray, int, str]:
     """Stream the bounded pairs' bucket ids through the ingest ring into
     the device sketch: the stager copies chunk b+1 to the device while
     the dispatch thread bins chunk b. Returns ([depth, width] int64 host
     counts, chunks, the device the binner ran on); ``tr`` times each
-    chunk's staging and binning. Exact for any chunking (integer sum)."""
+    chunk's staging and binning. Exact for any chunking (integer sum).
+    On a ``mesh`` each rank stages and bins its slice of every chunk and
+    the ranks' sketches are summed (see the module docstring)."""
     from pipelinedp_tpu_torch import ingest
     from pipelinedp_tpu_torch.resilience import faults
 
@@ -206,6 +213,11 @@ def _accumulate_stream(pair_buckets: np.ndarray, width: int,
     copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
                    else None)
     binned_on = str(device)
+    n_dev = mesh.size if mesh is not None else 1
+    if n_dev > 1:
+        from pipelinedp_tpu_torch.parallel import sharded as psh
+        obs.event("sketch.sharded", devices=n_dev,
+                  topology=mesh.topology.mode)
 
     def gen_factory(cancelled):
         def gen():
@@ -216,7 +228,13 @@ def _accumulate_stream(pair_buckets: np.ndarray, width: int,
                 hi = min(n, lo + chunk_rows)
                 with tr.span("sketch.stage", cat="sketch", batch=b):
                     chunk = sketch_device.pad_chunk(
-                        np.ascontiguousarray(pair_buckets[:, lo:hi]))
+                        np.ascontiguousarray(pair_buckets[:, lo:hi]),
+                        n_shards=n_dev)
+                    if n_dev > 1:
+                        part = chunk.shape[1] // n_dev
+                        chunk = np.ascontiguousarray(
+                            chunk[:, mesh.index * part:
+                                  (mesh.index + 1) * part])
                     dev, ready = _stage_chunk(chunk, device, copy_stream)
                 yield b, dev, ready
         return gen()
@@ -231,6 +249,9 @@ def _accumulate_stream(pair_buckets: np.ndarray, width: int,
                     dev.record_stream(compute)
                 with obs.device_annotation("pdp.sketch_chunk"):
                     out = sketch_device.sketch_chunk(dev, width, backend)
+                    if n_dev > 1:
+                        out = psh.combine_shards(out, mesh, 1, True,
+                                                 "sketch.chunk")
                 binned_on = str(out.device)
                 sketch_device.accumulate_chunk(total, out)
     return total, n_chunks, binned_on
@@ -302,14 +323,16 @@ class LazySketchFirstResult:
 
     def __init__(self, col, params, sketch_params: SketchParams,
                  data_extractors, inner, rng_seed: Optional[int],
-                 device="cpu"):
+                 device="cpu", mesh=None):
         self._col = col
+        self._mesh = mesh
         self._params = params
         self._sketch = sketch_params
         self._extractors = data_extractors
         self._inner = inner
         self._rng_seed = rng_seed
-        self._device = torch.device(device)
+        self._device = (mesh.device if mesh is not None
+                        else torch.device(device))
         self._cache: Optional[List] = None
         #: Host-side key→candidate-id encoding table of the last run —
         #: phase-2 INPUT, not a DP release: do not publish it.
@@ -355,7 +378,8 @@ class LazySketchFirstResult:
             pair_buckets = np.ascontiguousarray(
                 buckets_of_key[:, kept_keys])
         counts, n_chunks, self.binner_device = _accumulate_stream(
-            pair_buckets, width, backend, sp.chunk_rows, self._device, tr)
+            pair_buckets, width, backend, sp.chunk_rows, self._device, tr,
+            self._mesh)
 
         with tr.span("sketch.select", cat="sketch"):
             # Phase 1's own books: a dedicated accountant for the bucket
@@ -445,7 +469,8 @@ def build_sketch_first_aggregation(col, params, data_extractors,
                                    sketch_params: SketchParams,
                                    budget_accountant, report_gen,
                                    rng_seed=None, device="cuda",
-                                   stream=None) -> LazySketchFirstResult:
+                                   stream=None,
+                                   mesh=None) -> LazySketchFirstResult:
     """Engine entry for the sketch-first path: registers the phase-2
     budgets on the ENGINE accountant now (graph-build time — the
     two-phase protocol), records the report stages, and returns the
@@ -462,7 +487,8 @@ def build_sketch_first_aggregation(col, params, data_extractors,
         "exact dense pass below runs over candidate keys only.")
     inner = torch_engine.build_fused_aggregation(
         col, params, data_extractors, None, budget_accountant,
-        report_gen, rng_seed=rng_seed, device=device, stream=stream)
+        report_gen, rng_seed=rng_seed, device=device, stream=stream,
+        mesh=mesh)
     return LazySketchFirstResult(col, params, sketch_params,
                                  data_extractors, inner,
-                                 rng_seed=rng_seed, device=device)
+                                 rng_seed=rng_seed, device=device, mesh=mesh)

@@ -43,8 +43,16 @@ non-binding caps a streamed run releases the same values and kept set as
 a single batch; the JAX package's streamed run releases the same values
 as the port's for the same seed, bit for bit.
 
-Streaming on a mesh, and the elastic reshards of a mesh that loses a
-device, wait for multi-GPU (ROADMAP step 5).
+On a mesh (``parallel.make_mesh``) the stream takes the JAX package's
+multi-process path: every batch is split into one cell per rank by the
+unsalted ``fmix32(pid) % n`` of ``parallel/sharded.py``, each rank bounds
+its own cell under ``fold_in(fold_in(k_bound, b), position)`` and reduces
+it, and one replicating all-reduce per output gives every rank the whole
+batch's columns, so every rank folds, selects, walks and releases alike.
+The batch target is the chunk knob times the mesh size. The ingest
+executor's threads are off on a mesh (``ingest.forced_serial``): every
+rank must enqueue its collectives in the same order. The elastic
+reshards of a mesh that loses a rank wait for ROADMAP step 5b.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from pipelinedp_tpu_torch.obs import costs
 from pipelinedp_tpu_torch import torch_engine as te
 from pipelinedp_tpu_torch.ops import prng
 from pipelinedp_tpu_torch.ops import quantile_tree
+from pipelinedp_tpu_torch.parallel import sharded as psh
 from pipelinedp_tpu_torch.resilience import checkpoint as ckpt_mod
 from pipelinedp_tpu_torch.resilience import faults
 
@@ -92,19 +101,21 @@ def stream_cache_bytes() -> int:
     return int(plan_mod.knob_value("stream_cache_bytes"))
 
 
-def chunk_target_rows(config) -> int:
-    """Rows per batch: the chunk knob, capped at int32 capacity and, for
-    configurations with fixed-point value lanes, at the lanes' per-batch
-    capacity."""
-    chunk = min(stream_chunk_rows(), (1 << 31) - 1)
+def chunk_target_rows(config, n_dev: int = 1) -> int:
+    """Rows per batch, over the whole mesh: the chunk knob times the mesh
+    size (every rank still sees about one chunk), capped at int32
+    capacity and, for configurations with fixed-point value lanes, at the
+    lanes' per-batch capacity, which the ranks' lane sums share."""
+    chunk = min(stream_chunk_rows() * n_dev, (1 << 31) - 1)
     if te._fixedpoint_layout(config) or te._vector_fx(config):
         chunk = min(chunk, te._fx_max_rows())
     return chunk
 
 
-def should_stream(config, n_rows: int) -> bool:
+def should_stream(config, n_rows: int, mesh=None) -> bool:
     """The engine streams when one batch cannot hold the table."""
-    return n_rows > chunk_target_rows(config)
+    n_dev = mesh.size if mesh is not None else 1
+    return n_rows > chunk_target_rows(config, n_dev)
 
 
 def _rank1_names(config, fx_bits: int):
@@ -148,26 +159,34 @@ def group_rows_by_cell(cell_of_row: np.ndarray,
     return order[np.argsort(hi[order], kind="stable")], counts
 
 
-def _batch_assignment(config, encoded, n_batches: int, seed: int):
-    """Row order and per-batch row counts such that each privacy unit's
-    rows are contiguous in one batch (``streaming._batch_assignment`` of
-    the JAX package on one device; the row order inside a batch is part
-    of the contract, since the tie-break bits are keyed by row position).
-    Without privacy ids every row is its own unit and batches are plain
-    contiguous slices. Returns ``(order or None, counts [n_batches])``."""
+def _batch_assignment(config, encoded, n_batches: int, seed: int,
+                      n_dev: int = 1):
+    """Row order and per-(batch, rank) row counts such that each privacy
+    unit's rows are contiguous in one rank's cell of one batch
+    (``streaming._batch_assignment`` of the JAX package; the row order
+    inside a cell is part of the contract, since the tie-break bits are
+    keyed by row position). The rank is the unsalted shard hash of
+    ``parallel/sharded.py``, independent of the batch hash. Without
+    privacy ids every row is its own unit and cells are plain contiguous
+    slices. Returns ``(order or None, counts [n_batches, n_dev])``."""
     n = encoded.n_rows
+    cells = n_batches * n_dev
     if config.bounds_already_enforced:
-        base, rem = divmod(n, n_batches)
-        counts = np.full(n_batches, base, np.int64)
+        base, rem = divmod(n, cells)
+        counts = np.full(cells, base, np.int64)
         counts[:rem] += 1
-        return None, counts
+        return None, counts.reshape(n_batches, n_dev)
     # Hash before bucketing (id families sharing low bits would pile into
     # one batch), salted by the run seed.
     h = _fmix32(encoded.pid.astype(np.uint32) ^
                 np.uint32(seed & 0xFFFFFFFF))
-    batch_of_row = ((h.astype(np.uint64) * np.uint64(n_batches)) >>
-                    np.uint64(32)).astype(np.int64)
-    return group_rows_by_cell(batch_of_row, n_batches)
+    cell_of_row = ((h.astype(np.uint64) * np.uint64(n_batches)) >>
+                   np.uint64(32)).astype(np.int64)
+    if n_dev > 1:
+        cell_of_row = (cell_of_row * n_dev +
+                       psh.shard_of_rows(encoded.pid, n_dev))
+    order, counts = group_rows_by_cell(cell_of_row, cells)
+    return order, counts.reshape(n_batches, n_dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,16 +288,27 @@ class _Staging:
     the host buffers themselves. A ``StagingRing`` keeps a set from being
     written again until the batch staged from it has had its outputs
     fetched; without a ring (a CPU run that feeds the pass-B cache, which
-    keeps what it ships) every batch gets fresh buffers."""
+    keeps what it ships) every batch gets fresh buffers.
 
-    def __init__(self, config, encoded, order, batch_rows, device, tracer):
+    ``counts`` is the [n_batches, n_dev] cell table of ``_batch_assignment``
+    and ``cell`` this rank's column: the rank stages its own cell of each
+    batch, and an empty cell of a non-empty batch still yields (a rank
+    joins every batch's collectives)."""
+
+    def __init__(self, config, encoded, order, counts, device, tracer,
+                 cell: int = 0):
         self.config = config
         self.encoded = encoded
         self.order = order
-        self.batch_rows = batch_rows
+        self.totals = counts.sum(axis=1)
+        # The first row of this rank's cell of each batch in ``order``.
+        self.starts = (np.cumsum(self.totals) - self.totals +
+                       counts[:, :cell].sum(axis=1))
+        self.batch_rows = counts[:, cell]
         self.device = device
         self.on_card = device.type == "cuda"
-        self.max_rows = int(batch_rows.max()) if len(batch_rows) else 0
+        self.max_rows = (int(self.batch_rows.max()) if len(self.batch_rows)
+                         else 0)
         self.copy_stream = (torch.cuda.Stream(device) if self.on_card
                             else None)
         self._sets: Dict[int, Tuple] = {}
@@ -311,15 +341,14 @@ class _Staging:
         or on the executor's stager thread (``cancelled`` is the stager's
         teardown event)."""
         enc = self.encoded
-        offset = int(self.batch_rows[:start_at].sum())
         staged = 0
         for b in range(start_at, len(self.batch_rows)):
+            if self.totals[b] == 0:
+                continue
             cnt = int(self.batch_rows[b])
+            offset = int(self.starts[b])
             rows = (slice(offset, offset + cnt) if self.order is None
                     else self.order[offset:offset + cnt])
-            offset += cnt
-            if cnt == 0:
-                continue
             if ring is not None:
                 # Blocks until the set staged two batches ago has had its
                 # outputs fetched; aborts promptly on teardown.
@@ -410,8 +439,8 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                                sel_rows_per_uid, rng_seed: Optional[int],
                                device, checkpoint=None,
                                executor: Optional[bool] = None,
-                               cache_bytes: Optional[int] = None
-                               ) -> Tuple[np.ndarray, Dict, Dict]:
+                               cache_bytes: Optional[int] = None,
+                               mesh=None) -> Tuple[np.ndarray, Dict, Dict]:
     """The streamed aggregation on ``device``. Returns ``(keep bool
     [P_pad], part64, stats)``: ``part64`` holds the combined int64 counts
     and float64 value columns (and VECTOR_SUM's [P_pad, D] float64
@@ -438,8 +467,14 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     folds (default 1), so that a killed run resumes bit for bit: the same
     keys replay, the folded prefix is restored, and success clears the
     store. It needs a fixed ``rng_seed``; a checkpoint of another run
-    raises ``CheckpointMismatch``."""
-    device = torch.device(device)
+    raises ``CheckpointMismatch``. On a mesh every rank reads the store and
+    the rank at position 0 writes it.
+
+    ``mesh`` runs the stream sharded over the mesh's ranks, on the mesh's
+    device (see the module docstring); every rank returns the same
+    result."""
+    device = mesh.device if mesh is not None else torch.device(device)
+    n_dev = mesh.size if mesh is not None else 1
     # The run's span tracer: phase totals always accumulate (the stats
     # below are views over them); full spans reach the ledger under
     # PIPELINEDP_TPU_TRACE.
@@ -454,9 +489,22 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                "quantiles": len(config.percentiles or ())})
     use_executor = (bool(knob_plan.values["ingest_executor"])
                     if executor is None else bool(executor))
+    if mesh is not None:
+        # Every rank must enqueue the same collectives in the same order;
+        # the executor's stager and fold threads would interleave the
+        # transfers with them differently on each rank.
+        if use_executor:
+            obs.event("ingest.forced_serial",
+                      reason="multi-process mesh: threaded enqueue "
+                             "wedges the collective rendezvous")
+            obs.inc("ingest.forced_serial")
+        use_executor = False
     P_pad = te._pad_pow2(len(encoded.pk_vocab))
+    # Owner blocks tile the partition axis (a no-op on a power-of-two
+    # mesh).
+    P_pad = -(-P_pad // n_dev) * n_dev
     n = encoded.n_rows
-    chunk = chunk_target_rows(config)
+    chunk = chunk_target_rows(config, n_dev)
     n_batches = max(1, -(-n // chunk))
     seed = te._run_seed(rng_seed)
     # The key topology of a single batch: one bounding stream (folded per
@@ -488,7 +536,10 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
             "the identical noise keys (the privacy budget is consumed at "
             "noise draw, not at job success)")
 
-    order, batch_rows = _batch_assignment(config, encoded, n_batches, seed)
+    order, counts = _batch_assignment(config, encoded, n_batches, seed,
+                                      n_dev)
+    batch_rows = counts.sum(axis=1)
+    # The lane plan bounds a batch's GLOBAL rows: the ranks' lanes add.
     max_rows = int(batch_rows.max())
     layout = te._fixedpoint_layout(config)
     vec_fx = te._vector_fx(config)
@@ -522,7 +573,7 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         with tr.span("ckpt.restore", cat="checkpoint"):
             ckpt_fp = ckpt_mod.run_fingerprint(
                 config, n, n_batches, seed, P_pad, fx_bits,
-                data=ckpt_mod.data_digest(encoded))
+                data=ckpt_mod.data_digest(encoded), n_dev=n_dev)
             saved = ckpt_store.load_for(ckpt_fp)
         if saved is not None:
             start_batch = saved.next_batch
@@ -544,7 +595,9 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     cache_used = 0
     cache_frozen = False
     cache_upto = 0  # the first batch past the cached prefix
-    staging = _Staging(config, encoded, order, batch_rows, device, tr)
+    staging = _Staging(config, encoded, order, counts, device, tr,
+                       cell=mesh.index if mesh is not None else 0)
+    ckpt_writer = mesh is None or mesh.index == 0
     # On the CPU a cached batch's tensors are the staging buffers, so a
     # run that feeds the cache stages into fresh buffers; on the card the
     # cache keeps device copies and the ring's pinned sets rotate.
@@ -585,6 +638,8 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
 
     def save_ckpt(next_batch):
         nonlocal n_saves
+        if not ckpt_writer:
+            return
         with tr.span("ckpt.save", cat="checkpoint", next_batch=next_batch):
             arrays = {f"acc:{k}": v for k, v in acc.items()}
             arrays.update({f"val:{k}": v for k, v in val_acc.items()})
@@ -626,11 +681,20 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         staging.ready_on_compute(item)
         with obs.device_annotation("pdp.stream_partials"):
             part, nseg, mid = _batch_partials(
-                config, P_pad, pid, pk, values, prng.fold_in(k_bound, b),
+                config, P_pad, pid, pk, values, _cell_key(k_bound, b, mesh),
                 fx_bits)
         packed = torch.stack([part[k] for k in names] + [nseg])
-        (host, vec), done = _start_fetch([packed, part.get("vector_sum")],
-                                         device)
+        vec = part.get("vector_sum")
+        if mesh is not None:
+            # One replicating exchange per output: every rank folds the
+            # whole batch.
+            packed = psh.combine_shards(packed, mesh, 1, True,
+                                        "stream.packed")
+            if vec is not None:
+                vec = psh.combine_shards(vec, mesh, 0, True, "stream.vector")
+            if mid is not None:
+                mid = psh.combine_shards(mid, mesh, 0, True, "stream.mid")
+        (host, vec), done = _start_fetch([packed, vec], device)
         if cache is not None and not cache_frozen:
             nbytes = sum(int(t.nbytes) for t in (pid, pk, values)
                          if t is not None)
@@ -723,7 +787,8 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         te._record_selection_audit(config.selection, int((nseg > 0).sum()),
                                    int(keep.sum()), "streamed")
     stats = {"n_batches": n_batches, "chunk_rows": chunk, "fx_bits": fx_bits,
-             "max_batch_rows": max_rows, "t_stage": t_stage,
+             "max_batch_rows": max_rows, "mesh_devices": n_dev,
+             "t_stage": t_stage,
              "t_device": t_fetch, "t_fold": t_fold, "t_total": t_loop,
              "overlap_frac": (max(0.0, 1.0 - t_loop / busy_a)
                               if busy_a > 0 else 0.0),
@@ -736,14 +801,15 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         stats.update(_pass_b(config, plan, P_pad, acc, mid_acc, scales,
                              k_bound, k_noise, cache, cache_frozen,
                              cache_upto, staging, use_executor, device,
-                             tr, int(knob_plan.values["tree_rows_cap"])))
+                             tr, int(knob_plan.values["tree_rows_cap"]),
+                             mesh))
     stats["stage_s"] = staging.stage_s
     plan_mod.note_observed("pass_a", t_loop)
     if config.percentiles:
         plan_mod.note_observed("pass_b", tr.total("ingest.pass_b_sweep"))
         plan_mod.note_observed("walk", tr.total("walk.top") +
                                tr.total("walk.bottom"))
-    if ckpt_store is not None:
+    if ckpt_store is not None and ckpt_writer:
         # The run released its outputs: a later run on this path must not
         # resume a finished one.
         ckpt_store.clear()
@@ -752,12 +818,14 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
 
 def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
             cache, cache_frozen, cache_upto, staging, use_executor,
-            device, tr, tree_rows_cap) -> Dict:
+            device, tr, tree_rows_cap, mesh=None) -> Dict:
     """The percentile walk's second pass: the top levels walk on the
     summed mid histogram, then each sweep of the plan streams the batches
     (the cached prefix from the device, the rest re-shipped) into its
     packed [T, Pb, Qc, span] subtree histograms (K3 on the card), and the
-    bottom levels walk per tile."""
+    bottom levels walk per tile. On a mesh each rank bins its own cells
+    and one replicating all-reduce per sweep sums the ranks' histograms
+    (integer sums: any grouping gives the same counts)."""
     _, _, n_mid, span = quantile_tree.tree_constants()
     # The histograms accumulate in device int32, so a partition with 2^31
     # kept rows would wrap a bucket: guard on the host counts.
@@ -809,7 +877,7 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
                      q0=q0_s, p0=p0_s):
             vals = _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo,
                                  hi, target, done, k_bound, k_tree, scale,
-                                 staging, run_sweep, device, vals, tr)
+                                 staging, run_sweep, device, vals, tr, mesh)
         obs.inc("stream.pass_b_stream_sweeps")
         obs.inc("stream.pass_b_tiles", len(sweep))
     # The monotone step runs once over the full quantile list.
@@ -828,7 +896,7 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
 
 def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
                   done, k_bound, k_tree, scale, staging, run_sweep, device,
-                  vals, tr):
+                  vals, tr, mesh=None):
     """One sweep of the plan: streams the batches into the sweep's packed
     [T, Pb, Qc, span] subtree histograms, then walks the bottom levels
     per tile into ``vals``."""
@@ -844,7 +912,7 @@ def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
         faults.check_pass_b_chunk(b)
         staging.ready_on_compute(item)
         with obs.device_annotation("pdp.stream_pass_b"):
-            _sweep_batch(config, pid, pk, values, prng.fold_in(k_bound, b),
+            _sweep_batch(config, pid, pk, values, _cell_key(k_bound, b, mesh),
                          starts, p_offs, Pb, span, sub)
         if ring_b is not None:
             # The batch's buffers are free once its work has run.
@@ -852,6 +920,8 @@ def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
             ring_b.retire()
 
     run_sweep(consume)
+    if mesh is not None:
+        sub = psh.combine_shards(sub, mesh, 0, True, "stream.subtree")
     for ti, (q0, _, p0) in enumerate(sweep):
         psl, qsl = slice(p0, p0 + Pb), slice(q0, q0 + qn)
         with tr.span("walk.bottom", cat="walk", p0=p0, q0=q0), \
@@ -861,6 +931,13 @@ def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
                 hi[psl, qsl], target[psl, qsl], leaf_lo[psl, qsl],
                 done[psl, qsl], k_tree, scale, p0)
     return vals
+
+
+def _cell_key(k_bound, b: int, mesh):
+    """The bounding key of batch ``b``; on a mesh folded once more with
+    the rank's position, as the JAX package's sharded kernels fold it."""
+    kb = prng.fold_in(k_bound, b)
+    return kb if mesh is None else prng.fold_in(kb, mesh.index)
 
 
 @costs.instrumented(phase="pass_a")

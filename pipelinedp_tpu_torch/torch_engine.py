@@ -994,15 +994,30 @@ def _fold_fixedpoint(config: FusedConfig, part64, fx_bits: int) -> None:
 def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
                            part_nseg, keep_table, sel_threshold, sel_scale,
                            sel_min_count, sel_rows_per_uid, k_sel,
-                           k_noise=None, noise_scales=None, qrows=None):
+                           k_noise=None, noise_scales=None, qrows=None,
+                           mesh=None):
     """Batched partition selection over the whole [P] axis, then the
     percentile walk (``jax_engine._selection_and_metrics``). Returns
     (keep_pk bool [P], accumulator columns, with one float32 [P] column
     per percentile). The thresholds arrive as float32 values, as the JAX
     package passes them; the walk's noise scale is the last entry of
-    ``noise_scales`` and its key a constant fold of ``k_noise``."""
+    ``noise_scales`` and its key a constant fold of ``k_noise``.
+
+    On a ``mesh`` the partition axis is sharded: ``part``/``part_nseg``
+    are this rank's owned block of ``num_partitions`` partitions out of
+    ``num_partitions * mesh.size``. The selection draws cover the global
+    axis and this rank keeps its block's slice, and the walk runs on the
+    owned block, so the keep decisions and the walk equal one device's."""
     P = num_partitions
     device = part_nseg.device
+    offset = 0 if mesh is None else mesh.index * P
+    P_total = P if mesh is None else P * mesh.size
+
+    def owned(draw):
+        """A [P_total] draw, sliced to this rank's block."""
+        full = draw((P_total,))
+        return full if mesh is None else full[offset:offset + P]
+
     if config.selection is None:
         keep_pk = torch.ones(P, dtype=torch.bool, device=device)
     else:
@@ -1016,13 +1031,16 @@ def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
                                     device=device)
             idx = torch.clamp(est_users.to(torch.int64), 0,
                               table.shape[0] - 1)
-            keep_pk = prng.uniform(k_sel, (P,), device=device) < table[idx]
+            keep_pk = owned(lambda shape: prng.uniform(
+                k_sel, shape, device=device)) < table[idx]
         else:
             if config.selection == (
                     PartitionSelectionStrategy.LAPLACE_THRESHOLDING):
-                noise = prng.laplace(k_sel, (P,), device=device)
+                noise = owned(lambda shape: prng.laplace(
+                    k_sel, shape, device=device))
             else:
-                noise = prng.normal(k_sel, (P,), device=device)
+                noise = owned(lambda shape: prng.normal(
+                    k_sel, shape, device=device))
             # XLA contracts est + noise * scale into one FMA; fma32 keeps
             # that single rounding, so a draw at the threshold decides the
             # same way.
@@ -1035,8 +1053,12 @@ def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
     if config.percentiles:
         # The tree key is independent of the selection stream.
         k_tree = prng.fold_in(k_noise, 0x7ee)
-        vals = _percentile_values(config, P, qrows,
-                                  float(np.asarray(noise_scales)[-1]), k_tree)
+        scale = float(np.asarray(noise_scales)[-1])
+        if mesh is None:
+            vals = _percentile_values(config, P, qrows, scale, k_tree)
+        else:
+            vals = _percentile_values_owned(config, P, qrows, scale, k_tree,
+                                            mesh)
         for qi, name in enumerate(_percentile_field_names(
                 config.percentiles)):
             out[name] = vals[:, qi]
@@ -1366,6 +1388,58 @@ def _percentile_values(config: FusedConfig, P: int, qrows, scale, key):
     return _monotone_in_q(torch.cat(outs, dim=0), quantiles)
 
 
+def _percentile_values_owned(config: FusedConfig, P_own: int, qrows, scale,
+                             key, mesh):
+    """The quantile descent with the partition axis sharded over the mesh
+    (``jax_engine._percentile_values_owned``): each rank walks its owned
+    block of ``P_own`` partitions (global partition ``mesh.index * P_own +
+    i``). Per level: gather the owned walk bases ([P_own, Q] int32: any
+    rank's rows may fall in any partition's walk), count the children of
+    this rank's rows over the global axis in ONE ``segment_sum_lanes``
+    call (K1 on the card, as the single-device walk counts its mid
+    histogram), and hand each owner its block of the [P, Q, b] counts.
+    Node noise is keyed by the global partition, so the walk equals one
+    device's bit for bit."""
+    from pipelinedp_tpu_torch.parallel import sharded as psh
+    qpk, leaf, kept = qrows
+    b, height, _, _ = quantile_tree.tree_constants()
+    quantiles = np.asarray([p / 100.0 for p in config.percentiles],
+                           np.float32)
+    Q = quantiles.shape[0]
+    P = P_own * mesh.size
+    device = qpk.device
+    pk_index = mesh.index * P_own + torch.arange(P_own, device=device)
+    lo = torch.full((P_own, Q), _f32(config.min_value), dtype=torch.float32,
+                    device=device)
+    hi = torch.full((P_own, Q), _f32(config.max_value), dtype=torch.float32,
+                    device=device)
+    target = torch.as_tensor(quantiles, device=device).expand(P_own, Q)
+    leaf_lo = torch.zeros((P_own, Q), dtype=torch.int32, device=device)
+    done = torch.zeros((P_own, Q), dtype=torch.bool, device=device)
+    # Row r's count of quantile q lands in segment (qpk * Q + q) * b + slot.
+    row_q = qpk.to(torch.int64)[:, None] * Q + torch.arange(Q, device=device)
+    level_offset = 0
+    for level in range(height):
+        w = b**(height - 1 - level)
+        base_own = leaf_lo // w
+        base = psh.gather_blocks(base_own, mesh, 0,
+                                 f"walk.base{level}")  # [P, Q]
+        slot = (leaf // w)[:, None] - base[qpk.long()]  # [N, Q]
+        ok = kept[:, None] & (slot >= 0) & (slot < b)
+        seg = row_q * b + torch.clamp(slot, 0, b - 1)
+        counts = segsum.segment_sum_lanes(
+            ok.to(torch.int32).reshape(-1, 1).contiguous(),
+            seg.to(torch.int32).reshape(-1).contiguous(),
+            P * Q * b).reshape(P, Q, b)
+        raw = psh.scatter_to_owner(counts, mesh, 0,
+                                   f"walk.counts{level}").to(torch.float32)
+        lo, hi, target, leaf_lo, done = _walk_level(
+            config.noise_kind, key, scale, raw, base_own, level_offset, lo,
+            hi, target, leaf_lo, done, b, w, pk_index=pk_index)
+        level_offset += b**(level + 1)
+    return _monotone_in_q(prng.fma32(hi - lo, target, lo), quantiles)
+
+
 @costs.instrumented(phase="fetch")
 def _compact_fetch(keep_pk, cols, num_partitions: int, cap: int):
     """Output compaction on the device: a stable sort puts the kept
@@ -1678,13 +1752,15 @@ def _audit_expected_errors(config: FusedConfig, specs, metric_arrays,
         pass  # an error estimate must never take the release down
 
 
-def _maybe_append_run_ledger(name: str = "engine.aggregate") -> None:
+def _maybe_append_run_ledger(name: str = "engine.aggregate",
+                             mesh=None) -> None:
     """A traced run persists its run report into the durable ledger store
     (when a store directory resolves — ``obs.store.ledger_dir``). Each
-    append carries only this request's delta."""
+    append carries only this request's delta; ``mesh`` keys the
+    fingerprint on the mesh shape the request ran on."""
     if not obs.trace_enabled():
         return
-    obs.store.maybe_append_run_report(name)
+    obs.store.maybe_append_run_report(name, mesh=mesh)
 
 
 def _sync(device: torch.device) -> None:
@@ -1700,15 +1776,27 @@ def _run_seed(rng_seed: Optional[int]) -> int:
 
 def _run_fused(config: FusedConfig, encoded: EncodedData, scales,
                keep_table, thr, s_scale, min_count, rows_per_uid, rng_seed,
-               device):
+               device, mesh=None):
     """The seed protocol and the device path: returns (keep_pk [P_pad],
-    accumulator columns, fx_bits)."""
+    accumulator columns, fx_bits). On a ``mesh`` the path runs sharded
+    (``parallel.sharded_fused_aggregate``) and every rank gets the whole
+    axis back; the lane plan comes from the GLOBAL row count, since the
+    ranks' lane sums add."""
     P_pad = _pad_pow2(len(encoded.pk_vocab))
     key = prng.PRNGKey(_run_seed(rng_seed))
     if _fixedpoint_layout(config) or _vector_fx(config):
         fx_bits, _ = _fx_plan(max(encoded.n_rows, 1))
     else:
         fx_bits = 12
+    if mesh is not None:
+        from pipelinedp_tpu_torch.parallel import sharded
+        with obs.device_annotation("pdp.sharded_fused_aggregate"):
+            keep_pk, raw = sharded.sharded_fused_aggregate(
+                mesh, config, P_pad, encoded.pid, encoded.pk,
+                encoded.values if config.needs_values else None, scales,
+                keep_table, thr, s_scale, min_count, rows_per_uid, key,
+                fx_bits)
+        return keep_pk, raw, fx_bits
     pid, pk, values = put_on_device(encoded, device,
                                     with_values=config.needs_values)
     keep_pk, raw = _fused_body(config, P_pad, pid, pk, values, scales,
@@ -1890,12 +1978,15 @@ class LazyFusedResult:
     ``"hybrid"`` or ``"reship"``), ``stream_pass_b_sweeps``,
     ``stream_pass_b_tiles``, ``stream_pass_b_tiles_per_sweep``,
     ``stream_pass_b_cached_batches``, ``stream_pass_b_reshipped_bytes``
-    and ``stream_pass_b_sweep_s``."""
+    and ``stream_pass_b_sweep_s``.
+
+    On a ``mesh`` (``parallel.make_mesh``) the device path runs sharded on
+    the mesh's device, and every rank returns the same release."""
 
     def __init__(self, rows, params: AggregateParams, config: FusedConfig,
                  data_extractors, public_partitions, specs,
                  selection_spec, rng_seed: Optional[int], device,
-                 stream: Optional[Dict[str, Any]] = None):
+                 stream: Optional[Dict[str, Any]] = None, mesh=None):
         self._rows = rows
         self._params = params
         self._config = config
@@ -1904,7 +1995,9 @@ class LazyFusedResult:
         self._specs = specs
         self._selection_spec = selection_spec
         self._rng_seed = rng_seed
-        self._device = torch.device(device)
+        self._mesh = mesh
+        self._device = (mesh.device if mesh is not None
+                        else torch.device(device))
         self._stream = dict(stream or {})
         self._cache = None
         #: Serve-fusion seam: the encoding a fusion offer already built
@@ -1955,7 +2048,7 @@ class LazyFusedResult:
             self._device_inputs())
 
         from pipelinedp_tpu_torch import streaming
-        if streaming.should_stream(config, encoded.n_rows):
+        if streaming.should_stream(config, encoded.n_rows, self._mesh):
             return self._execute_streamed(encoded, scales, keep_table, thr,
                                           s_scale, min_count, rows_per_uid,
                                           tr)
@@ -2028,10 +2121,12 @@ class LazyFusedResult:
         request's PRNG key — without running it. Runs after
         ``compute_budgets()``, like iteration. An unseeded request draws
         its seed here, at the JAX package's point of the host sequence.
-        Returns None when the request cannot join a fused batch (an empty
-        vocabulary, or so many rows that it streams): the fusion layer
-        then runs it solo, visibly."""
+        Returns None when the request cannot join a fused batch (a mesh,
+        an empty vocabulary, or so many rows that it streams): the fusion
+        layer then runs it solo, visibly."""
         config = self._config
+        if self._mesh is not None:
+            return None
         tr = obs.run_tracer()
         with tr.span("engine.encode", cat="engine"):
             if encoded is None:
@@ -2096,7 +2191,7 @@ class LazyFusedResult:
         P = len(encoded.pk_vocab)
         keep_pk, raw, fx_bits = _run_fused(
             config, encoded, scales, keep_table, thr, s_scale, min_count,
-            rows_per_uid, self._rng_seed, self._device)
+            rows_per_uid, self._rng_seed, self._device, self._mesh)
         # The rank-1 columns are [P_pad] and ride one packed int32 block,
         # the float32 percentile columns bitcast into it; the rank-2
         # VECTOR_SUM column is gathered by the kept indices.
@@ -2165,7 +2260,7 @@ class LazyFusedResult:
                                    rel_sel, vocab_idx)
         self.timings["host_decode_s"] = tr.total("engine.release")
         _audit_expected_errors(config, self._specs, metric_arrays, rel_sel)
-        _maybe_append_run_ledger()
+        _maybe_append_run_ledger(mesh=self._mesh)
         return out
 
     def _execute_streamed(self, encoded: EncodedData, scales, keep_table,
@@ -2182,7 +2277,7 @@ class LazyFusedResult:
             keep, part64, stats = streaming.stream_partials_and_select(
                 config, encoded, scales, keep_table, thr, s_scale,
                 min_count, rows_per_uid, self._rng_seed, self._device,
-                **self._stream)
+                mesh=self._mesh, **self._stream)
             _sync(self._device)
         self.timings["device_s"] = tr.total("engine.device")
         self.timings["stream_batches"] = stats["n_batches"]
@@ -2224,7 +2319,7 @@ class LazyFusedResult:
                                    rel_sel, vocab_idx)
         self.timings["host_decode_s"] = tr.total("engine.release")
         _audit_expected_errors(config, self._specs, metric_arrays, rel_sel)
-        _maybe_append_run_ledger()
+        _maybe_append_run_ledger(mesh=self._mesh)
         return out
 
 
@@ -2233,13 +2328,15 @@ class LazySelectResult:
     metric set — only bounding + selection — on first iteration."""
 
     def __init__(self, rows, params, data_extractors, spec, rng_seed,
-                 device):
+                 device, mesh=None):
         self._rows = rows
         self._params = params
         self._extractors = data_extractors
         self._spec = spec
         self._rng_seed = rng_seed
-        self._device = torch.device(device)
+        self._mesh = mesh
+        self._device = (mesh.device if mesh is not None
+                        else torch.device(device))
         self._cache = None
 
     def __iter__(self):
@@ -2263,18 +2360,20 @@ class LazySelectResult:
         keep_table, thr, s_scale, min_count = selection_inputs(
             config, self._spec.eps, self._spec.delta, params.pre_threshold)
         from pipelinedp_tpu_torch import streaming
-        if streaming.should_stream(config, encoded.n_rows):
+        if streaming.should_stream(config, encoded.n_rows, self._mesh):
             # The stream with no metrics: only its keep vector is read,
             # and the kept keys go out in ascending vocabulary order.
             keep, _, _ = streaming.stream_partials_and_select(
                 config, encoded, np.zeros(1, np.float32), keep_table, thr,
-                s_scale, min_count, 1.0, self._rng_seed, self._device)
+                s_scale, min_count, 1.0, self._rng_seed, self._device,
+                mesh=self._mesh)
             out = [encoded.pk_vocab[i] for i in np.flatnonzero(keep[:P])]
-            _maybe_append_run_ledger("engine.select_partitions")
+            _maybe_append_run_ledger("engine.select_partitions",
+                                     mesh=self._mesh)
             return out
         keep_pk, _, _ = _run_fused(config, encoded, _noise_scales(config, {}),
                                    keep_table, thr, s_scale, min_count, 1.0,
-                                   self._rng_seed, self._device)
+                                   self._rng_seed, self._device, self._mesh)
         vocab = encoded.pk_vocab
         cap = min(P, _COMPACT_FETCH_CAP)
         packed = _compact_fetch(keep_pk, (), P, cap).cpu().numpy()
@@ -2286,14 +2385,14 @@ class LazySelectResult:
             out = [vocab[i] for i in packed[1, :n_keep].tolist()]
         _record_selection_audit(config.selection, P, len(out),
                                 "select_partitions")
-        _maybe_append_run_ledger("engine.select_partitions")
+        _maybe_append_run_ledger("engine.select_partitions", mesh=self._mesh)
         return out
 
 
 def build_fused_select_partitions(col, params, data_extractors,
                                   budget_accountant, report_gen,
-                                  rng_seed=None,
-                                  device="cuda") -> LazySelectResult:
+                                  rng_seed=None, device="cuda",
+                                  mesh=None) -> LazySelectResult:
     """Fused ``select_partitions``: the L0 bound over distinct (pid, pk)
     pairs and the batched selection are the aggregation path with no
     metrics requested."""
@@ -2310,18 +2409,18 @@ def build_fused_select_partitions(col, params, data_extractors,
         f"method with (eps={spec.eps}, delta={spec.delta}) — batched over "
         "all partitions")
     return LazySelectResult(col, params, data_extractors, spec, rng_seed,
-                            device)
+                            device, mesh)
 
 
 def build_fused_aggregation(col, params: AggregateParams, data_extractors,
                             public_partitions, budget_accountant,
                             report_gen, rng_seed=None, device="cuda",
-                            stream=None) -> LazyFusedResult:
+                            stream=None, mesh=None) -> LazyFusedResult:
     """Engine entry point of the fused path: requests budgets (the same
     requests, in the same order, as the JAX package), registers report
     stages, returns the lazy result. ``stream`` holds the keyword options
     of ``streaming.stream_partials_and_select`` (``checkpoint``,
-    ``executor``, ``cache_bytes``)."""
+    ``executor``, ``cache_bytes``); ``mesh`` runs the path on a mesh."""
     public = public_partitions is not None
     config = FusedConfig.from_params(params, public)
     specs = request_budgets(config, params, budget_accountant)
@@ -2364,4 +2463,4 @@ def build_fused_aggregation(col, params: AggregateParams, data_extractors,
         "device pass")
     return LazyFusedResult(col, params, config, data_extractors,
                            public_partitions, specs, selection_spec,
-                           rng_seed, device, stream)
+                           rng_seed, device, stream, mesh)

@@ -624,17 +624,22 @@ class TestHeartbeatOccupancy:
         mon = obs_monitor.Monitor(
             clock=clock, interval_s=1.0, stall_s=60.0,
             heartbeat_path=str(tmp_path / "hb.json")).start_inline()
-        obs_monitor.update_fusion(
-            {"window_ms": 8, "max_batch": 8, "queued": 3,
-             "buckets": {"abc@r8192p64": {
-                 "queued": 3, "rows": 8192, "partitions": 64,
-                 "window_remaining_s": 0.004}}})
-        hb = mon.poll_once()
-        assert hb["serve"]["fusion"]["queued"] == 3
-        bucket = hb["serve"]["fusion"]["buckets"]["abc@r8192p64"]
-        assert bucket["window_remaining_s"] == 0.004
-        obs_monitor.update_fusion(None)
-        assert "serve" not in mon.poll_once()
+        try:
+            obs_monitor.update_fusion(
+                {"window_ms": 8, "max_batch": 8, "queued": 3,
+                 "buckets": {"abc@r8192p64": {
+                     "queued": 3, "rows": 8192, "partitions": 64,
+                     "window_remaining_s": 0.004}}})
+            hb = mon.poll_once()
+            assert hb["serve"]["fusion"]["queued"] == 3
+            bucket = hb["serve"]["fusion"]["buckets"]["abc@r8192p64"]
+            assert bucket["window_remaining_s"] == 0.004
+            obs_monitor.update_fusion(None)
+            assert "serve" not in mon.poll_once()
+        finally:
+            # An inline monitor arms the activity registry, which would
+            # otherwise make the global tracer measure in later tests.
+            mon.stop()
 
     def test_live_fuser_pushes_bucket_occupancy(self, tmp_path):
         with Service(str(tmp_path / "svc"),

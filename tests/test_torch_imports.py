@@ -12,7 +12,7 @@ BANNED = ("jax", "jaxlib", "pipelinedp_tpu")
 
 #: The modules of the sketch-first path, the peeker, the fluent APIs, the
 #: PLD engine, the native library, the obs and plan planes with the
-#: clock and retry policy they use, and the resident service.
+#: clock and retry policy they use, the resident service and the mesh.
 NEW_MODULES = ("sketch/__init__.py", "sketch/hashing.py",
                "sketch/params.py", "sketch/device.py", "sketch/engine.py",
                "sketch/peek.py", "peeker/__init__.py",
@@ -27,7 +27,9 @@ NEW_MODULES = ("sketch/__init__.py", "sketch/hashing.py",
                "plan/model.py", "plan/planner.py", "resilience/clock.py",
                "resilience/retry.py", "resilience/health.py",
                "serve/__init__.py", "serve/budget_ledger.py",
-               "serve/service.py", "serve/fusion.py")
+               "serve/service.py", "serve/fusion.py",
+               "parallel/__init__.py", "parallel/sharded.py",
+               "parallel/launch.py")
 
 
 def _port_files():

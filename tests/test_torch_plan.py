@@ -39,10 +39,7 @@ PORT_DIR = os.path.join(os.path.dirname(os.path.dirname(
 BIG_EPS = 1e12
 #: The knobs the port leaves out of the JAX package's registry.
 NOT_PORTED = ("kernel_backend", "segsum_wide_d_block")
-#: The knobs the port registers with the modules that read them: the
-#: mesh's (ROADMAP step 5).
-WITH_THEIR_READERS = ("mesh_topology",)
-JAX_ONLY = NOT_PORTED + WITH_THEIR_READERS
+JAX_ONLY = NOT_PORTED
 
 #: Today's hardcoded defaults, restated literally: the cold-start
 #: criterion is byte identity against these values, so the test must not
@@ -63,6 +60,7 @@ HARDCODED_DEFAULTS = {
     "sketch_depth": 2,
     "sketch_candidate_cap": 4096,
     "sketch_backend": "matmul",
+    "mesh_topology": "flat",
     "select_units_cap": int(np.iinfo(np.int32).max),
     "tree_rows_cap": int(np.iinfo(np.int32).max),
 }
@@ -598,7 +596,8 @@ class TestNoDirectKnobReads:
             assert seams[spec.name] == spec.default, spec.name
         assert set(seams) == {"subhist_byte_cap", "q_chunk",
                               "sweep_config_batch", "vector_accumulator",
-                              "select_units_cap", "tree_rows_cap"}
+                              "mesh_topology", "select_units_cap",
+                              "tree_rows_cap"}
 
 
 # ---------------------------------------------------------------------------
@@ -608,8 +607,8 @@ class TestNoDirectKnobReads:
 
 class TestCrossPackageKnobs:
     """The port's registry is the JAX package's, less the two knobs the
-    port leaves out and the knobs whose readers it has not ported yet,
-    and resolves the same under the same environment and plan file."""
+    port leaves out, and resolves the same under the same environment
+    and plan file."""
 
     def test_registry_matches_the_jax_package(self):
         jspecs = {s.name: s for s in jplan.knobs.REGISTRY}

@@ -197,7 +197,7 @@ def test_batch_assignment_matches_jax(enforced, n_batches):
                                                      12345, 1)
     order_t, counts_t = streaming._batch_assignment(cfg_t, enc_t, n_batches,
                                                     12345)
-    np.testing.assert_array_equal(counts_t, counts_j[:, 0])
+    np.testing.assert_array_equal(counts_t, counts_j)
     if enforced:
         assert order_t is None and order_j is None
     else:
@@ -274,10 +274,12 @@ def test_guards_fire(monkeypatch):
 
 @pytest.mark.parametrize("unported", ["mesh"])
 def test_not_in_slice_raises(unported):
-    """A mesh waits for multi-GPU (ROADMAP step 5); the other options of
-    the JAX backend's stream are ported (``test_torch_ingest.py``,
-    ``test_torch_resume.py``, ``test_torch_stream_vector.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP step 5"):
+    """Every option of the JAX backend's stream is ported now
+    (``test_torch_ingest.py``, ``test_torch_resume.py``,
+    ``test_torch_stream_vector.py``; the mesh, ROADMAP step 5a,
+    ``test_torch_stream_mesh.py``): the backend takes a ``parallel.Mesh``
+    and refuses anything else by name."""
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         pdt.TorchBackend("cpu", **{unported: object()})
 
 

@@ -466,16 +466,20 @@ class TestFuzz:
 
 
 class TestNotPorted:
-    """What the slice does not run raises and names its ROADMAP step."""
+    """What the port once left out, and how it answers now."""
 
     def test_mesh_raises_step_5(self):
+        """The mesh is ported (ROADMAP step 5a; the test's name is from
+        when the port raised here, ``tests/test_torch_sweep_mesh.py`` runs
+        the sweep on one): a mesh that is no ``parallel.Mesh`` raises by
+        name."""
         opts = _options(tan, pt)
-        with pytest.raises(NotImplementedError, match="ROADMAP step 5"):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             torch_sweep.build_fused_sweep(
                 pt.ArrayDataset(*_columns(n=100)), opts, pt.DataExtractors(),
                 None, pt.NaiveBudgetAccountant(1.0, 1e-6),
                 pt.TorchBackend(device="cpu"), device="cpu", mesh=object())
-        with pytest.raises(NotImplementedError, match="ROADMAP step 5"):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             pt.TorchBackend(device="cpu", mesh=object())
 
     def test_host_graph_raises_step_2(self):
