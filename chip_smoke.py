@@ -242,7 +242,33 @@ Phases, one line each; any failure raises and exits non-zero:
     launches, the comms bytes and each rank's peak memory, beside the
     card's name and power limit (four ranks on one card measure no
     multi-GPU speed);
-31. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
+31. the mesh's elastic half and the device-health probe, in three parts:
+    (a) the probe on the card (``ensure_device_or_degrade``: healthy at
+    attempt 1, its seconds), an injected ``wedged_init`` on a FakeClock
+    through the ``env=`` seam (a degraded, flagged report; this process's
+    environment untouched) and ``TorchBackend(health_policy=...)`` in a
+    subprocess under ``PIPELINEDP_TPU_FAULTS=wedged_init=9`` (degraded, on
+    the CPU, a later ``TorchBackend()`` degraded too); and, run after
+    phase 28 while phase 4's data is in memory, the 25M-row flagship
+    through ``TorchBackend(health_policy=True)``, not degraded, bit for
+    bit phase 4's release; (b) config 4's generator at 200,000 rows
+    streamed in four batches on 4 gloo ranks on ``cuda:0`` and on the CPU
+    (elastic pools, ``PIPELINEDP_TPU_MESH_DIR`` armed), the caps at the
+    data's maxima: an injected ``DeviceLost`` at batch 2 (4 -> 2), a
+    double loss (4 -> 2 -> 1), a rank that is not the checkpoint's writer
+    ending its process at batch 2 and position 0 (the writer) ending its
+    (each 4 -> 2): the survivors' release the clean run's at the surviving
+    shape (a 2-rank pool; one device for one rank left), the card's the
+    CPU's, K1 on every card rank before the reshard and K3 after it; and
+    VECTOR_SUM at D = 64 under ``fx`` (200,000 rows) through the injected
+    loss, K2 before and after it on every card rank; (c)
+    config 4 at full size (10M rows, six batches) on 4 gloo ranks sharing
+    ``cuda:0``: with the data's maxima as caps rank 3 ends its process at
+    batch 2 and the survivors release a clean 2-rank run's and the single
+    device's bits; with config 4's caps the clean 4-rank wall, the killed
+    run's wall, the time to recover, the reshard, the resume point, K1's
+    and K3's ms and launches per rank and each rank's peak memory;
+32. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
     the result line ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
@@ -259,6 +285,7 @@ It exits non-zero, and prints no result, without a CUDA device.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -500,8 +527,11 @@ def _aggregate(pdt, columns, params_kw, device, seed, public=None,
                **backend):
     pids, pks, values = columns
     acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
-    engine = pdt.DPEngine(acc, pdt.TorchBackend(device=device,
-                                                rng_seed=seed, **backend))
+    torch_backend = pdt.TorchBackend(device=device, rng_seed=seed, **backend)
+    # No run of this script is degraded but phase 31 (a)'s, in its own
+    # subprocess.
+    assert torch_backend.degraded is False, "a run came up degraded"
+    engine = pdt.DPEngine(acc, torch_backend)
     result = engine.aggregate(
         pdt.ArrayDataset(privacy_ids=pids, partition_keys=pks,
                          values=values),
@@ -3572,6 +3602,10 @@ def _rank_columns(name):
             _RANK_COLUMNS[name] = zipf_columns(
                 FLAGSHIP["rows"], FLAGSHIP["users"], FLAGSHIP["partitions"],
                 FLAGSHIP["seed"])
+        elif name == "config4_full":
+            _RANK_COLUMNS[name] = zipf_columns(
+                CONFIG4["rows"], CONFIG4["users"], CONFIG4["partitions"],
+                CONFIG4["seed"])
         elif name == "vector":
             rng = np.random.default_rng(29)
             n = MESH_SMOKE_ROWS
@@ -3838,6 +3872,530 @@ def phase_mesh(smi):
     return smoke, full
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the mesh's elastic half and the device-health probe
+# ---------------------------------------------------------------------------
+
+# The ranks of phase 31's elastic pools; the collective timeout of a pool
+# whose rank may die (what a survivor stuck in a collective would wait).
+ELASTIC_TIMEOUT_S = 60.0
+# Rows per rank per batch of (b): config 4's 200,000 smoke rows in four
+# batches on four ranks (the adopted assignment keeps four on fewer).
+ELASTIC_SMOKE_CHUNK = 16_000
+# (c): config 4's 10M rows in six batches on four ranks.
+ELASTIC_FULL_CHUNK = -(-CONFIG4["rows"] // (6 * MESH_RANKS))
+ELASTIC_DIE_CODE = 17
+FAULTS_ENV = "PIPELINEDP_TPU_FAULTS"
+# The dispatch ordinals of (b)'s injected losses: pass A's batch 2 (the
+# third dispatch); the double loss then loses the 2-rank mesh in its pass
+# B (batch 1 of the sweep, after the resumed pass A's batches 1-3), so
+# that K1 and K3 both run on the middle mesh.
+ELASTIC_PLANS = {"device_lost": "lose_device_chunks=2",
+                 "double_loss": "lose_device_chunks=2:7",
+                 "vector_device_lost": "lose_device_chunks=2"}
+
+
+def elastic_rank_case(data, device, caps=None, checkpoint=None,
+                      time_kernels=False):
+    """On every rank of a phase-31 pool: config 4 (or, for the
+    ``"vector"`` data, VECTOR_SUM at D = 64) streamed on this rank's
+    mesh under the call's ``PIPELINEDP_TPU_FAULTS`` (its counters from
+    zero). A rank whose plan fails a chunk ends its process there, as a
+    lost host. Returns the release digest, the K1-K5 launches of each mesh
+    generation (split at each reshard), the stream's elastic timings, the
+    wall, the peak device memory and, with ``time_kernels``, the
+    CUDA-event ms of the first K1 and K3 launch on the last mesh, re-run
+    on their own inputs."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import obs
+    from pipelinedp_tpu_torch.ops.kernels import hist, segsum
+    from pipelinedp_tpu_torch.parallel import sharded as psh
+    from pipelinedp_tpu_torch.resilience import faults
+    plan = faults.active()
+    if plan is not None:
+        faults.install(plan)
+    on_card = torch.device(device).type == "cuda"
+    cuts = []
+    real_reform = psh.reform_mesh
+    real_k1, real_k3 = segsum.segment_sum_lanes, hist.subtree_counts_multi
+    calls = {}
+
+    def reform(*args, **kw):
+        cuts.append(_launch_counts())
+        calls.clear()   # time the last mesh's launches
+        return real_reform(*args, **kw)
+
+    def k1(cols, pk, P):
+        calls.setdefault("k1", (cols, pk, P))
+        return real_k1(cols, pk, P)
+
+    def k3(*args, **kw):
+        calls.setdefault("k3", (args, kw))
+        return real_k3(*args, **kw)
+
+    psh.reform_mesh = reform
+    if time_kernels:
+        segsum.segment_sum_lanes, hist.subtree_counts_multi = k1, k3
+    columns = _rank_columns(data)
+    mesh = psh.make_mesh(device=device)
+    rank = mesh.rank
+    params = (vector_params(pdt, 64) if data == "vector"
+              else config4_params(pdt))
+    if caps is not None:
+        params.update(max_partitions_contributed=caps[0],
+                      max_contributions_per_partition=caps[1])
+    obs.reset()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rows, timings = _aggregate(pdt, columns, params, device, 61,
+                                   mesh=mesh, checkpoint=checkpoint)
+        if on_card:
+            torch.cuda.synchronize()
+    except faults.ChunkFailure:
+        os._exit(ELASTIC_DIE_CODE)
+    finally:
+        psh.reform_mesh = real_reform
+        segsum.segment_sum_lanes = real_k1
+        hist.subtree_counts_multi = real_k3
+        faults.clear()
+    wall_s = time.perf_counter() - t0
+    total = _launch_counts()
+    marks = cuts + [total]
+    gens = [{k: marks[i][k] - (marks[i - 1][k] if i else 0) for k in total}
+            for i in range(len(marks))]
+    digest, kept = _release_digest(rows)
+    rec = dict(rank=rank, digest=digest, kept=kept, wall_s=wall_s,
+               launches_by_mesh=gens,
+               batches=timings["stream_batches"],
+               reshards=timings.get("stream_reshard_history", []),
+               recover_s=timings.get("stream_recover_s", []),
+               reform_s=timings.get("stream_reform_s", []),
+               resumed_from=timings.get("stream_resumed_from"))
+    if on_card:
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if time_kernels and "k1" in calls:
+        cols, pk, P = calls["k1"]
+        rec["k1_ms"] = cuda_ms(lambda: real_k1(cols, pk, P), reps=11)
+        rec["k1_stack"] = [int(P), int(cols.shape[1]), int(cols.shape[0])]
+    if time_kernels and "k3" in calls:
+        args, kw = calls["k3"]
+        out = torch.zeros_like(kw["out"]) if kw.get("out") is not None \
+            else None
+        rec["k3_ms"] = cuda_ms(lambda: real_k3(*args, out=out), reps=11)
+        rec["k3_rows"] = int(args[0].shape[0])
+    return rec
+
+
+def elastic_rank_caps(data):
+    """On a rank: (L0, Linf) at ``data``'s own maxima."""
+    return _nonbinding_caps(_rank_columns(data))
+
+
+def _elastic_pool(n, **kw):
+    """A started elastic pool of ``n`` gloo ranks (its ranks may die); its
+    ranks start importing at once, so pools started together overlap."""
+    from pipelinedp_tpu_torch.parallel import launch
+    pool = launch.RankPool(n, deadline_s=600, threads=2,
+                           timeout_s=ELASTIC_TIMEOUT_S, elastic=True, **kw)
+    pool.start()
+    return pool
+
+
+def _survivors(outs, n, what):
+    """The records of the ranks that finished, after checking that ``n``
+    did, that they agree, and that every rank that left did so as a marker
+    (died or departed)."""
+    from pipelinedp_tpu_torch.parallel import launch
+    done = [o for o in outs if not isinstance(o, launch.RankGone)]
+    assert len(done) == n, (what, outs)
+    assert len({o["digest"] for o in done}) == 1, (
+        f"{what}: the survivors' releases differ")
+    return done
+
+
+def _assert_elastic_launches(outs, what, device, before="segment_sum_lanes",
+                             after="subtree_counts_multi"):
+    """On the card, ``before`` (K1: pass A's batches before the loss) on
+    every rank's first mesh and ``after`` (K3: pass B, after the reshard)
+    on its last; on the CPU no kernel at all."""
+    for o in outs:
+        gens = o["launches_by_mesh"]
+        if device != "cuda":
+            assert all(g[k] == 0 for g in gens for k in g), (what, gens)
+            continue
+        assert len(gens) >= 2, (what, o["rank"], gens)
+        assert gens[0][before] > 0, (what, o["rank"], gens)
+        assert gens[-1][after] > 0, (what, o["rank"], gens)
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Sets environment variables for the block, then restores them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_health(smi, after_probe=None):
+    """Phase 31 (a): the device probe on the card (healthy at attempt 1,
+    its seconds, taken before anything else of the phase runs), the
+    injected wedge on a FakeClock through the ``env=`` seam (a degraded,
+    flagged report; the process's environment untouched), and a
+    ``TorchBackend(health_policy=...)`` in a subprocess under
+    ``PIPELINEDP_TPU_FAULTS=wedged_init=9``: degraded, on the CPU, and a
+    later ``TorchBackend()`` of that process degraded too. ``after_probe``
+    runs right after the probe (``main`` starts phase 31's pools there,
+    so they warm while the subprocess runs)."""
+    from pipelinedp_tpu_torch.resilience import (FakeClock, FaultPlan,
+                                                 RetryPolicy, health,
+                                                 injected_faults)
+    assert not os.environ.get(health.DEGRADED_ENV)
+    env = {}
+    t0 = time.perf_counter()
+    report = health.ensure_device_or_degrade(env=env)
+    probe_s = time.perf_counter() - t0
+    assert report.healthy and report.attempts == 1 and env == {}, report
+    if after_probe is not None:
+        after_probe()
+    code = (
+        "import json, pipelinedp_tpu_torch as pdt\n"
+        "from pipelinedp_tpu_torch.resilience import FakeClock, RetryPolicy\n"
+        "b = pdt.TorchBackend(health_policy=RetryPolicy(max_attempts=2, "
+        "base_delay_s=1.0), clock=FakeClock())\n"
+        "later = pdt.TorchBackend()\n"
+        "print(json.dumps(dict(degraded=b.degraded, device=str(b.device), "
+        "attempts=b.health.attempts, later=later.degraded, "
+        "later_device=str(later.device))))\n")
+    t_sub = time.perf_counter()
+    sub = subprocess.Popen([sys.executable, "-c", code], cwd=HERE,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True,
+                           env=dict(os.environ, **{FAULTS_ENV: "wedged_init=9"}))
+    policy = RetryPolicy(max_attempts=3, base_delay_s=2.0, seed=0)
+    clock = FakeClock()
+    with injected_faults(FaultPlan(wedged_init=99)):
+        wedged = health.ensure_device_or_degrade(policy=policy, clock=clock,
+                                                 env=env)
+    assert wedged.degraded and not wedged.healthy, wedged
+    assert env == {health.DEGRADED_ENV: "1"}, env
+    assert clock.sleeps == policy.delays(), clock.sleeps
+    assert not os.environ.get(health.DEGRADED_ENV)
+    out, err = sub.communicate(timeout=300)
+    subprocess_s = time.perf_counter() - t_sub
+    assert sub.returncode == 0, err[-2000:]
+    flagged = json.loads(out.strip().splitlines()[-1])
+    assert flagged == dict(degraded=True, device="cpu", attempts=2,
+                           later=True, later_device="cpu"), flagged
+    assert not os.environ.get(health.DEGRADED_ENV)
+    rec = dict(card=smi, probe_s=probe_s, probe_healthy=True,
+               probe_attempts=report.attempts,
+               wedged_degraded=True, wedged_attempts=wedged.attempts,
+               wedged_detail=wedged.detail[:120],
+               subprocess_backend=flagged, subprocess_s=subprocess_s)
+    log("health", **rec)
+    return rec
+
+
+def phase_health_flagship(columns, flagship_rows):
+    """Phase 31 (a), run while phase 4's data is in memory: the 25M-row
+    flagship through ``TorchBackend(health_policy=True)``, not degraded,
+    released bit for bit as phase 4 released it."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.resilience import health
+    acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+    t0 = time.perf_counter()
+    backend = pdt.TorchBackend(rng_seed=FLAGSHIP["seed"], health_policy=True)
+    probe_s = time.perf_counter() - t0
+    assert backend.degraded is False and backend.health.attempts == 1
+    pids, pks, values = columns
+    result = pdt.DPEngine(acc, backend).aggregate(
+        pdt.ArrayDataset(privacy_ids=pids, partition_keys=pks,
+                         values=values),
+        pdt.AggregateParams(**flagship_params(pdt)), pdt.DataExtractors())
+    acc.compute_budgets()
+    rows = list(result)
+    _released_identical(rows, flagship_rows, "health_policy flagship")
+    assert not os.environ.get(health.DEGRADED_ENV)
+    log("health_flagship", degraded=False, probe_s=probe_s,
+        kept=len(rows), equals_phase4=True)
+
+
+def _clean_elastic(pool, data, device, caps, env):
+    """A clean run of every rank of ``pool`` (no fault): their common
+    record."""
+    outs = pool.run(elastic_rank_case, data, device, caps, env=env)
+    return _survivors(outs, pool.world_size, f"clean {data} {device}")[0]
+
+
+def phase_elastic_smoke(pools, two, ckpt_dir, devices=("cuda", "cpu")):
+    """Phase 31 (b): config 4's 200,000 smoke rows streamed in four batches
+    on 4 gloo ranks on ``cuda:0`` and on the CPU, the caps at the data's
+    maxima, through each reshard: an injected ``DeviceLost`` at pass A's
+    batch 2 (4 -> 2), a double loss (4 -> 2 -> 1, the second in the middle
+    mesh's pass B), a rank that is not the checkpoint's writer ending its
+    process at batch 2 (4 -> 2), and position 0, the writer, ending its
+    (4 -> 2). Each survivor's release equals the clean run at the
+    surviving shape (two ranks; one device for the one rank left), the
+    card's the CPU's; K1 runs before each reshard and K3 after it on
+    every card rank (K3 is pass B's, K1 pass A's; the double loss runs
+    both on its middle mesh). Then VECTOR_SUM at D = 64 under ``fx``
+    (phase 30's 200,000 rows) through the injected loss: K2 before and
+    after it on every card rank."""
+    env = {CHUNK_ENV: str(ELASTIC_SMOKE_CHUNK)}
+    vec_env = dict(env, PIPELINEDP_TPU_VECTOR_ACCUMULATOR="fx")
+    caps = {data: pools["injected"].run(elastic_rank_caps, data)[0]
+            for data in ("config4", "vector")}
+    clean = {}
+    single = {}
+    import pipelinedp_tpu_torch as pdt
+    for data, data_env in (("config4", env), ("vector", vec_env)):
+        for device in devices:
+            clean[data, device] = _clean_elastic(two, data, device,
+                                                 caps[data], data_env)
+            params = (vector_params(pdt, 64) if data == "vector"
+                      else config4_params(pdt))
+            params.update(max_partitions_contributed=caps[data][0],
+                          max_contributions_per_partition=caps[data][1])
+            with _env(**data_env):
+                rows, _ = _aggregate(pdt, _rank_columns(data), params,
+                                     device, 61)
+            single[data, device] = _release_digest(rows)[0]
+        assert len({clean[data, d]["digest"] for d in devices} |
+                   {single[data, d] for d in devices}) == 1, (
+            f"{data}: with caps at the maxima the devices, the 2-rank mesh "
+            "and one device differ")
+    out = {}
+    cases = [("device_lost", "injected", None, 2, "config4"),
+             ("double_loss", "injected", None, 1, "config4"),
+             ("kill_rank_3", "kill_3", 3, 2, "config4"),
+             ("kill_position_0", "kill_0", 0, 2, "config4"),
+             ("vector_device_lost", "injected", None, 2, "vector")]
+    for name, pool_key, victim, n_left, data in cases:
+        case_env = vec_env if data == "vector" else env
+        recs = {}
+        for device in devices:
+            pool = pools[pool_key + ("" if victim is None else
+                                     "_" + device)]
+            path = os.path.join(ckpt_dir, f"{name}_{device}.ckpt")
+            if victim is None:
+                run_env = dict(case_env, **{FAULTS_ENV: ELASTIC_PLANS[name]})
+                outs = pool.run(elastic_rank_case, data, device, caps[data],
+                                path, env=run_env)
+            else:
+                outs = pool.run(elastic_rank_case, data, device, caps[data],
+                                path, env=case_env, rank_env={victim: {
+                                    FAULTS_ENV: "fail_chunks=2"}})
+                assert outs[victim].reason == "died", outs[victim]
+                assert outs[victim].detail == str(ELASTIC_DIE_CODE)
+                pool.kill()  # a rank died: the pool serves nothing more
+            done = _survivors(outs, n_left, f"{name} {device}")
+            want = (clean[data, device]["digest"] if n_left == 2
+                    else single[data, device])
+            assert done[0]["digest"] == want, (
+                f"{name} on {device}: the elastic release differs from the "
+                "clean run at the surviving shape")
+            kernels = (("segment_sum_wide",) * 2 if data == "vector" else
+                       ("segment_sum_lanes", "subtree_counts_multi"))
+            _assert_elastic_launches(done, name, device, *kernels)
+            assert not os.path.exists(path), "success left the checkpoint"
+            recs[device] = done
+        assert len({r[0]["digest"] for r in recs.values()}) == 1
+        main_dev = devices[0]
+        first = recs[main_dev][0]
+        out[name] = dict(
+            survivors=[o["rank"] for o in recs[main_dev]],
+            reshards=[(r["old_devices"], r["new_devices"], r["reason"],
+                       r["chunk"]) for r in first["reshards"]],
+            resumed_from=first["resumed_from"], kept=first["kept"],
+            recover_s_per_rank=[o["recover_s"] for o in recs[main_dev]],
+            reform_s_per_rank=[o["reform_s"] for o in recs[main_dev]],
+            launches_by_mesh_per_rank=[
+                [{k: g[k] for k in ("segment_sum_lanes", "segment_sum_wide",
+                                    "subtree_counts_multi")}
+                 for g in o["launches_by_mesh"]] for o in recs[main_dev]],
+            wall_s_per_rank={d: [o["wall_s"] for o in r]
+                             for d, r in recs.items()})
+        if name == "double_loss" and "cuda" in recs:
+            mid = [o["launches_by_mesh"][1] for o in recs["cuda"]]
+            assert all(g["segment_sum_lanes"] > 0 and
+                       g["subtree_counts_multi"] > 0 for g in mid), mid
+        log(f"elastic_smoke_{name}", gpu_equals_cpu=True,
+            equals_surviving_shape=True, **out[name])
+    return out
+
+
+def phase_elastic_full(pools, two, ckpt_dir, smi):
+    """Phase 31 (c): config 4 at full size (10M rows, P50/90/99 +
+    VARIANCE) streamed in six batches on 4 gloo ranks sharing ``cuda:0``.
+    With the data's maxima as caps, rank 3 ends its process at batch 2:
+    the survivors' release equals a clean 2-rank run and the
+    single-device card release, bit for bit. With config 4's own caps: the
+    clean 4-rank wall (warm), the killed run's wall, the time to recover
+    (from the loss being caught to the first batch folded on the new
+    mesh), the reshard record, the resume point, K1 and K3 ms and launches
+    per rank and each rank's peak memory."""
+    import pipelinedp_tpu_torch as pdt
+    env = {CHUNK_ENV: str(ELASTIC_FULL_CHUNK)}
+    caps = pools["full_nonbinding"].run(elastic_rank_caps,
+                                        "config4_full")[0]
+    params = config4_params(pdt)
+    params.update(max_partitions_contributed=caps[0],
+                  max_contributions_per_partition=caps[1])
+    t0 = time.perf_counter()
+    rows, _ = _aggregate(pdt, _rank_columns("config4_full"), params, "cuda",
+                         61)
+    single_s = time.perf_counter() - t0
+    single = _release_digest(rows)
+    del rows
+    two_rec = _clean_elastic(two, "config4_full", "cuda", caps, env)
+    assert two_rec["digest"] == single[0], (
+        "the clean 2-rank mesh differs from the single device")
+    outs = pools["full_nonbinding"].run(
+        elastic_rank_case, "config4_full", "cuda", caps,
+        os.path.join(ckpt_dir, "full_nonbinding.ckpt"), env=env,
+        rank_env={3: {FAULTS_ENV: "fail_chunks=2"}})
+    done = _survivors(outs, 2, "full nonbinding kill")
+    assert done[0]["digest"] == single[0], (
+        "the elastic 10M-row release differs from the single device")
+    _assert_elastic_launches(done, "full nonbinding", "cuda")
+    # Config 4's own caps: a cold and a warm clean run, then the kill.
+    pool = pools["full"]
+    _clean_elastic(pool, "config4_full", "cuda", None, env)
+    warm = pool.run(elastic_rank_case, "config4_full", "cuda", None, env=env,
+                    time_kernels=True)
+    clean4 = _survivors(warm, 4, "full clean")
+    killed = pool.run(elastic_rank_case, "config4_full", "cuda", None,
+                      os.path.join(ckpt_dir, "full.ckpt"), env=env,
+                      time_kernels=True,
+                      rank_env={3: {FAULTS_ENV: "fail_chunks=2"}})
+    left = _survivors(killed, 2, "full kill")
+    _assert_elastic_launches(left, "full", "cuda")
+    first = left[0]
+    (reshard,) = first["reshards"]
+    rec = dict(
+        card=smi, caps_nonbinding=list(caps), single_device_s=single_s,
+        nonbinding_equals_clean_2_rank=True,
+        nonbinding_equals_single_device=True, kept_nonbinding=single[1],
+        nonbinding_recover_s=[o["recover_s"] for o in done],
+        clean_4_wall_s=max(o["wall_s"] for o in clean4),
+        clean_4_k1_ms_per_rank=[o.get("k1_ms") for o in clean4],
+        clean_4_k3_ms_per_rank=[o.get("k3_ms") for o in clean4],
+        clean_4_launches_per_rank=[
+            {k: o["launches_by_mesh"][0][k] for k in
+             ("segment_sum_lanes", "subtree_counts_multi")} for o in clean4],
+        clean_4_peak_mem_bytes_per_rank=[o["peak_mem_bytes"]
+                                         for o in clean4],
+        killed_wall_s=max(o["wall_s"] for o in left),
+        time_to_recover_s_per_rank=[o["recover_s"] for o in left],
+        reform_s_per_rank=[o["reform_s"] for o in left],
+        reshard={k: reshard[k] for k in ("old_devices", "new_devices",
+                                         "reason", "chunk")},
+        stream_resumed_from=first["resumed_from"], batches=first["batches"],
+        killed_k1_ms_per_rank=[o.get("k1_ms") for o in left],
+        killed_k1_stack_per_rank=[o.get("k1_stack") for o in left],
+        killed_k3_ms_per_rank=[o.get("k3_ms") for o in left],
+        killed_k3_rows_per_rank=[o.get("k3_rows") for o in left],
+        killed_launches_by_mesh_per_rank=[
+            [{k: g[k] for k in ("segment_sum_lanes",
+                                "subtree_counts_multi")}
+             for g in o["launches_by_mesh"]] for o in left],
+        killed_peak_mem_bytes_per_rank=[o["peak_mem_bytes"] for o in left],
+        kept=first["kept"], survivors=[o["rank"] for o in left],
+        note=("four ranks share one card: these times measure no "
+              "multi-GPU speed"))
+    log("elastic_full", **rec)
+    return rec
+
+
+def elastic_rank_warm(datas, device):
+    """On a rank of a phase-31 pool, before its cases: ``datas``' columns
+    drawn and, for the card, the CUDA context made."""
+    for data in datas:
+        _rank_columns(data)
+    if device == "cuda":
+        torch.zeros(1, device="cuda").sum().item()
+    return True
+
+
+# Each phase-31 pool: its ranks, whether they may die, the data its cases
+# read and the device its first case runs on.
+ELASTIC_POOLS = {
+    "injected": (MESH_RANKS, True, ("config4", "vector"), "cuda"),
+    "kill_3_cuda": (MESH_RANKS, True, ("config4",), "cuda"),
+    "kill_3_cpu": (MESH_RANKS, True, ("config4",), "cpu"),
+    "kill_0_cuda": (MESH_RANKS, True, ("config4",), "cuda"),
+    "kill_0_cpu": (MESH_RANKS, True, ("config4",), "cpu"),
+    "full_nonbinding": (MESH_RANKS, True, ("config4_full",), "cuda"),
+    "full": (MESH_RANKS, True, ("config4_full",), "cuda"),
+    "two": (2, False, ("config4", "vector", "config4_full"), "cuda"),
+}
+
+
+class ElasticPools:
+    """Phase 31's pools, started during phase 31 (a), after its probe: each
+    pool's ranks import, draw their data and make their CUDA context on a
+    thread of their own while (a)'s subprocess runs, so (b) and (c) start
+    on warm pools."""
+
+    def __init__(self):
+        from concurrent.futures import ThreadPoolExecutor
+        from pipelinedp_tpu_torch.parallel import launch
+        self.t0 = time.perf_counter()
+        self.pools = {}
+        for name, (n, elastic, _, _) in ELASTIC_POOLS.items():
+            self.pools[name] = (_elastic_pool(n) if elastic else
+                                launch.RankPool(n, deadline_s=600,
+                                                threads=2))
+            self.pools[name].start()
+        self._threads = ThreadPoolExecutor(len(self.pools))
+        self._warm = [self._threads.submit(
+            self.pools[name].run, elastic_rank_warm, datas, device)
+            for name, (_, _, datas, device) in ELASTIC_POOLS.items()]
+
+    def ready(self):
+        """Waits for every pool's warm-up; the seconds it waited."""
+        t0 = time.perf_counter()
+        for f in self._warm:
+            f.result()
+        self._threads.shutdown()
+        return time.perf_counter() - t0
+
+    def close(self):
+        for pool in self.pools.values():
+            pool.close()
+
+
+def phase_elastic(smi, pools):
+    """Phase 31 (b) and (c) on the started ``ElasticPools``; a pool whose
+    rank dies serves no other case and is ended after it."""
+    import tempfile
+    try:
+        RECORD["elastic_warm_wait_s"] = pools.ready()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=os.path.join(
+                HERE, "pipelinedp_tpu_torch", "build")) as ckpt_dir:
+            smoke = phase_elastic_smoke(pools.pools, pools.pools["two"],
+                                        ckpt_dir)
+            full = phase_elastic_full(pools.pools, pools.pools["two"],
+                                      ckpt_dir, smi)
+        RECORD["elastic_cases_s"] = time.perf_counter() - t0
+    finally:
+        pools.close()
+    RECORD["elastic_s"] = time.perf_counter() - pools.t0
+    return smoke, full
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3866,6 +4424,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_obs_flagship(columns, flagship_rows, kernel, smi)
     RECORD["obs_plan_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_health_flagship(columns, flagship_rows)
+    RECORD["health_flagship_s"] = time.perf_counter() - t0
     del flagship_rows
     k4 = phase_segtotal_kernel(columns, max_sm_mhz)
     phase_sum_bounds_gpu_vs_cpu()
@@ -3945,6 +4506,27 @@ def main() -> int:
     serve_fused, _ = phase_serve(smi)
     RECORD["serve_s"] = time.perf_counter() - t0
     phase_mesh(smi)
+    t0 = time.perf_counter()
+    started = []
+    try:
+        phase_health(smi, after_probe=lambda: started.append(ElasticPools()))
+    except BaseException:
+        for pools in started:
+            pools.close()
+        raise
+    elastic_smoke, elastic = phase_elastic(smi, started[0])
+    from pipelinedp_tpu_torch.resilience import health
+    assert not os.environ.get(health.DEGRADED_ENV), "the script degraded"
+    RECORD["phase31_s"] = (time.perf_counter() - t0 +
+                           RECORD["health_flagship_s"])
+    log("phase31", seconds=RECORD["phase31_s"])
+    elastic_k1 = [sum(g["segment_sum_lanes"] for g in gens)
+                  for gens in elastic["killed_launches_by_mesh_per_rank"]]
+    elastic_k3 = [sum(g["subtree_counts_multi"] for g in gens)
+                  for gens in elastic["killed_launches_by_mesh_per_rank"]]
+    elastic_k2 = [sum(g["segment_sum_wide"] for g in gens) for gens in
+                  elastic_smoke["vector_device_lost"][
+                      "launches_by_mesh_per_rank"]]
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
@@ -3952,6 +4534,7 @@ def main() -> int:
         "parity": "bit-equal", "launches": launches,
         "launches_heavy_hitters": hh_full["launches"]["segment_sum_lanes"],
         "launches_serve_fused": serve_fused["k1_launches_fused"],
+        "launches_elastic_per_rank": elastic_k1,
         "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]}, {
@@ -3960,6 +4543,7 @@ def main() -> int:
         "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:134",
         "parity": "bit-equal",
         "launches": vector_launches["segment_sum_wide"],
+        "launches_elastic_per_rank": elastic_k2,
         "max_abs_err": wide["max_abs_err"], "ms": wide["ms"],
         "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"]}, {
@@ -3970,6 +4554,7 @@ def main() -> int:
         "launches": c4_single["launches"]["subtree_counts_multi"],
         "launches_streamed": c4_streamed["launches"][
             "subtree_counts_multi"],
+        "launches_elastic_per_rank": elastic_k3,
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {

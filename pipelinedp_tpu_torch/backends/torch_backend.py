@@ -8,12 +8,14 @@ take (custom combiners, a percentile range too small for its float32 leaf
 constant, the host analysis graphs, a user's own ``map``) runs on the
 host generators it inherits, exactly where ``JaxBackend`` runs them. On
 a mesh (``parallel.make_mesh``) the device path runs sharded over the
-mesh's ranks. It has no health probe with a CPU degrade (ROADMAP step 5b)
-and no compile cache.
+mesh's ranks. ``health_policy`` probes the card first (bounded retry and
+backoff) and degrades to the CPU when the runtime is wedged: flagged on
+``backend.degraded``, never silent. It has no compile cache.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -45,6 +47,17 @@ class TorchBackend(LocalBackend):
         sketch-first run sharded over its ranks, on the mesh's device
         (``device`` is then the mesh's). Every rank builds the same
         backend and runs the same calls.
+      health_policy: a ``resilience.RetryPolicy`` (or True for the
+        default one): probe the card in a killable subprocess before the
+        first kernel (``health.ensure_device_or_degrade``, with ``clock``
+        and ``probe_timeout_s``) and, when every attempt fails, degrade to
+        the CPU. None (the default) probes nothing: a missing card raises.
+      degraded: True when this process was steered off its card (by this
+        backend's probe or an earlier one: ``health.DEGRADED_ENV`` is set).
+        The device path then runs on the CPU without a mesh, and results
+        must carry the flag.
+      health: the probe's ``resilience.health.HealthReport``, or None when
+        no ``health_policy`` was given.
     """
 
     supports_fused_aggregation = True
@@ -52,7 +65,23 @@ class TorchBackend(LocalBackend):
     def __init__(self, device="cuda", rng_seed: Optional[int] = None,
                  mesh=None, checkpoint=None,
                  ingest_executor: Optional[bool] = None,
-                 stream_cache: Optional[int] = None):
+                 stream_cache: Optional[int] = None, health_policy=None,
+                 clock=None, probe_timeout_s: Optional[float] = None):
+        from pipelinedp_tpu_torch.resilience import health as health_mod
+        # An earlier degrade in this process steered every later backend
+        # off the card: the flag says so even without a probe of its own.
+        self.degraded = bool(os.environ.get(health_mod.DEGRADED_ENV))
+        self.health = None
+        if health_policy is not None:
+            self.health = health_mod.ensure_device_or_degrade(
+                policy=None if health_policy is True else health_policy,
+                clock=clock, timeout_s=probe_timeout_s)
+            self.degraded = self.health.degraded
+        if self.degraded:
+            # A wedged card's mesh is unusable: the CPU fallback runs on
+            # one device. Never silent: ``degraded`` says so.
+            mesh = None
+            device = "cpu"
         if mesh is not None:
             from pipelinedp_tpu_torch.parallel import sharded
             device = sharded.require_mesh(mesh).device
@@ -74,7 +103,7 @@ class TorchBackend(LocalBackend):
         from pipelinedp_tpu_torch import obs
         # seed_fixed, never the seed itself: run reports are meant to be
         # shared, and noise draws are pure functions of the seed.
-        obs.event("backend.created", degraded=False,
+        obs.event("backend.created", degraded=self.degraded,
                   mesh_devices=mesh.size if mesh is not None else 0,
                   seed_fixed=rng_seed is not None,
                   checkpoint=bool(checkpoint), device=str(device))

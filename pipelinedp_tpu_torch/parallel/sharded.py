@@ -32,6 +32,12 @@ replicating branches on it. The backend is the caller's: NCCL when the
 ranks hold CUDA tensors on distinct cards, gloo on the CPU or with
 several ranks sharing one card, in which case each exchange stages its
 payload through host memory. No code switches backends by itself.
+
+A mesh that loses a rank re-forms over the survivors (``reform_mesh``):
+the new size divides the old one, and the survivors' new group is a
+process group of their own, built on a store of its generation, so no
+collective of the re-formed mesh ever waits on the lost rank and the
+default group is left as it was.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import socket
+import uuid
 from datetime import timedelta
 from typing import Dict, List, Optional, Tuple
 
@@ -121,12 +128,15 @@ class _Group:
     """A process group and the global ranks of its members in MEMBER
     order (the order whose blocks the exchange scatters and gathers).
     ``perm[m]`` is member ``m``'s rank inside the torch group, which
-    orders the chunks of a torch collective."""
+    orders the chunks of a torch collective. ``raw`` marks a group that a
+    re-formed mesh built itself (a backend object outside the default
+    group's registry): its collectives are called on it directly."""
 
-    def __init__(self, pg, members: List[int]):
+    def __init__(self, pg, members: List[int], raw: bool = False):
         self.pg = pg
         self.members = list(members)
         self.size = len(members)
+        self.raw = raw
         by_rank = sorted(members)
         self.perm = [by_rank.index(r) for r in members]
 
@@ -140,7 +150,11 @@ class Mesh:
     ``group`` is the process group with its ranks in position order;
     ``devices`` holds those ranks too (the JAX mesh's device array;
     ``devices.shape``/``devices.size`` key the run ledger's fingerprint,
-    as the JAX package's mesh does)."""
+    as the JAX package's mesh does). ``rank`` is the rank in the default
+    group, which a re-formed mesh keeps; ``uid`` names the mesh's lineage
+    (agreed by its ranks when it was made) and ``generation`` counts its
+    re-formations, so the stores and files of a re-formation are its
+    own."""
     group: "_Group"
     rank: int
     size: int
@@ -152,6 +166,9 @@ class Mesh:
     devices: np.ndarray
     ici: Optional[_Group] = None
     dcn: Optional[_Group] = None
+    uid: str = ""
+    generation: int = 0
+    timeout_s: float = DEFAULT_TIMEOUT_S
 
     #: Every port mesh spans processes: the JAX package's multi-process
     #: branches apply.
@@ -280,14 +297,18 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data",
             raise ValueError("an NCCL mesh runs on CUDA devices")
         # NCCL's object collectives run on the current CUDA device.
         torch.cuda.set_device(device)
-    hostnames: List[Optional[str]] = [None] * world_size
-    dist.all_gather_object(hostnames, socket.gethostname())
+    # Each rank's host name, and rank 0's token for the mesh's lineage.
+    gathered: List[Optional[Tuple[str, str]]] = [None] * world_size
+    dist.all_gather_object(gathered, (socket.gethostname(),
+                                      uuid.uuid4().hex[:12]))
+    hostnames = [g[0] for g in gathered]
     order, topo = _build_topology(ranks, hostnames)
     rank = dist.get_rank()
     mesh = Mesh(group=_Group(group, order), rank=rank, size=world_size,
                 index=order.index(rank), device=device, backend=backend,
                 axis_name=axis_name, topology=topo,
-                devices=np.asarray(order, dtype=np.int64))
+                devices=np.asarray(order, dtype=np.int64),
+                uid=gathered[0][1], timeout_s=float(timeout_s))
     if topo.hierarchical:
         # new_group is collective over the default group: every rank
         # makes every subgroup, in the same order, and keeps its own.
@@ -305,6 +326,242 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data",
               topology=topo.mode, hosts=topo.n_hosts,
               per_host=topo.per_host, simulated_hosts=topo.simulated)
     return mesh
+
+
+# --- re-forming a mesh after a loss -----------------------------------------
+
+class MeshDeparted(Exception):
+    """This rank is not a member of the re-formed mesh: the new size
+    divides the old one, so some survivors leave, and the rest go on
+    without them. ``launch.RankPool`` reports such a rank with a marker,
+    not as a failure."""
+
+    def __init__(self, msg: str, rank: int = -1, old_devices: int = 0,
+                 new_devices: int = 0):
+        super().__init__(msg)
+        self.rank = int(rank)
+        self.old_devices = int(old_devices)
+        self.new_devices = int(new_devices)
+
+
+def _largest_proper_divisor(n: int, at_most: int) -> int:
+    """The largest ``d < n`` dividing ``n`` with ``d <= at_most``; 0 when
+    there is none."""
+    return max((d for d in range(1, n) if n % d == 0 and d <= at_most),
+               default=0)
+
+
+def _mesh_dir() -> Optional[str]:
+    from pipelinedp_tpu_torch.resilience import health
+    return os.environ.get(health.MESH_DIR_ENV) or None
+
+
+def _reform_store(mesh: Mesh):
+    """The store the re-formed groups meet on: a file store in the mesh
+    directory when one is armed (it outlives any rank), else the default
+    group's store."""
+    mesh_dir = _mesh_dir()
+    if mesh_dir:
+        return dist.FileStore(os.path.join(mesh_dir, f"store-{mesh.uid}"),
+                              -1)
+    from torch.distributed import distributed_c10d
+    return distributed_c10d._get_default_store()
+
+
+def _new_group(mesh: Mesh, store, name: str, members: List[int]) -> _Group:
+    """A process group over ``members`` (global ranks, in member order)
+    built without the default group: every member constructs it on its
+    own prefix of ``store``, and no other rank takes part. gloo is what
+    the CPU and the one-card runs use; the NCCL form is not exercised on
+    a single card."""
+    rank_in = sorted(members).index(mesh.rank)
+    sub = dist.PrefixStore(f"{mesh.uid}/{name}", store)
+    timeout = timedelta(seconds=mesh.timeout_s)
+    if mesh.backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        pg = dist.ProcessGroupNCCL(sub, rank_in, len(members), opts)
+    else:
+        pg = dist.ProcessGroupGloo(sub, rank_in, len(members), timeout)
+    return _Group(pg, members, raw=True)
+
+
+def _publish_once(path: str, payload) -> bool:
+    """Writes ``payload`` to ``path`` unless the file exists (an atomic
+    link of a complete temporary file); True when this call wrote it."""
+    import json
+    import tempfile
+    d = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".json.tmp")
+    try:
+        with os.fdopen(fd, "w", encoding="utf-8") as f:
+            f.write(json.dumps(payload, sort_keys=True))
+            f.flush()
+            os.fsync(f.fileno())
+        try:
+            os.link(tmp, path)
+        except FileExistsError:
+            return False
+        return True
+    finally:
+        os.unlink(tmp)
+
+
+def _agree_survivors(mesh: Mesh, generation: int, clock,
+                     stall_s: float) -> List[int]:
+    """The survivors of a participant loss, in old position order, the
+    same list on every survivor. Each survivor writes a join file; the
+    joined survivor of lowest position decides once every old member has
+    joined or is provably dead (its beat file's pid gone), or at the
+    stall deadline, and publishes the decision exactly once; everyone
+    reads the one decision. A survivor that dies before the decision is
+    left out of it; a leader that dies before deciding hands the decision
+    to the next joined survivor."""
+    from pipelinedp_tpu_torch.resilience import checkpoint as ckpt_mod
+    from pipelinedp_tpu_torch.resilience import health
+    mesh_dir = _mesh_dir()
+    if not mesh_dir:
+        raise RuntimeError(
+            f"re-forming after a lost rank needs {health.MESH_DIR_ENV}: the "
+            "survivors agree on their set through the files there")
+    key = f"reform-{mesh.uid}-g{generation}"
+    decision = os.path.join(mesh_dir, f"{key}.json")
+
+    def join_path(r):
+        return os.path.join(mesh_dir, f"{key}-{r}.json")
+
+    def read(path):
+        try:
+            return ckpt_mod.read_json(path)
+        except ValueError:
+            return None  # a write in flight; the next poll reads it
+
+    ckpt_mod.atomic_write_json(join_path(mesh.rank),
+                               {"rank": int(mesh.rank), "pid": os.getpid()})
+    order = [int(r) for r in mesh.devices]
+    deadline = clock.monotonic() + stall_s
+    while True:
+        doc = read(decision)
+        if doc is not None:
+            return [int(r) for r in doc["members"]]
+        joined, pending = [], []
+        for r in order:
+            j = read(join_path(r))
+            if j is not None:
+                if health.pid_alive(int(j.get("pid", -1))):
+                    joined.append(r)
+                continue
+            beat = health.read_member(mesh_dir, r)
+            if beat is not None and not health.pid_alive(
+                    int(beat.get("pid", -1))):
+                continue
+            pending.append(r)
+        late = clock.monotonic() >= deadline
+        if joined and joined[0] == mesh.rank and (not pending or late):
+            _publish_once(decision, {"members": joined,
+                                     "left_out": [r for r in order
+                                                  if r not in joined]})
+            continue
+        if clock.monotonic() >= deadline + 2 * stall_s:
+            raise RuntimeError(
+                f"no survivor decided the re-formed mesh within "
+                f"{3 * stall_s:g}s ({key})")
+        clock.sleep(health._MESH_POLL_S)
+
+
+def reform_mesh(mesh: Mesh, participant_lost: bool = False,
+                axis_name: Optional[str] = None, clock=None,
+                stall_s: Optional[float] = None) -> Optional[Mesh]:
+    """Re-forms ``mesh`` after a loss: this rank's view of a smaller mesh
+    over the survivors, or None when nothing is left to shrink to (a
+    one-rank mesh; the caller re-raises the loss). A survivor that is not
+    a member of the new mesh gets ``MeshDeparted``. Every rank of the old
+    mesh that is alive calls it at the same point.
+
+    The new size always DIVIDES the old one, which lets the elastic resume
+    regroup the saved per-(batch, rank) cells by summing contiguous groups
+    (``ingest.assign.regroup_cells``):
+
+    * an injected device loss (``participant_lost=False``: every rank
+      raised ``DeviceLost`` at the same dispatch, the JAX package's
+      single-controller case) keeps the largest proper-divisor prefix of
+      the position order, and the ranks past it leave. Under ``hier`` the
+      interleaved order puts host ``h``'s ``j``-th rank at position
+      ``j * H + h``, so a prefix the host count divides is itself a
+      ``hier`` interleave (each host sheds its highest slots); otherwise
+      the new mesh is ``flat``;
+    * a lost rank (``participant_lost=True``: dead, or stalled past the
+      deadline) gives the largest proper divisor of the old size that is
+      not above the number of survivors; the survivors agree on their set
+      through the mesh directory's files, those of lowest position take
+      positions 0..m-1 and the rest leave. The new mesh is ``flat`` (the
+      JAX package's rule after a lost process). A survivor blocked in a
+      collective of the old mesh joins when the group's timeout ends its
+      wait; past the stall deadline the others decide without it, and it
+      leaves.
+
+    The new mesh's groups are process groups of its own, built on the
+    generation's store, never through the default group (which still
+    holds the lost rank) and never with ``new_group`` (collective over
+    it)."""
+    from pipelinedp_tpu_torch.resilience import health
+    from pipelinedp_tpu_torch.resilience.clock import SystemClock
+    mesh = require_mesh(mesh)
+    axis_name = axis_name or mesh.axis_name
+    clock = clock or SystemClock()
+    stall_s = health.mesh_stall_s() if stall_s is None else float(stall_s)
+    old_n = int(mesh.size)
+    old_topo = mesh.topology
+    order = [int(r) for r in mesh.devices]
+    generation = mesh.generation + 1
+    if old_n <= 1:
+        return None
+    if participant_lost:
+        alive = _agree_survivors(mesh, generation, clock, stall_s)
+        m = _largest_proper_divisor(old_n, len(alive))
+        members = alive[:m]
+        topo = _flat_topology(m)
+    else:
+        m = _largest_proper_divisor(old_n, old_n)
+        members = order[:m]
+        if (old_topo.mode == "hier" and old_topo.n_hosts > 1
+                and m % old_topo.n_hosts == 0):
+            topo = MeshTopology("hier", old_topo.n_hosts,
+                                m // old_topo.n_hosts, old_topo.simulated)
+        else:
+            topo = _flat_topology(m)
+    if m < 1:
+        return None
+    if mesh.rank not in members:
+        obs.event("mesh.departed", rank=int(mesh.rank), old_devices=old_n,
+                  new_devices=m, generation=generation)
+        raise MeshDeparted(
+            f"rank {mesh.rank} is not a member of the re-formed mesh "
+            f"({old_n} -> {m} ranks)", rank=mesh.rank, old_devices=old_n,
+            new_devices=m)
+    store = _reform_store(mesh) if m > 1 else None
+    group = (_new_group(mesh, store, f"g{generation}/world", members)
+             if m > 1 else _Group(None, members, raw=True))
+    new = Mesh(group=group, rank=mesh.rank, size=m,
+               index=members.index(mesh.rank), device=mesh.device,
+               backend=mesh.backend, axis_name=axis_name, topology=topo,
+               devices=np.asarray(members, dtype=np.int64), uid=mesh.uid,
+               generation=generation, timeout_s=mesh.timeout_s)
+    if topo.hierarchical:
+        for kind, groups in (("ici", _ici_groups(topo)),
+                             ("dcn", _dcn_groups(topo))):
+            for i, positions in enumerate(groups):
+                sub = [members[p] for p in positions]
+                if mesh.rank in sub:
+                    setattr(new, kind, _new_group(
+                        mesh, store, f"g{generation}/{kind}{i}", sub))
+    obs.inc("mesh.reformed")
+    obs.event("mesh.reformed", old_devices=old_n, new_devices=m,
+              axis_name=axis_name,
+              platform="gpu" if mesh.device.type == "cuda" else "cpu",
+              topology=topo.mode, hosts=topo.n_hosts,
+              per_host=topo.per_host)
+    return new
 
 
 # --- comms accounting -------------------------------------------------------
@@ -336,10 +593,12 @@ def _record_exchange(kind: str, per_device_bytes: int, group_size: int,
 
 
 def _first_time(site: str, kind: str, x: torch.Tensor, dim: int,
-                topo: MeshTopology) -> bool:
+                topo: MeshTopology, generation: int = 0) -> bool:
     """True the first time this process makes the exchange at ``site`` (a
     name of the call site: one per exchange of a program) on a payload of
-    this shape and dtype under this topology.
+    this shape and dtype under this topology, on a mesh of this
+    generation (a re-formed mesh's exchanges record anew, as the JAX
+    package traces a new program for its new mesh).
 
     The JAX package records its comms counters when it traces an
     exchange, once per compiled program; a warm dispatch records
@@ -347,7 +606,8 @@ def _first_time(site: str, kind: str, x: torch.Tensor, dim: int,
     (site, shape, dtype, dim, topology): a cold run's counters equal the
     JAX package's, and a repeat of the same shapes adds none (each
     collective still runs every time)."""
-    key = (site, kind, tuple(x.shape), str(x.dtype), int(dim), topo)
+    key = (site, kind, tuple(x.shape), str(x.dtype), int(dim), topo,
+           int(generation))
     if key in _RECORDED:
         return False
     _RECORDED.add(key)
@@ -367,7 +627,10 @@ def _unstage(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 def _all_reduce(mesh: Mesh, g: _Group, x: torch.Tensor) -> torch.Tensor:
     y = _stage(mesh, x).clone()
     if g.size > 1:
-        dist.all_reduce(y, group=g.pg)
+        if g.raw:
+            g.pg.allreduce([y]).wait()
+        else:
+            dist.all_reduce(y, group=g.pg)
     return _unstage(mesh, y)
 
 
@@ -384,7 +647,10 @@ def _reduce_scatter(mesh: Mesh, g: _Group, x: torch.Tensor,
     inp = torch.cat(by_group_rank, dim=0).contiguous()
     out = torch.empty((inp.shape[0] // g.size,) + tuple(inp.shape[1:]),
                       dtype=inp.dtype, device=inp.device)
-    dist.reduce_scatter_tensor(out, inp, group=g.pg)
+    if g.raw:
+        g.pg._reduce_scatter_base(out, inp).wait()
+    else:
+        dist.reduce_scatter_tensor(out, inp, group=g.pg)
     return _unstage(mesh, out.movedim(0, dim))
 
 
@@ -396,7 +662,10 @@ def _all_gather(mesh: Mesh, g: _Group, x: torch.Tensor,
     inp = _stage(mesh, x).movedim(dim, 0).contiguous()
     out = torch.empty((g.size * inp.shape[0],) + tuple(inp.shape[1:]),
                       dtype=inp.dtype, device=inp.device)
-    dist.all_gather_into_tensor(out, inp, group=g.pg)
+    if g.raw:
+        g.pg._allgather_base(out, inp).wait()
+    else:
+        dist.all_gather_into_tensor(out, inp, group=g.pg)
     chunks = torch.chunk(out, g.size, dim=0)
     ordered = torch.cat([chunks[g.perm[m]] for m in range(g.size)], dim=0)
     return _unstage(mesh, ordered.movedim(0, dim))
@@ -420,7 +689,7 @@ def combine_shards(x: torch.Tensor, mesh: Mesh, dim: int, replicate: bool,
     the call site for the comms counters (see ``_first_time``)."""
     topo = mesh.topology
     rec = _first_time(site, "psum" if replicate else "scatter", x, dim,
-                      topo)
+                      topo, mesh.generation)
     if not topo.hierarchical:
         if rec:
             _record_exchange("psum" if replicate else "reduce_scatter",
@@ -468,7 +737,8 @@ def gather_blocks(x: torch.Tensor, mesh: Mesh, dim: int = 0,
     the host release, which the JAX package makes as a host fetch, not as
     a collective."""
     topo = mesh.topology
-    rec = site is not None and _first_time(site, "gather", x, dim, topo)
+    rec = site is not None and _first_time(site, "gather", x, dim, topo,
+                                           mesh.generation)
     if not topo.hierarchical:
         if rec:
             _record_exchange("all_gather", _payload_bytes(x),

@@ -1,8 +1,8 @@
-"""Checkpoint and resume of a stream, the fault injection that tests them,
-and the clock and retry policy the live monitor and the health probes use.
-``health.DEGRADED_ENV`` arms the resident service's degraded mode. The
-chaos harness and the fault transport are ROADMAP step 7b; the health
-probe and the mesh supervisor step 5b."""
+"""The resilience plane: checkpoint and resume of a stream, the fault
+injection that tests it (in process or through ``PIPELINEDP_TPU_FAULTS``),
+the injectable clock and the retry policy, the device-health probe with
+its flagged degrade, and the mesh supervisor with the resilient mesh and
+rendezvous (``health``). The chaos harness is ROADMAP step 7b."""
 
 from pipelinedp_tpu_torch.resilience.clock import (Clock, FakeClock,
                                                    SystemClock)
@@ -14,11 +14,22 @@ from pipelinedp_tpu_torch.resilience.checkpoint import (CheckpointMismatch,
                                                         StreamCheckpoint,
                                                         as_store)
 from pipelinedp_tpu_torch.resilience.faults import (ChunkFailure,
+                                                    CoordinatorTimeout,
+                                                    DeviceLost,
                                                     FaultInjected, FaultPlan,
                                                     ServeKill,
                                                     injected_faults)
+from pipelinedp_tpu_torch.resilience.health import (
+    HealthReport, MeshParticipantLost, MeshSupervisor,
+    collective_failure_to_loss, ensure_device_or_degrade, probe_devices,
+    resilient_init_process_group, resilient_make_mesh, supervisor_from_env)
 
 __all__ = ["CheckpointMismatch", "CheckpointStore", "ChunkFailure", "Clock",
-           "FakeClock", "FaultInjected", "FaultPlan", "RetriesExhausted",
-           "RetryPolicy", "ServeKill", "StreamCheckpoint", "SystemClock",
-           "as_store", "call_with_retry", "injected_faults"]
+           "CoordinatorTimeout", "DeviceLost", "FakeClock", "FaultInjected",
+           "FaultPlan", "HealthReport", "MeshParticipantLost",
+           "MeshSupervisor", "RetriesExhausted", "RetryPolicy", "ServeKill",
+           "StreamCheckpoint", "SystemClock", "as_store", "call_with_retry",
+           "collective_failure_to_loss", "ensure_device_or_degrade",
+           "injected_faults", "probe_devices",
+           "resilient_init_process_group", "resilient_make_mesh",
+           "supervisor_from_env"]

@@ -29,9 +29,14 @@ The format is the port's own, modelled on
 port's ``FusedConfig``. A checkpoint written by the port is resumed by
 the port; the port makes no promise to resume a file written by the JAX
 package, and refuses one with ``CheckpointMismatch``. The fingerprint
-binds the mesh size, so a checkpoint of another mesh shape is refused
-too. The fields an elastic reshard adopts (the saved batch assignment,
-the reshard history) wait for ROADMAP step 5b.
+binds the mesh size, so a checkpoint of another mesh shape is refused,
+with one exception: every save carries the original run's batch
+assignment (``assign``), and a stream resumed on a smaller mesh whose size
+divides the saved one adopts it (the same batches, row order and keys,
+each batch's cells regrouped onto the survivors) once the saved shape's
+own fingerprint verifies. The saves also carry the run's elastic
+reshards (``reshards``), the recovery trail of its run report. The JSON
+meta uses the JAX package's field names.
 
 On a mesh every rank folds the same accumulators and reads the one
 store; only the rank at position 0 writes and clears it. Every rank reads
@@ -144,6 +149,16 @@ class StreamCheckpoint:
     #: host accumulator arrays, keyed ``acc:<name>``, ``val:<name>``,
     #: ``vec`` and ``mid`` (all numpy; device state is fetched first).
     arrays: Dict[str, np.ndarray]
+    #: the ORIGINAL run's batch assignment, ``{"n_batches", "n_dev",
+    #: "num_partitions", "fx_bits"}``, kept as it was across elastic
+    #: reshards so that a run resumed on a smaller mesh adopts it (the
+    #: same batch order and ``fold_in(k_bound, b)`` keys) instead of
+    #: refusing the shape-changed fingerprint. None on a save without it,
+    #: which never resumes elastically.
+    assign: Optional[Dict] = None
+    #: the run's ``mesh.reshard`` records, in order (``old_devices``,
+    #: ``new_devices``, ``reason``, ``chunk``, ``detail``).
+    reshards: list = dataclasses.field(default_factory=list)
 
 
 class CheckpointStore:
@@ -161,6 +176,10 @@ class CheckpointStore:
         payload = dict(ckpt.arrays)
         meta = {"fingerprint": ckpt.fingerprint,
                 "next_batch": int(ckpt.next_batch)}
+        if ckpt.assign is not None:
+            meta["assign"] = {k: int(v) for k, v in ckpt.assign.items()}
+        if ckpt.reshards:
+            meta["reshards"] = list(ckpt.reshards)
         payload["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                             dtype=np.uint8)
         d = os.path.dirname(os.path.abspath(self.path)) or "."
@@ -187,7 +206,8 @@ class CheckpointStore:
         self.last_event = f"loaded next_batch={meta['next_batch']}"
         return StreamCheckpoint(fingerprint=meta["fingerprint"],
                                 next_batch=int(meta["next_batch"]),
-                                arrays=arrays)
+                                arrays=arrays, assign=meta.get("assign"),
+                                reshards=list(meta.get("reshards", [])))
 
     def load_for(self, fingerprint: str) -> Optional[StreamCheckpoint]:
         """Load and check against the current run's fingerprint. A

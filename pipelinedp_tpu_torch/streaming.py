@@ -51,8 +51,19 @@ it, and one replicating all-reduce per output gives every rank the whole
 batch's columns, so every rank folds, selects, walks and releases alike.
 The batch target is the chunk knob times the mesh size. The ingest
 executor's threads are off on a mesh (``ingest.forced_serial``): every
-rank must enqueue its collectives in the same order. The elastic
-reshards of a mesh that loses a rank wait for ROADMAP step 5b.
+rank must enqueue its collectives in the same order.
+
+A mesh that loses a rank mid-stream recovers (``stream_partials_and_select``,
+the elastic wrapper): an injected ``DeviceLost``, the mesh supervisor's
+``MeshParticipantLost`` (armed by ``PIPELINEDP_TPU_MESH_DIR``: every rank
+passes its ``gate()`` before each collective dispatch), or a failed
+collective that ``collective_failure_to_loss`` proves was a dead rank,
+re-forms the mesh over the survivors (``parallel.sharded.reform_mesh``)
+and re-enters the stream there, resuming from the checkpoint, whose
+saved assignment the smaller mesh adopts (the same batches, row order and
+keys, each batch's cells regrouped onto the survivors by
+``ingest.assign.regroup_cells``). With caps that do not bind, the release
+equals a clean run at the surviving shape, bit for bit.
 """
 
 from __future__ import annotations
@@ -64,6 +75,8 @@ import numpy as np
 import torch
 
 from pipelinedp_tpu_torch import ingest, obs
+from pipelinedp_tpu_torch.ingest.assign import (group_rows_by_cell,
+                                                regroup_cells)
 from pipelinedp_tpu_torch import plan as plan_mod
 from pipelinedp_tpu_torch.obs import costs
 from pipelinedp_tpu_torch import torch_engine as te
@@ -72,6 +85,7 @@ from pipelinedp_tpu_torch.ops import quantile_tree
 from pipelinedp_tpu_torch.parallel import sharded as psh
 from pipelinedp_tpu_torch.resilience import checkpoint as ckpt_mod
 from pipelinedp_tpu_torch.resilience import faults
+from pipelinedp_tpu_torch.resilience import health
 
 #: The int32 guards: privacy units per partition at selection time, and
 #: kept rows per partition in the streamed tree histograms (the
@@ -135,28 +149,6 @@ def _fmix32(x: np.ndarray) -> np.ndarray:
     x = x ^ (x >> np.uint32(13))
     x = x * np.uint32(0xC2B2AE35)
     return x ^ (x >> np.uint32(16))
-
-
-def group_rows_by_cell(cell_of_row: np.ndarray,
-                       n_cells: int) -> Tuple[np.ndarray, np.ndarray]:
-    """``(order, counts)``: the row indices grouped by cell, cells
-    ascending and rows in their original order within a cell (the stable
-    ``argsort`` of ``cell_of_row``), and the rows per cell. A port of
-    ``pipelinedp_tpu/ingest/assign.py``: numpy's stable argsort of a
-    uint16 key is one counting-sort pass, two for wider cell spaces."""
-    cell_of_row = np.asarray(cell_of_row)
-    counts = np.bincount(cell_of_row, minlength=n_cells)
-    if n_cells <= 1:
-        return np.arange(cell_of_row.shape[0], dtype=np.int64), counts
-    if n_cells <= (1 << 16):
-        return np.argsort(cell_of_row.astype(np.uint16), kind="stable"), counts
-    if n_cells > (1 << 32):
-        raise NotImplementedError(
-            f"{n_cells} batches: beyond the two-digit radix assignment")
-    lo = (cell_of_row & 0xFFFF).astype(np.uint16)
-    hi = (cell_of_row >> 16).astype(np.uint16)
-    order = np.argsort(lo, kind="stable")
-    return order[np.argsort(hi[order], kind="stable")], counts
 
 
 def _batch_assignment(config, encoded, n_batches: int, seed: int,
@@ -441,6 +433,111 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                                executor: Optional[bool] = None,
                                cache_bytes: Optional[int] = None,
                                mesh=None) -> Tuple[np.ndarray, Dict, Dict]:
+    """The elastic wrapper around the stream (``_stream_impl``). A lost
+    rank mid-stream (an injected ``faults.DeviceLost``, the supervisor's
+    ``MeshParticipantLost``, or a failed collective that
+    ``health.collective_failure_to_loss`` confirms against the beat files)
+    re-forms the mesh from the survivors (``parallel.sharded.reform_mesh``),
+    records a ``mesh.reshard`` (old size, new size, reason, dispatch,
+    detail) and re-enters the stream at the new shape, resuming from the
+    checkpoint when a store is attached and restarting cleanly otherwise.
+    Either way the release equals a clean run at the surviving shape where
+    the caps do not bind: every noise key is a pure function of the run
+    seed, and the resume adopts the original batch assignment. A loss
+    re-raises without a fixed ``rng_seed`` (a replay would draw new
+    noise), without a mesh, or when nothing is left to shrink to; an
+    error that is not a proven loss re-raises untouched. A rank that is
+    not a member of the re-formed mesh gets ``parallel.sharded.
+    MeshDeparted``.
+
+    The time to recover of each reshard, from the loss being caught to the
+    first batch folded on the new mesh (the ``mesh.recover`` span), is in
+    ``stats["recover_s"]``, and the part of it that re-formed the mesh
+    (the ``mesh.reform`` span) in ``stats["reform_s"]``."""
+    recovery = _Recovery()
+    try:
+        while True:
+            try:
+                return _stream_impl(
+                    config, encoded, scales, keep_table, sel_threshold,
+                    sel_scale, sel_min_count, sel_rows_per_uid, rng_seed,
+                    device, checkpoint=checkpoint, executor=executor,
+                    cache_bytes=cache_bytes, mesh=mesh, _recovery=recovery)
+            except (faults.DeviceLost, health.MeshParticipantLost,
+                    RuntimeError) as err:
+                loss = err
+                if not isinstance(loss, (faults.DeviceLost,
+                                         health.MeshParticipantLost)):
+                    # A collective that a dead peer never joined.
+                    loss = health.collective_failure_to_loss(err, mesh)
+                    if loss is None:
+                        raise
+                if rng_seed is None or mesh is None:
+                    raise
+                new_mesh = recovery.reform(mesh, loss)
+                if new_mesh is None:
+                    raise  # nothing left to shrink to
+                mesh = new_mesh
+    finally:
+        recovery.first_fold()
+
+
+class _Recovery:
+    """The elastic trail of one stream across its re-entries: the reshard
+    records, and each reshard's time to recover (the ``mesh.recover`` span,
+    open from the loss being caught to the first batch folded on the new
+    mesh) and its ``mesh.reform`` part."""
+
+    def __init__(self):
+        self.reshards: list = []
+        self.recover_s: list = []
+        self.reform_s: list = []
+        self._open: list = []
+        self._tracer = obs.run_tracer()
+
+    def reform(self, mesh, loss):
+        """Re-forms ``mesh`` after ``loss`` and records the reshard; None
+        when nothing is left to shrink to."""
+        span = self._tracer.span("mesh.recover", cat="mesh",
+                                 old_devices=int(mesh.size))
+        self._open.append(span.__enter__())
+        lost = isinstance(loss, health.MeshParticipantLost)
+        with self._tracer.span("mesh.reform", cat="mesh") as reform:
+            new_mesh = psh.reform_mesh(mesh, participant_lost=lost)
+        self.reform_s.append(reform.duration)
+        if new_mesh is None:
+            return None
+        record = {"old_devices": int(mesh.size),
+                  "new_devices": int(new_mesh.size),
+                  "reason": "participant_lost" if lost else "device_lost",
+                  "chunk": int(getattr(loss, "index", -1)),
+                  "detail": str(loss)}
+        self.reshards.append(record)
+        obs.inc("mesh.reshards")
+        obs.event("mesh.reshard", **record)
+        obs.monitor.update_mesh({
+            "state": "reformed", "reshards": len(self.reshards),
+            "old_devices": record["old_devices"],
+            "new_devices": record["new_devices"],
+            "reason": record["reason"]})
+        return new_mesh
+
+    def first_fold(self) -> None:
+        """A batch folded (or the stream ended): closes the open
+        ``mesh.recover`` spans."""
+        for span in self._open:
+            span.__exit__(None, None, None)
+            self.recover_s.append(span.duration)
+        self._open.clear()
+
+
+def _stream_impl(config, encoded, scales, keep_table, sel_threshold,
+                 sel_scale, sel_min_count, sel_rows_per_uid,
+                 rng_seed: Optional[int], device, checkpoint=None,
+                 executor: Optional[bool] = None,
+                 cache_bytes: Optional[int] = None, mesh=None,
+                 _recovery: Optional[_Recovery] = None
+                 ) -> Tuple[np.ndarray, Dict, Dict]:
     """The streamed aggregation on ``device``. Returns ``(keep bool
     [P_pad], part64, stats)``: ``part64`` holds the combined int64 counts
     and float64 value columns (and VECTOR_SUM's [P_pad, D] float64
@@ -499,6 +596,12 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                              "wedges the collective rendezvous")
             obs.inc("ingest.forced_serial")
         use_executor = False
+    # The mesh supervisor, armed by PIPELINEDP_TPU_MESH_DIR on a mesh of
+    # more than one rank: each collective dispatch first passes its gate
+    # (publish this rank's beat, wait for the peers'), so a dead peer
+    # surfaces as MeshParticipantLost before this rank enters the
+    # collective that would wait on it.
+    sup = health.supervisor_from_env(mesh)
     P_pad = te._pad_pow2(len(encoded.pk_vocab))
     # Owner blocks tile the partition axis (a no-op on a power-of-two
     # mesh).
@@ -536,8 +639,49 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
             "the identical noise keys (the privacy budget is consumed at "
             "noise draw, not at job success)")
 
-    order, counts = _batch_assignment(config, encoded, n_batches, seed,
-                                      n_dev)
+    # Elastic resume: a checkpoint written at a larger mesh would be
+    # refused (its fingerprint binds the mesh size). When the saved
+    # shape's own fingerprint verifies and the new size divides the old,
+    # the resume adopts the saved assignment: the same n_batches, row
+    # order and fold_in(k_bound, b) keys, each batch's cells regrouped
+    # onto the survivors. The partition padding must agree too (it does
+    # on a power-of-two mesh), so the accumulator layout is unchanged.
+    adopt = None
+    peeked = None
+    data_dig = None
+    if ckpt_store is not None and ckpt_store.exists():
+        data_dig = ckpt_mod.data_digest(encoded)
+        peeked = ckpt_store.load()
+        a = peeked.assign if peeked is not None else None
+        if (a is not None and int(a["n_dev"]) != n_dev and
+                int(a["num_partitions"]) == P_pad and
+                int(a["n_dev"]) % n_dev == 0):
+            fp_saved = ckpt_mod.run_fingerprint(
+                config, n, int(a["n_batches"]), seed, P_pad,
+                int(a["fx_bits"]), data=data_dig, n_dev=int(a["n_dev"]))
+            if fp_saved == peeked.fingerprint:
+                adopt = {k: int(v) for k, v in a.items()}
+                n_batches = adopt["n_batches"]
+                obs.inc("checkpoint.elastic_adoptions")
+                obs.event("checkpoint.elastic_adoption",
+                          saved_n_dev=adopt["n_dev"], n_dev=int(n_dev),
+                          n_batches=int(n_batches))
+    # The persisted reshards (of earlier processes) and this run's. A run
+    # that resumes its own checkpoint sees its records twice: they are
+    # deduplicated by content (the dispatch ordinal is global and
+    # monotone, so two distinct reshards never compare equal).
+    reshard_history = list(peeked.reshards) if peeked is not None else []
+    for rec in (_recovery.reshards if _recovery is not None else []):
+        if rec not in reshard_history:
+            reshard_history.append(rec)
+
+    if adopt is not None:
+        order, counts = _batch_assignment(config, encoded, n_batches, seed,
+                                          adopt["n_dev"])
+        counts = regroup_cells(counts, n_dev)
+    else:
+        order, counts = _batch_assignment(config, encoded, n_batches, seed,
+                                          n_dev)
     batch_rows = counts.sum(axis=1)
     # The lane plan bounds a batch's GLOBAL rows: the ranks' lanes add.
     max_rows = int(batch_rows.max())
@@ -569,11 +713,22 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     # float64 operations exactly.
     start_batch = 0
     ckpt_fp = None
+    if adopt is not None and fx_bits != adopt["fx_bits"]:
+        # Regrouping keeps each batch's global rows, so the lane plan must
+        # come out at the saved width.
+        raise AssertionError(
+            f"elastic adoption recomputed fx_bits={fx_bits} != saved "
+            f"{adopt['fx_bits']}")
     if ckpt_store is not None:
         with tr.span("ckpt.restore", cat="checkpoint"):
+            if data_dig is None:
+                data_dig = ckpt_mod.data_digest(encoded)
+            # Under adoption the fingerprint is the original shape's: it
+            # stays the same across every reshard, so a twice-shrunken
+            # run still resumes its own saves.
             ckpt_fp = ckpt_mod.run_fingerprint(
-                config, n, n_batches, seed, P_pad, fx_bits,
-                data=ckpt_mod.data_digest(encoded), n_dev=n_dev)
+                config, n, n_batches, seed, P_pad, fx_bits, data=data_dig,
+                n_dev=adopt["n_dev"] if adopt is not None else n_dev)
             saved = ckpt_store.load_for(ckpt_fp)
         if saved is not None:
             start_batch = saved.next_batch
@@ -636,6 +791,12 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                    else vec.astype(np.float64))
             vec_acc = v64 if vec_acc is None else vec_acc + v64
 
+    # Every save carries the original run's assignment (the same across
+    # reshards: what a resume on a smaller mesh adopts) and the reshards.
+    assign_meta = (dict(adopt) if adopt is not None else
+                   {"n_batches": int(n_batches), "n_dev": int(n_dev),
+                    "num_partitions": int(P_pad), "fx_bits": int(fx_bits)})
+
     def save_ckpt(next_batch):
         nonlocal n_saves
         if not ckpt_writer:
@@ -647,8 +808,9 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                 arrays["vec"] = vec_acc
             if mid_acc is not None:
                 arrays["mid"] = mid_acc.cpu().numpy()
-            ckpt_store.save(ckpt_mod.StreamCheckpoint(ckpt_fp, next_batch,
-                                                      arrays))
+            ckpt_store.save(ckpt_mod.StreamCheckpoint(
+                ckpt_fp, next_batch, arrays, assign=assign_meta,
+                reshards=list(reshard_history)))
         n_saves += 1
 
     def fold_item(item):
@@ -660,6 +822,9 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         nonlocal mid_acc
         b, host, vec, done, mid = item
         with tr.span("ingest.fetch", cat="ingest", batch=b):
+            # The injectable wedge: a test holds this fetch (the span stays
+            # open, nothing follows) and watches the stall watchdog find it.
+            faults.check_fetch_hold(b)
             if done is not None:
                 done.synchronize()
             if ring is not None:
@@ -668,6 +833,9 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
             fold_host(host.numpy(), None if vec is None else vec.numpy())
             if mid is not None:
                 mid_acc = mid if mid_acc is None else mid_acc.add_(mid)
+        if _recovery is not None:
+            # The first batch folded on a re-formed mesh ends its recovery.
+            _recovery.first_fold()
         if ckpt_store is not None and (b + 1) % ckpt_every == 0:
             save_ckpt(b + 1)
 
@@ -678,6 +846,12 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
         nonlocal cache_used, cache_frozen, cache_upto
         b, pid, pk, values, _ = item
         faults.check_chunk(b)
+        # The injectable mesh loss comes before the beat: a rank that dies
+        # here is found by its peers' gates, before any of them enters the
+        # collective of this batch.
+        faults.check_device_loss()
+        if sup is not None:
+            sup.gate()
         staging.ready_on_compute(item)
         with obs.device_annotation("pdp.stream_partials"):
             part, nseg, mid = _batch_partials(
@@ -742,7 +916,7 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
                     if pending is not None:
                         fold_item(pending)
                     pending = out
-            except faults.FaultInjected:
+            except (faults.FaultInjected, health.MeshParticipantLost):
                 # Let the previous batch's work finish before propagating;
                 # its result is not folded, so the checkpoint stays a clean
                 # prefix.
@@ -797,12 +971,20 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
     if ckpt_store is not None:
         stats["resumed_from_batch"] = start_batch
         stats["checkpoint_saves"] = n_saves
+    stats["mesh_reshards"] = len(reshard_history)
+    if reshard_history:
+        stats["reshard_history"] = list(reshard_history)
+    if _recovery is not None and _recovery.recover_s:
+        stats["recover_s"] = list(_recovery.recover_s)
+        stats["reform_s"] = list(_recovery.reform_s)
+    if adopt is not None:
+        stats["elastic_adopted_n_dev"] = adopt["n_dev"]
     if config.percentiles:
         stats.update(_pass_b(config, plan, P_pad, acc, mid_acc, scales,
                              k_bound, k_noise, cache, cache_frozen,
                              cache_upto, staging, use_executor, device,
                              tr, int(knob_plan.values["tree_rows_cap"]),
-                             mesh))
+                             mesh, sup))
     stats["stage_s"] = staging.stage_s
     plan_mod.note_observed("pass_a", t_loop)
     if config.percentiles:
@@ -818,14 +1000,16 @@ def stream_partials_and_select(config, encoded, scales, keep_table,
 
 def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
             cache, cache_frozen, cache_upto, staging, use_executor,
-            device, tr, tree_rows_cap, mesh=None) -> Dict:
+            device, tr, tree_rows_cap, mesh=None, sup=None) -> Dict:
     """The percentile walk's second pass: the top levels walk on the
     summed mid histogram, then each sweep of the plan streams the batches
     (the cached prefix from the device, the rest re-shipped) into its
     packed [T, Pb, Qc, span] subtree histograms (K3 on the card), and the
     bottom levels walk per tile. On a mesh each rank bins its own cells
     and one replicating all-reduce per sweep sums the ranks' histograms
-    (integer sums: any grouping gives the same counts)."""
+    (integer sums: any grouping gives the same counts). Each batch of a
+    sweep passes the device-loss site and the supervisor's gate, as pass
+    A's do."""
     _, _, n_mid, span = quantile_tree.tree_constants()
     # The histograms accumulate in device int32, so a partition with 2^31
     # kept rows would wrap a bucket: guard on the host counts.
@@ -877,7 +1061,8 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
                      q0=q0_s, p0=p0_s):
             vals = _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo,
                                  hi, target, done, k_bound, k_tree, scale,
-                                 staging, run_sweep, device, vals, tr, mesh)
+                                 staging, run_sweep, device, vals, tr, mesh,
+                                 sup)
         obs.inc("stream.pass_b_stream_sweeps")
         obs.inc("stream.pass_b_tiles", len(sweep))
     # The monotone step runs once over the full quantile list.
@@ -896,7 +1081,7 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
 
 def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
                   done, k_bound, k_tree, scale, staging, run_sweep, device,
-                  vals, tr, mesh=None):
+                  vals, tr, mesh=None, sup=None):
     """One sweep of the plan: streams the batches into the sweep's packed
     [T, Pb, Qc, span] subtree histograms, then walks the bottom levels
     per tile into ``vals``."""
@@ -910,6 +1095,9 @@ def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
     def consume(item, ring_b):
         b, pid, pk, values, _ = item
         faults.check_pass_b_chunk(b)
+        faults.check_device_loss()
+        if sup is not None:
+            sup.gate()
         staging.ready_on_compute(item)
         with obs.device_annotation("pdp.stream_pass_b"):
             _sweep_batch(config, pid, pk, values, _cell_key(k_bound, b, mesh),

@@ -2285,6 +2285,14 @@ class LazyFusedResult:
             self.timings["stream_resumed_from"] = stats["resumed_from_batch"]
             self.timings["stream_checkpoint_saves"] = stats[
                 "checkpoint_saves"]
+        # The elastic recovery trail: a run that survived a lost rank says
+        # so, and at which dispatch, with each reshard's time to recover.
+        if stats.get("mesh_reshards"):
+            self.timings["stream_mesh_reshards"] = stats["mesh_reshards"]
+            self.timings["stream_reshard_history"] = stats["reshard_history"]
+        if stats.get("recover_s"):
+            self.timings["stream_recover_s"] = stats["recover_s"]
+            self.timings["stream_reform_s"] = stats["reform_s"]
         for k in ("stage_s", "fold_wait_s", "t_stage", "t_fold", "t_device",
                   "t_total", "overlap_frac", "executor"):
             self.timings[f"stream_{k}"] = stats[k]

@@ -8,8 +8,8 @@ bytes across the host boundary. Hosts are simulated with
 ``PIPELINEDP_TPU_MESH_HOSTS=2`` (two hosts of two ranks), and every case
 is held to the JAX package's ``make_mesh(4)`` under the same environment:
 the position order, the topology, the comms counters and the results.
-``test_reform_preserves_hier_within_hosts`` and the elastic shrink wait
-for ROADMAP step 5b (``reform_mesh``).
+``test_reform_preserves_hier_within_hosts`` and the elastic shrink under
+``hier`` are in ``test_torch_elastic.py``.
 """
 
 import contextlib
