@@ -4020,8 +4020,10 @@ def _survivors(outs, n, what):
 def _assert_elastic_launches(outs, what, device, before="segment_sum_lanes",
                              after="subtree_counts_multi"):
     """On the card, ``before`` (K1: pass A's batches before the loss) on
-    every rank's first mesh and ``after`` (K3: pass B, after the reshard)
-    on its last; on the CPU no kernel at all."""
+    every rank's first mesh, and ``after`` (K3: pass B, after the
+    reshard) on its last, with ``before`` there too wherever the resume
+    point leaves pass A batches to fold on the last mesh; on the CPU no
+    kernel at all."""
     for o in outs:
         gens = o["launches_by_mesh"]
         if device != "cuda":
@@ -4030,6 +4032,9 @@ def _assert_elastic_launches(outs, what, device, before="segment_sum_lanes",
         assert len(gens) >= 2, (what, o["rank"], gens)
         assert gens[0][before] > 0, (what, o["rank"], gens)
         assert gens[-1][after] > 0, (what, o["rank"], gens)
+        resumed = o["resumed_from"]
+        if resumed is not None and resumed < o["batches"]:
+            assert gens[-1][before] > 0, (what, o["rank"], resumed, gens)
 
 
 @contextlib.contextmanager

@@ -15,6 +15,7 @@ backoff) and degrades to the CPU when the runtime is wedged: flagged on
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -52,10 +53,14 @@ class TorchBackend(LocalBackend):
         first kernel (``health.ensure_device_or_degrade``, with ``clock``
         and ``probe_timeout_s``) and, when every attempt fails, degrade to
         the CPU. None (the default) probes nothing: a missing card raises.
+        With a mesh of several ranks (gloo), the ranks agree on one
+        verdict (``health.agree_degraded``): one rank's failed probe
+        degrades them all. An NCCL mesh cannot agree over a wedged card;
+        make it with ``health.resilient_make_mesh`` instead.
       degraded: True when this process was steered off its card (by this
-        backend's probe or an earlier one: ``health.DEGRADED_ENV`` is set).
-        The device path then runs on the CPU without a mesh, and results
-        must carry the flag.
+        backend's probe, a peer's on the same mesh, or an earlier one:
+        ``health.DEGRADED_ENV`` is set). The device path then runs on the
+        CPU without a mesh, and results must carry the flag.
       health: the probe's ``resilience.health.HealthReport``, or None when
         no ``health_policy`` was given.
     """
@@ -72,19 +77,31 @@ class TorchBackend(LocalBackend):
         # off the card: the flag says so even without a probe of its own.
         self.degraded = bool(os.environ.get(health_mod.DEGRADED_ENV))
         self.health = None
+        if mesh is not None:
+            from pipelinedp_tpu_torch.parallel import sharded
+            mesh = sharded.require_mesh(mesh)
+        several = mesh is not None and mesh.size > 1
         if health_policy is not None:
+            if several and mesh.backend != "gloo":
+                raise ValueError(
+                    "health_policy on a multi-rank mesh agrees the verdict "
+                    "over gloo; an NCCL mesh cannot agree over a wedged "
+                    "card: make it with health.resilient_make_mesh")
             self.health = health_mod.ensure_device_or_degrade(
                 policy=None if health_policy is True else health_policy,
-                clock=clock, timeout_s=probe_timeout_s)
+                clock=clock, timeout_s=probe_timeout_s,
+                device=(mesh.device if mesh is not None else
+                        torch.device(device)).type)
             self.degraded = self.health.degraded
+            if several:
+                self._agree_with_peers(mesh.group.pg)
         if self.degraded:
             # A wedged card's mesh is unusable: the CPU fallback runs on
             # one device. Never silent: ``degraded`` says so.
             mesh = None
             device = "cpu"
         if mesh is not None:
-            from pipelinedp_tpu_torch.parallel import sharded
-            device = sharded.require_mesh(mesh).device
+            device = mesh.device
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -107,3 +124,20 @@ class TorchBackend(LocalBackend):
                   mesh_devices=mesh.size if mesh is not None else 0,
                   seed_fixed=rng_seed is not None,
                   checkpoint=bool(checkpoint), device=str(device))
+
+    def _agree_with_peers(self, pg) -> None:
+        """One degrade verdict for every rank of the mesh's group ``pg``:
+        a rank whose own probe passed degrades too when a peer's failed,
+        flagged and recorded as its own failed probe would be."""
+        from pipelinedp_tpu_torch import obs
+        from pipelinedp_tpu_torch.resilience import health as health_mod
+        if not health_mod.agree_degraded(self.degraded, pg) or self.degraded:
+            return
+        os.environ[health_mod.DEGRADED_ENV] = "1"
+        obs.inc("health.degradations")
+        obs.event("health.degraded", target="cpu_platform",
+                  attempts=self.health.attempts,
+                  detail=health_mod.PEER_DEGRADED)
+        self.health = dataclasses.replace(
+            self.health, degraded=True, detail=health_mod.PEER_DEGRADED)
+        self.degraded = True

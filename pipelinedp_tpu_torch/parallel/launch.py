@@ -289,10 +289,9 @@ class RankPool:
 def run_ranks(world_size: int, fn: Callable, *args, backend: str = "gloo",
               deadline_s: float = DEFAULT_DEADLINE_S,
               env: Optional[Dict[str, Optional[str]]] = None,
-              threads: Optional[int] = None, elastic: bool = False,
-              **kwargs) -> List[Any]:
+              threads: Optional[int] = None, **kwargs) -> List[Any]:
     """One-shot: starts ``world_size`` ranks, runs ``fn`` on each, stops
     them, returns the results by rank."""
     with RankPool(world_size, backend=backend, deadline_s=deadline_s,
-                  threads=threads, elastic=elastic) as pool:
+                  threads=threads) as pool:
         return pool.run(fn, *args, env=env, **kwargs)

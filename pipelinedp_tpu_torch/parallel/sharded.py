@@ -128,15 +128,15 @@ class _Group:
     """A process group and the global ranks of its members in MEMBER
     order (the order whose blocks the exchange scatters and gathers).
     ``perm[m]`` is member ``m``'s rank inside the torch group, which
-    orders the chunks of a torch collective. ``raw`` marks a group that a
-    re-formed mesh built itself (a backend object outside the default
-    group's registry): its collectives are called on it directly."""
+    orders the chunks of a torch collective. The collectives are called
+    on ``pg`` directly, which serves the default group, a ``new_group``
+    and a re-formed mesh's own group (outside the default group's
+    registry) alike."""
 
-    def __init__(self, pg, members: List[int], raw: bool = False):
+    def __init__(self, pg, members: List[int]):
         self.pg = pg
         self.members = list(members)
         self.size = len(members)
-        self.raw = raw
         by_rank = sorted(members)
         self.perm = [by_rank.index(r) for r in members]
 
@@ -383,7 +383,7 @@ def _new_group(mesh: Mesh, store, name: str, members: List[int]) -> _Group:
         pg = dist.ProcessGroupNCCL(sub, rank_in, len(members), opts)
     else:
         pg = dist.ProcessGroupGloo(sub, rank_in, len(members), timeout)
-    return _Group(pg, members, raw=True)
+    return _Group(pg, members)
 
 
 def _publish_once(path: str, payload) -> bool:
@@ -470,8 +470,7 @@ def _agree_survivors(mesh: Mesh, generation: int, clock,
 
 
 def reform_mesh(mesh: Mesh, participant_lost: bool = False,
-                axis_name: Optional[str] = None, clock=None,
-                stall_s: Optional[float] = None) -> Optional[Mesh]:
+                axis_name: Optional[str] = None) -> Optional[Mesh]:
     """Re-forms ``mesh`` after a loss: this rank's view of a smaller mesh
     over the survivors, or None when nothing is left to shrink to (a
     one-rank mesh; the caller re-raises the loss). A survivor that is not
@@ -508,8 +507,6 @@ def reform_mesh(mesh: Mesh, participant_lost: bool = False,
     from pipelinedp_tpu_torch.resilience.clock import SystemClock
     mesh = require_mesh(mesh)
     axis_name = axis_name or mesh.axis_name
-    clock = clock or SystemClock()
-    stall_s = health.mesh_stall_s() if stall_s is None else float(stall_s)
     old_n = int(mesh.size)
     old_topo = mesh.topology
     order = [int(r) for r in mesh.devices]
@@ -517,7 +514,8 @@ def reform_mesh(mesh: Mesh, participant_lost: bool = False,
     if old_n <= 1:
         return None
     if participant_lost:
-        alive = _agree_survivors(mesh, generation, clock, stall_s)
+        alive = _agree_survivors(mesh, generation, SystemClock(),
+                                 health.mesh_stall_s())
         m = _largest_proper_divisor(old_n, len(alive))
         members = alive[:m]
         topo = _flat_topology(m)
@@ -541,7 +539,7 @@ def reform_mesh(mesh: Mesh, participant_lost: bool = False,
             new_devices=m)
     store = _reform_store(mesh) if m > 1 else None
     group = (_new_group(mesh, store, f"g{generation}/world", members)
-             if m > 1 else _Group(None, members, raw=True))
+             if m > 1 else _Group(None, members))
     new = Mesh(group=group, rank=mesh.rank, size=m,
                index=members.index(mesh.rank), device=mesh.device,
                backend=mesh.backend, axis_name=axis_name, topology=topo,
@@ -627,10 +625,7 @@ def _unstage(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 def _all_reduce(mesh: Mesh, g: _Group, x: torch.Tensor) -> torch.Tensor:
     y = _stage(mesh, x).clone()
     if g.size > 1:
-        if g.raw:
-            g.pg.allreduce([y]).wait()
-        else:
-            dist.all_reduce(y, group=g.pg)
+        g.pg.allreduce([y]).wait()
     return _unstage(mesh, y)
 
 
@@ -647,10 +642,7 @@ def _reduce_scatter(mesh: Mesh, g: _Group, x: torch.Tensor,
     inp = torch.cat(by_group_rank, dim=0).contiguous()
     out = torch.empty((inp.shape[0] // g.size,) + tuple(inp.shape[1:]),
                       dtype=inp.dtype, device=inp.device)
-    if g.raw:
-        g.pg._reduce_scatter_base(out, inp).wait()
-    else:
-        dist.reduce_scatter_tensor(out, inp, group=g.pg)
+    g.pg._reduce_scatter_base(out, inp).wait()
     return _unstage(mesh, out.movedim(0, dim))
 
 
@@ -662,10 +654,7 @@ def _all_gather(mesh: Mesh, g: _Group, x: torch.Tensor,
     inp = _stage(mesh, x).movedim(dim, 0).contiguous()
     out = torch.empty((g.size * inp.shape[0],) + tuple(inp.shape[1:]),
                       dtype=inp.dtype, device=inp.device)
-    if g.raw:
-        g.pg._allgather_base(out, inp).wait()
-    else:
-        dist.all_gather_into_tensor(out, inp, group=g.pg)
+    g.pg._allgather_base(out, inp).wait()
     chunks = torch.chunk(out, g.size, dim=0)
     ordered = torch.cat([chunks[g.perm[m]] for m in range(g.size)], dim=0)
     return _unstage(mesh, ordered.movedim(0, dim))

@@ -443,6 +443,23 @@ def ensure_device_or_degrade(policy: Optional[RetryPolicy] = None,
                             detail=str(e.last_error))
 
 
+#: The detail of a rank degraded because a peer's probe failed.
+PEER_DEGRADED = "a peer rank's device probe failed"
+
+
+def agree_degraded(degraded: bool, pg) -> bool:
+    """One verdict for every rank of the gloo group ``pg``: True when any
+    rank is degraded (a MAX all-reduce of the flags). A rank that left a
+    mesh alone would leave its peers waiting in the mesh's collectives
+    until their timeout, and then re-forming without it: every rank of
+    the group calls this at the same point and acts on the one verdict."""
+    import torch
+    import torch.distributed as dist
+    flag = torch.tensor([int(degraded)], dtype=torch.int32)
+    pg.allreduce([flag], dist.ReduceOp.MAX).wait()
+    return bool(int(flag))
+
+
 def resilient_make_mesh(n_devices: Optional[int] = None,
                         axis_name: str = "data",
                         policy: Optional[RetryPolicy] = None,
@@ -496,10 +513,8 @@ def resilient_make_mesh(n_devices: Optional[int] = None,
     if dist.is_initialized() and dist.get_world_size() > 1:
         gloo = (dist.group.WORLD if str(dist.get_backend()).lower() == "gloo"
                 else dist.new_group(backend="gloo"))
-        flag = torch.tensor([int(degraded)], dtype=torch.int32)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=gloo)
-        if int(flag) and not degraded:
-            degraded, detail = True, "a peer rank's device probe failed"
+        if agree_degraded(degraded, gloo) and not degraded:
+            degraded, detail = True, PEER_DEGRADED
     if not degraded:
         mesh = sharded.make_mesh(n_devices, axis_name, backend=backend,
                                  device=device)
@@ -517,8 +532,7 @@ def resilient_make_mesh(n_devices: Optional[int] = None,
 
 
 def resilient_init_process_group(backend: str, rank: int, world_size: int,
-                                 store=None, init_method: Optional[str] = None,
-                                 timeout_s: float = 300.0,
+                                 store=None, timeout_s: float = 300.0,
                                  policy: Optional[RetryPolicy] = None,
                                  clock: Optional[Clock] = None) -> None:
     """``torch.distributed.init_process_group`` under bounded retry (a
@@ -538,7 +552,7 @@ def resilient_init_process_group(backend: str, rank: int, world_size: int,
         faults.check_coordinator()
         try:
             dist.init_process_group(
-                backend, init_method=init_method, store=store, rank=rank,
+                backend, store=store, rank=rank,
                 world_size=world_size, timeout=timedelta(seconds=timeout_s))
         except Exception:
             # A failed rendezvous may leave the default group assigned;

@@ -164,3 +164,44 @@ def resilient_mesh(max_attempts, device="cpu"):
                 int(total[0]), report.detail)
     finally:
         faults.clear()
+
+
+def backend_health(max_attempts=2):
+    """``TorchBackend(health_policy=...)`` on this rank's CPU mesh under the
+    call's fault plan, on a FakeClock: (degraded, the degrade flag in the
+    environment, the mesh kept, the report's detail, the release of a small
+    aggregation with a fixed seed). The flag is cleared after the call: the
+    pool's ranks outlive it."""
+    from pipelinedp_tpu_torch.resilience import FakeClock, RetryPolicy
+    from pipelinedp_tpu_torch.resilience import health
+    plan = faults.active()
+    if plan is not None:
+        faults.install(plan)
+    try:
+        obs.reset()
+        noise_ops.seed_host_rng(0)
+        mesh = psh.make_mesh(device="cpu")
+        backend = pdt.TorchBackend(
+            device="cpu", rng_seed=5, mesh=mesh, clock=FakeClock(),
+            health_policy=RetryPolicy(max_attempts=max_attempts,
+                                      base_delay_s=1.0, seed=0))
+        flagged = bool(os.environ.get(health.DEGRADED_ENV))
+        rng = np.random.default_rng(3)
+        n = 3_000
+        ds = pdt.ArrayDataset(privacy_ids=rng.integers(0, 400, n),
+                              partition_keys=rng.integers(0, 8, n),
+                              values=rng.uniform(0.0, 10.0, n))
+        params = pdt.AggregateParams(
+            metrics=[pdt.Metrics.COUNT, pdt.Metrics.SUM],
+            max_partitions_contributed=8,
+            max_contributions_per_partition=50, min_value=0.0,
+            max_value=10.0)
+        acc = pdt.NaiveBudgetAccountant(total_epsilon=1e4, total_delta=1e-6)
+        res = pdt.DPEngine(acc, backend).aggregate(ds, params,
+                                                   pdt.DataExtractors())
+        acc.compute_budgets()
+        return (backend.degraded, flagged, backend.mesh is not None,
+                backend.health.detail, released(res))
+    finally:
+        os.environ.pop(health.DEGRADED_ENV, None)
+        faults.clear()

@@ -40,6 +40,7 @@ from pipelinedp_tpu_torch.resilience.retry import RetryPolicy
 
 import test_torch_elastic_ranks as eranks
 from test_torch_elastic import BoundedPool
+from test_torch_mesh import assert_same_release
 from test_torch_monitor import (count_params, inline_monitor, make_ds,
                                 run_streamed, wait_activity_quiesce)
 
@@ -180,6 +181,23 @@ class TestDeviceHealth:
         assert [o[0] for o in mixed] == [True] * 4
         assert "peer rank" in mixed[0][8]
         assert "injected wedge" in mixed[1][8]
+
+    def test_torch_backend_on_a_mesh_degrades_every_rank(self):
+        """One rank's wedged probe under ``TorchBackend(health_policy=...,
+        mesh=...)`` degrades every rank of the mesh, flagged on each: no
+        rank leaves the mesh alone while its peers wait in it. The
+        degraded single-device release equals the healthy mesh's."""
+        pool = BoundedPool()
+        clean = pool.run(eranks.backend_health)
+        assert [o[:3] for o in clean] == [(False, False, True)] * 4
+        mixed = pool.run(eranks.backend_health, rank_env={
+            1: {faults.ENV_VAR: "wedged_init=9"}})
+        assert [o[:3] for o in mixed] == [(True, True, False)] * 4
+        assert "injected wedge" in mixed[1][3]
+        assert all(o[3] == health.PEER_DEGRADED
+                   for r, o in enumerate(mixed) if r != 1)
+        for o in clean[1:] + mixed:
+            assert_same_release(o[4], clean[0][4])
 
     def test_torch_backend_degrades_flagged(self, monkeypatch):
         monkeypatch.delenv(health.DEGRADED_ENV)
