@@ -268,8 +268,20 @@ Phases, one line each; any failure raises and exits non-zero:
     device's bits; with config 4's caps the clean 4-rank wall, the killed
     run's wall, the time to recover, the reshard, the resume point, K1's
     and K3's ms and launches per rank and each rank's peak memory;
-32. a ``kernels`` JSON line per kernel (K1-K5), then the card line, then
-    the result line ``{"ok": true, "device": {...}}`` last.
+32. the seeded chaos campaign on the card
+    (``resilience.chaos.run_campaign(seed=0, n_schedules=11,
+    device="cuda")``): one episode of each of the 11 scenarios, the two
+    mesh ones on a 4-rank gloo pool on ``cuda:0``; every episode passes,
+    its wall and the kernel launches of its recovered run are logged, and
+    each recovered run launched its kernels (K1 in stream_kill,
+    serve_kill and sketch_kill, K3 in pass_b_kill, K4 and K5 in
+    sweep_kill, K1 on every survivor of device_loss and topo_kill); the
+    campaign's clean count_sum, percentile and megasweep baselines on the
+    card equal the CPU's bit for bit;
+33. a ``kernels`` JSON line per kernel (K1-K5, each with
+    ``launches_chaos``, its launches over phase 32's recovered runs), then
+    the card line, then the result line ``{"ok": true, "device": {...}}``
+    last.
 
 ``python3 chip_smoke.py --profile`` adds a breakdown of the flagship
 after phase 4, of config 4 after phase 10 and of config 5's sweep after
@@ -370,11 +382,9 @@ def phase_card():
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
-    from concurrent.futures import ThreadPoolExecutor
-    from pipelinedp_tpu_torch.ops.kernels import _build
+    from pipelinedp_tpu_torch.ops import kernels
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        list(pool.map(_build.load, KERNEL_SOURCES))
+    kernels.build(KERNEL_SOURCES)
     log("card", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
@@ -451,12 +461,8 @@ def phase_kernel(columns):
 
 def hot_slots(C):
     """Hot-key slots of K1's shared-memory accumulator for C lanes."""
-    import ctypes
-    from pipelinedp_tpu_torch.ops.kernels import _build
-    fn = _build.load("segsum_lanes").segsum_lanes_hot_slots
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(C)
+    from pipelinedp_tpu_torch.ops.kernels import segsum
+    return segsum.hot_slots(C)
 
 
 def wide_design(W, P):
@@ -2668,6 +2674,7 @@ def _hh_pair_buckets(columns, sketch, l0):
     pids, keys = columns[:2]
     uniq, inv = sk_engine._factorize_keys(keys)
     hashes = hashing.stable_hash64(uniq, sketch.hash_seed)
+    # lint: disable=sketch-confinement(recomputes phase 1's host bucket ids to check the card's binner against them)
     buckets = hashing.bucket_ids(hashes, sketch.resolved_width(),
                                  sketch.resolved_depth(), sketch.hash_seed)
     kept = sk_engine.bound_pairs(pids, inv, hashes, l0, sketch.hash_seed)
@@ -3345,6 +3352,7 @@ def _burst(svc, requests):
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
+    # lint: disable=nosleep(the serve burst's concurrent clients, each joined before the phase ends)
     threads = [threading.Thread(target=one, args=(i,))
                for i in range(len(requests))]
     t0 = time.perf_counter()
@@ -4401,6 +4409,83 @@ def phase_elastic(smi, pools):
     return smoke, full
 
 
+# Phase 32: each recovered run's kernels, by scenario (K1 on every survivor
+# of a mesh episode).
+CHAOS_KERNELS = {"stream_kill": ("segment_sum_lanes",),
+                 "serve_kill": ("segment_sum_lanes",),
+                 "sketch_kill": ("segment_sum_lanes",),
+                 "pass_b_kill": ("subtree_counts_multi",),
+                 "sweep_kill": ("segment_totals", "segmented_sums")}
+CHAOS_MESH = ("device_loss", "topo_kill")
+
+
+def phase_chaos(smi):
+    """Phase 32: the seeded chaos campaign on the card, one episode of each
+    scenario; each episode's wall and its recovered run's launches; the
+    campaign's clean baselines on the card against the CPU's. Returns the
+    launches of every recovered run, summed by kernel (the mesh episodes'
+    survivors included)."""
+    from pipelinedp_tpu_torch.resilience import chaos
+    t0 = time.perf_counter()
+    summary = chaos.run_campaign(
+        seed=0, n_schedules=11, device="cuda",
+        out=lambda line: print(f"[chaos] {line}", flush=True))
+    campaign_s = time.perf_counter() - t0
+    assert not summary["failures"], summary["failures"]
+    assert summary["passed"] == 11, summary
+    records = {r["scenario"]: r for r in summary["records"]}
+    assert set(records) == set(chaos.SCENARIO_NAMES), sorted(records)
+    for scenario, kernels in CHAOS_KERNELS.items():
+        for name in kernels:
+            assert records[scenario]["launches"][name] >= 1, (
+                f"{scenario}: the recovered run never launched {name}")
+    for scenario in CHAOS_MESH:
+        per_rank = records[scenario]["launches_per_rank"]
+        assert per_rank, f"{scenario}: no survivor"
+        for rank, counts in per_rank.items():
+            assert counts["segment_sum_lanes"] >= 1, (
+                f"{scenario}: survivor rank {rank} never launched K1")
+    totals = dict.fromkeys(("segment_sum_lanes", "segment_sum_wide",
+                            "subtree_counts_multi", "segment_totals",
+                            "segmented_sums"), 0)
+    for rec in records.values():
+        for counts in [rec["launches"],
+                       *rec.get("launches_per_rank", {}).values()]:
+            for name, n in counts.items():
+                totals[name] += n
+    # The oracles the episodes compared against: the card's clean runs
+    # equal the CPU's bit for bit.
+    t1 = time.perf_counter()
+    old_chunk = os.environ.get(CHUNK_ENV)
+    os.environ[CHUNK_ENV] = chaos.STREAM_CHUNK_ROWS
+    try:
+        card, cpu = chaos._Fixtures("cuda"), chaos._Fixtures("cpu")
+        for workload in ("count_sum", "percentile"):
+            chaos.assert_bit_identical(card.baseline(workload),
+                                       cpu.baseline(workload),
+                                       f"chaos {workload} baseline")
+        chaos.assert_sweep_identical(card.sweep_baseline(),
+                                     cpu.sweep_baseline(),
+                                     "chaos sweep baseline")
+    finally:
+        if old_chunk is None:
+            os.environ.pop(CHUNK_ENV, None)
+        else:
+            os.environ[CHUNK_ENV] = old_chunk
+    rec = dict(card=smi, campaign_s=campaign_s,
+               baselines_s=time.perf_counter() - t1,
+               episodes={r["scenario"]: {
+                   "wall_s": r["wall_s"], "launches": r["launches"],
+                   **({"launches_per_rank": r["launches_per_rank"],
+                       "rank_walls_s": r["rank_walls_s"]}
+                      if "launches_per_rank" in r else {})}
+                   for r in summary["records"]},
+               launches=totals)
+    log("chaos", **rec)
+    RECORD["chaos"] = rec
+    return totals
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4520,11 +4605,15 @@ def main() -> int:
             pools.close()
         raise
     elastic_smoke, elastic = phase_elastic(smi, started[0])
-    from pipelinedp_tpu_torch.resilience import health
-    assert not os.environ.get(health.DEGRADED_ENV), "the script degraded"
     RECORD["phase31_s"] = (time.perf_counter() - t0 +
                            RECORD["health_flagship_s"])
     log("phase31", seconds=RECORD["phase31_s"])
+    t0 = time.perf_counter()
+    chaos_launches = phase_chaos(smi)
+    RECORD["phase32_s"] = time.perf_counter() - t0
+    log("phase32", seconds=RECORD["phase32_s"])
+    from pipelinedp_tpu_torch.resilience import health
+    assert not os.environ.get(health.DEGRADED_ENV), "the script degraded"
     elastic_k1 = [sum(g["segment_sum_lanes"] for g in gens)
                   for gens in elastic["killed_launches_by_mesh_per_rank"]]
     elastic_k3 = [sum(g["subtree_counts_multi"] for g in gens)
@@ -4534,6 +4623,7 @@ def main() -> int:
                       "launches_by_mesh_per_rank"]]
     kernels = [{
         "name": "segment_sum_lanes", "route": "cuda",
+        "launches_chaos": chaos_launches["segment_sum_lanes"],
         "source": "pipelinedp_tpu_torch/csrc/segsum_lanes.cu",
         "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:76",
         "parity": "bit-equal", "launches": launches,
@@ -4544,6 +4634,7 @@ def main() -> int:
         "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": kernel["library_ms"]}, {
         "name": "segment_sum_wide", "route": "cuda",
+        "launches_chaos": chaos_launches["segment_sum_wide"],
         "source": "pipelinedp_tpu_torch/csrc/segsum_wide.cu",
         "replaces": "pipelinedp_tpu/ops/kernels/segsum.py:134",
         "parity": "bit-equal",
@@ -4553,6 +4644,7 @@ def main() -> int:
         "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"]}, {
         "name": "subtree_counts_multi", "route": "cuda",
+        "launches_chaos": chaos_launches["subtree_counts_multi"],
         "source": "pipelinedp_tpu_torch/csrc/hist_bin.cu",
         "replaces": "pipelinedp_tpu/ops/kernels/hist.py:130",
         "parity": "bit-equal",
@@ -4567,6 +4659,7 @@ def main() -> int:
         # SUM, not a Pallas kernel; its library call is a float32
         # index_add_, whose bits differ.
         "name": "segment_totals", "route": "cuda",
+        "launches_chaos": chaos_launches["segment_totals"],
         "source": "pipelinedp_tpu_torch/csrc/segtotal.cu",
         "replaces": "pipelinedp_tpu/jax_engine.py:879",
         "port_only": True, "parity": "bit-equal",
@@ -4579,6 +4672,7 @@ def main() -> int:
         # (:656); its library call is a float32 index_add_, whose bits
         # differ. Timed on config 5's count stack.
         "name": "segmented_sums", "route": "cuda",
+        "launches_chaos": chaos_launches["segmented_sums"],
         "source": "pipelinedp_tpu_torch/csrc/segkeyed.cu",
         "replaces": "pipelinedp_tpu/analysis/jax_sweep.py:517",
         "port_only": True, "parity": "bit-equal",

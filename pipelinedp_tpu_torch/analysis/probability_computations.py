@@ -20,6 +20,7 @@ def compute_sum_laplace_gaussian_quantiles(
         num_samples: int,
         rng: Optional[np.random.Generator] = None) -> List[float]:
     """Monte-Carlo quantiles of Lap(b) + N(0, sigma) (reference :20-35)."""
+    # lint: disable=rng-purity(host Monte-Carlo draws from the seed_host_rng generator unless the caller passes one)
     rng = rng or noise_ops._host_rng
     samples = rng.laplace(scale=laplace_b, size=num_samples) + rng.normal(
         loc=0, scale=gaussian_sigma, size=num_samples)
@@ -35,6 +36,7 @@ def compute_sum_laplace_gaussian_quantiles_batch(
     """Batched variant: row i gives quantiles of Lap(b_i) + N(0, s_i);
     returns [len(laplace_bs), len(quantiles)]. One vectorized draw replaces
     len(laplace_bs) Python-level sampler calls."""
+    # lint: disable=rng-purity(host Monte-Carlo draws from the seed_host_rng generator unless the caller passes one)
     rng = rng or noise_ops._host_rng
     laplace_bs = np.asarray(laplace_bs, dtype=np.float64)[:, None]
     gaussian_sigmas = np.asarray(gaussian_sigmas, dtype=np.float64)[:, None]

@@ -208,6 +208,7 @@ def _laplace_gauss_table(quantiles: Tuple[float, ...],
                          n_r: int = 48) -> Tuple[np.ndarray, np.ndarray]:
     """Quantiles t(r, q) of Lap(1) + r N(0,1) over a log grid of the noise
     ratio r: a fixed-seed Monte-Carlo table, the same in both packages."""
+    # lint: disable=rng-purity(fixed-seed Monte-Carlo table, not DP noise)
     rng = np.random.default_rng(0x5eed)
     lap = rng.laplace(size=400_000)
     gau = rng.normal(size=400_000)

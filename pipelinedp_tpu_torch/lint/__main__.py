@@ -1,0 +1,4 @@
+from pipelinedp_tpu_torch.lint.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

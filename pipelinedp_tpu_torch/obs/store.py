@@ -134,6 +134,7 @@ class LedgerStore:
                     f.write(b"\n")
                 f.write(line)
                 f.flush()
+                # lint: disable=blocking-under-lock(the fsync IS the append lock's durability contract)
                 os.fsync(f.fileno())
         return entry
 
@@ -857,6 +858,7 @@ def maybe_append_run_report(name: str,
                 report.update(extra)
             store = _proc_stores.get(directory)
             if store is None:
+                # lint: disable=blocking-under-lock(one-store-per-directory creation serialized with the report cursor)
                 store = LedgerStore(directory)
                 _proc_stores[directory] = store
             entry = store.append(name, {"run_report": report, "env": env},

@@ -219,6 +219,7 @@ def seam_layout(name: str, order_sensitive: bool = False):
     units reaching over key boundaries. The rows of all keys are
     interleaved at random. Values are standard normal times 10, or
     order-sensitive (``_order_values``)."""
+    # lint: disable=rng-purity(fixed-seed seam-layout test data, never a DP draw)
     rng = np.random.default_rng(70 + SEAM_LAYOUTS.index(name))
     R, S, B, BS = RING_ROWS, RING_STAGES, BOX_ROWS, BOX_STAGES
     if name == "empty_keys":

@@ -67,6 +67,16 @@ def wide_tile(W: int, P: int) -> int:
     return fn(int(W), int(P))
 
 
+def hot_slots(C: int) -> int:
+    """Hot-key slots of K1's shared-memory accumulator for ``C`` lanes:
+    ``segsum_lanes_hot_slots`` of ``csrc/segsum_lanes.cu``, which holds
+    the rule (this builds the library on first use)."""
+    fn = _build.load("segsum_lanes").segsum_lanes_hot_slots
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(int(C))
+
+
 def segment_sum_lanes_plain(cols: torch.Tensor, pk: torch.Tensor,
                             P: int) -> torch.Tensor:
     """The plain version of both kernels: an int64 ``index_add_`` cast

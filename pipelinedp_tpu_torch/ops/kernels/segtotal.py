@@ -122,6 +122,7 @@ def seam_layout(name: str, order_sensitive: bool = False):
     segments spanning exactly two tiles, tile-aligned and not;
     ``mid_length``: 40 lengths drawn from 65-1024 rows. Values are
     standard normal times 10, or order-sensitive (``_order_values``)."""
+    # lint: disable=rng-purity(fixed-seed seam-layout test data, never a DP draw)
     rng = np.random.default_rng(30 + SEAM_LAYOUTS.index(name))
     around = {"thread": THREAD_ROWS, "warp": WARP_ROWS, "tile": TILE_ROWS}
     if name in around:

@@ -93,6 +93,7 @@ class PartitionSelectionStrategyBase:
     def should_keep(self,
                     num_users: int,
                     rng: Optional[np.random.Generator] = None) -> bool:
+        # lint: disable=rng-purity(keep decision from the seed_host_rng generator unless the caller passes one)
         rng = rng or noise_ops._host_rng
         return bool(rng.random() < self.probability_of_keep(num_users))
 
@@ -224,6 +225,7 @@ class LaplaceThresholdingPartitionStrategy(PartitionSelectionStrategyBase):
     def should_keep(self,
                     num_users: int,
                     rng: Optional[np.random.Generator] = None) -> bool:
+        # lint: disable=rng-purity(keep decision from the seed_host_rng generator unless the caller passes one)
         rng = rng or noise_ops._host_rng
         n = num_users
         if self._pre_threshold is not None:
@@ -269,6 +271,7 @@ class GaussianThresholdingPartitionStrategy(PartitionSelectionStrategyBase):
     def should_keep(self,
                     num_users: int,
                     rng: Optional[np.random.Generator] = None) -> bool:
+        # lint: disable=rng-purity(keep decision from the seed_host_rng generator unless the caller passes one)
         rng = rng or noise_ops._host_rng
         n = num_users
         if self._pre_threshold is not None:

@@ -152,6 +152,7 @@ class QuantileTree:
         for q in quantiles:
             if not 0 <= q <= 1:
                 raise ValueError(f"quantile {q} outside [0, 1]")
+        # lint: disable=rng-purity(tree node noise from the seed_host_rng generator unless the caller passes one)
         rng = rng or noise_ops._host_rng
         eps_per_level = eps / self.height
         l0 = max_partitions_contributed

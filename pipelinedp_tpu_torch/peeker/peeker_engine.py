@@ -82,6 +82,7 @@ def _cross_partition_filter_fn(max_partitions: int,
         # The partition count, not the aggregated value, is what is
         # compared against max_partitions.
         return True
+    # lint: disable=rng-purity(peeker keep decision from the seed_host_rng generator, the JAX package's order)
     return bool(noise_ops._host_rng.random() <
                 max_partitions / partition_count)
 

@@ -223,6 +223,7 @@ class LocalBackend(PipelineBackend):
         def generator():
             for k, values in self.group_by_key(col):
                 if len(values) > n:
+                    # lint: disable=rng-purity(contribution sampling from the seed_host_rng generator, the JAX package's order)
                     idx = noise_ops._host_rng.choice(len(values), n,
                                                      replace=False)
                     values = [values[i] for i in idx]
@@ -289,6 +290,7 @@ def _mp_worker_init():
     spawned worker starts from a fresh import, but the reseed keeps the
     guarantee whatever the start method or a parent's seeding does."""
     noise_ops.reseed_host_rng_from_entropy()
+    # lint: disable=rng-purity(DP-required entropy reseed of forked workers)
     random.seed()
 
 
@@ -443,6 +445,7 @@ class MultiProcLocalBackend(PipelineBackend):
         # replayable key→bucket map.
         shards = [[] for _ in range(self._n_jobs)]
         for kv in col:
+            # lint: disable=sketch-confinement(in-process shard balancing must follow key equality; parent process only, never persisted or replayed)
             shards[hash(kv[0]) % self._n_jobs].append(kv)
         return shards
 
@@ -498,6 +501,7 @@ class MultiProcLocalBackend(PipelineBackend):
             out = []
             for k, vs in self._group_now(col):
                 if len(vs) > n:
+                    # lint: disable=rng-purity(contribution sampling from the seed_host_rng generator, the JAX package's order)
                     idx = noise_ops._host_rng.choice(len(vs), n,
                                                      replace=False)
                     vs = [vs[i] for i in idx]
@@ -584,6 +588,7 @@ class SparkRDDBackend(PipelineBackend):
         # Same caveat as the reference (:427-430): reduce-side merge-sample
         # is not guaranteed uniform.
         return (self._ensure_rdd(col).mapValues(lambda v: [v]).reduceByKey(
+            # lint: disable=rng-purity(reference-mirror merge-sample, host path)
             lambda a, b: random.sample(a + b, min(n, len(a) + len(b)))))
 
     def count_per_element(self, col, stage_name=None):

@@ -2,7 +2,9 @@
 injection that tests it (in process or through ``PIPELINEDP_TPU_FAULTS``),
 the injectable clock and the retry policy, the device-health probe with
 its flagged degrade, and the mesh supervisor with the resilient mesh and
-rendezvous (``health``). The chaos harness is ROADMAP step 7b."""
+rendezvous (``health``). ``resilience.chaos`` is the seeded chaos
+campaign over every fault seam (``python -m
+pipelinedp_tpu_torch.resilience.chaos``); it loads only when named."""
 
 from pipelinedp_tpu_torch.resilience.clock import (Clock, FakeClock,
                                                    SystemClock)

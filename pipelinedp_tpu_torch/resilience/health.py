@@ -454,10 +454,10 @@ def agree_degraded(degraded: bool, pg) -> bool:
     until their timeout, and then re-forming without it: every rank of
     the group calls this at the same point and acts on the one verdict."""
     import torch
-    import torch.distributed as dist
+
+    from pipelinedp_tpu_torch.parallel import sharded
     flag = torch.tensor([int(degraded)], dtype=torch.int32)
-    pg.allreduce([flag], dist.ReduceOp.MAX).wait()
-    return bool(int(flag))
+    return bool(int(sharded.all_reduce_max(pg, flag)))
 
 
 def resilient_make_mesh(n_devices: Optional[int] = None,

@@ -33,6 +33,7 @@ class RetryPolicy:
     def delays(self) -> List[float]:
         """The full backoff schedule (``max_attempts - 1`` entries),
         deterministic for a given policy."""
+        # lint: disable=rng-purity(seeded backoff jitter, not DP noise)
         rng = np.random.default_rng(self.seed)
         out = []
         for k in range(max(0, self.max_attempts - 1)):

@@ -23,6 +23,7 @@ def choose_from_list_without_replacement(a: List, size: int) -> List:
     the JAX package's sample."""
     if len(a) <= size:
         return a
+    # lint: disable=rng-purity(partition sampling from the seed_host_rng generator, the JAX package's order)
     sampled_indices = noise_ops._host_rng.choice(len(a), size,
                                                  replace=False)
     return [a[i] for i in sampled_indices]

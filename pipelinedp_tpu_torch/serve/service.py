@@ -1307,6 +1307,7 @@ class Service:
                 if store is None:
                     # Only makes the directory; the fsync'd append
                     # runs outside the lock.
+                    # lint: disable=blocking-under-lock(mkdir-only creation; the fsync'd append runs outside)
                     store = LedgerStore(self.books_dir(tenant))
                     self._books_stores[tenant] = store
                 if self._env is None:

@@ -282,6 +282,7 @@ def select_buckets(counts_row0: np.ndarray, spec, l0: int, cap: int,
         else:
             threshold = 1.0
     idx = torch.arange(width, dtype=torch.int64, device=device)
+    # lint: disable=rng-purity(selection noise keyed by the sketch's selection stream, pure in seed and bucket)
     unit = counter_rng.laplace(sel_key, idx, torch.zeros_like(idx))
     noisy = (counts_row0.astype(np.float64) +
              unit.cpu().numpy().astype(np.float64) * scale)
@@ -392,7 +393,9 @@ class LazySketchFirstResult:
                 metric="sketch_candidate_selection")
             acc.compute_budgets()
             seed = (self._rng_seed if self._rng_seed is not None else
+                    # lint: disable=rng-purity(seed protocol: a run without rng_seed draws its seed from the seeded host generator)
                     int(noise_ops._host_rng.integers(0, 2**31 - 1)))
+            # lint: disable=rng-purity(seed protocol root key for the sketch selection stream, pure in rng_seed)
             sel_key = prng.fold_in(prng.PRNGKey(seed), _SELECT_STREAM_TAG)
             keep_mask, threshold, noise_scale = select_buckets(
                 counts[0], spec, l0, cap, sp.threshold, sel_key,

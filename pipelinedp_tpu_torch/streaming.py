@@ -612,6 +612,7 @@ def _stream_impl(config, encoded, scales, keep_table, sel_threshold,
     seed = te._run_seed(rng_seed)
     # The key topology of a single batch: one bounding stream (folded per
     # batch), one selection stream, one noise stream.
+    # lint: disable=rng-purity(seed protocol root key and its split, pure in rng_seed)
     k_bound, k_sel, k_noise = prng.split(prng.PRNGKey(seed), 3)
     _, _, n_mid, span = quantile_tree.tree_constants()
     if config.percentiles:
@@ -1017,6 +1018,7 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
         raise NotImplementedError(
             "streamed percentiles: a partition holds >= 2^31 kept rows — "
             "beyond the int32 tree-histogram capacity")
+    # lint: disable=rng-purity(tree key: constant fold of the noise stream)
     k_tree = prng.fold_in(k_noise, 0x7ee)
     scale = float(np.asarray(scales, np.float32)[-1])
     with tr.span("walk.top", cat="walk"), \
@@ -1124,7 +1126,9 @@ def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
 def _cell_key(k_bound, b: int, mesh):
     """The bounding key of batch ``b``; on a mesh folded once more with
     the rank's position, as the JAX package's sharded kernels fold it."""
+    # lint: disable=rng-purity(per-batch bound key: fold of the batch index)
     kb = prng.fold_in(k_bound, b)
+    # lint: disable=rng-purity(per-shard bound key: fold of the shard index)
     return kb if mesh is None else prng.fold_in(kb, mesh.index)
 
 

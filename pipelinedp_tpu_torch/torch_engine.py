@@ -554,6 +554,7 @@ def _fused_body(config: FusedConfig, num_partitions: int, pid, pk, values,
     """``jax_engine._fused_kernel_body``: the one root split into the
     bounding, selection and noise streams, then bounding, reduction,
     selection and the percentile walk."""
+    # lint: disable=rng-purity(root split seam, pure in the run seed)
     k_bound, k_sel, k_noise = prng.split(key, 3)
     part, part_nseg, qrows = _partials(config, num_partitions, pid, pk,
                                        values, k_bound, fx_bits)
@@ -653,8 +654,11 @@ def _bounding_streams(pid, pk, key) -> _Streams:
     hash, and the total-cap sample bits."""
     n = pid.shape[0]
     device = pid.device
+    # lint: disable=rng-purity(bounding streams split from k_bound, pure in the run seed)
     k_tie, k_salt, k_m = prng.split(key, 3)
+    # lint: disable=rng-purity(per-run salt from the bounding stream)
     salt = int(prng.bits(k_salt, ()))
+    # lint: disable=rng-purity(bounding tie-break bits, keyed by k_bound)
     tiebreak = counter_rng.row_bits(k_tie, n, device)
     # Sampling priority of segment (pid, pk): an independent uniform
     # permutation of each pid's partitions. For fixed (pid, salt),
@@ -662,6 +666,7 @@ def _bounding_streams(pid, pk, key) -> _Streams:
     hpk = seg_ops.fmix32(seg_ops.fmix32(pid.to(torch.int64) ^ salt)
                          ^ pk.to(torch.int64))
     return _Streams(hpk, tiebreak,
+                    # lint: disable=rng-purity(total-cap sample bits, keyed by k_bound)
                     lambda: counter_rng.row_bits(k_m, n, device))
 
 
@@ -1031,14 +1036,17 @@ def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
                                     device=device)
             idx = torch.clamp(est_users.to(torch.int64), 0,
                               table.shape[0] - 1)
+            # lint: disable=rng-purity(selection draw keyed by k_sel, the JAX package's stream)
             keep_pk = owned(lambda shape: prng.uniform(
                 k_sel, shape, device=device)) < table[idx]
         else:
             if config.selection == (
                     PartitionSelectionStrategy.LAPLACE_THRESHOLDING):
+                # lint: disable=rng-purity(selection noise keyed by k_sel, the JAX package's stream)
                 noise = owned(lambda shape: prng.laplace(
                     k_sel, shape, device=device))
             else:
+                # lint: disable=rng-purity(selection noise keyed by k_sel, the JAX package's stream)
                 noise = owned(lambda shape: prng.normal(
                     k_sel, shape, device=device))
             # XLA contracts est + noise * scale into one FMA; fma32 keeps
@@ -1052,6 +1060,7 @@ def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
     out["privacy_id_count_raw"] = part_nseg
     if config.percentiles:
         # The tree key is independent of the selection stream.
+        # lint: disable=rng-purity(tree key: constant fold of the noise stream)
         k_tree = prng.fold_in(k_noise, 0x7ee)
         scale = float(np.asarray(noise_scales)[-1])
         if mesh is None:
@@ -1143,7 +1152,9 @@ def _scaled_node_noise(noise_kind: NoiseKind, key, node_ids, scale: float,
     the scale."""
     x0, x1 = _node_counters(node_ids, pk_index)
     if noise_kind == NoiseKind.LAPLACE:
+        # lint: disable=rng-purity(node noise keyed by its node and partition counters, the JAX walk's stream)
         return counter_rng.laplace(key, x0, x1), _f32(scale)
+    # lint: disable=rng-purity(node noise keyed by its node and partition counters, the JAX walk's stream)
     return (counter_rng.normal_erfinv(key, x0, x1),
             _f32(counter_rng.SQRT2_F32 * _f32(scale)))
 
@@ -1771,6 +1782,7 @@ def _sync(device: torch.device) -> None:
 def _run_seed(rng_seed: Optional[int]) -> int:
     """The seed protocol: the engine's seed, or a fresh one per run."""
     return (rng_seed if rng_seed is not None else
+            # lint: disable=rng-purity(seed protocol: a run without rng_seed draws its seed from the seeded host generator)
             int(noise_ops._host_rng.integers(0, 2**31 - 1)))
 
 
@@ -1783,6 +1795,7 @@ def _run_fused(config: FusedConfig, encoded: EncodedData, scales,
     axis back; the lane plan comes from the GLOBAL row count, since the
     ranks' lane sums add."""
     P_pad = _pad_pow2(len(encoded.pk_vocab))
+    # lint: disable=rng-purity(seed protocol root key, pure in rng_seed)
     key = prng.PRNGKey(_run_seed(rng_seed))
     if _fixedpoint_layout(config) or _vector_fx(config):
         fx_bits, _ = _fx_plan(max(encoded.n_rows, 1))
@@ -1862,6 +1875,7 @@ def _fused_batch_body(config: FusedConfig, num_partitions: int, pid, pk,
     [B, P] or [B, P, W])."""
     P = num_partitions
     device = pk.device
+    # lint: disable=rng-purity(root split seam, pure in each request's key)
     roots = [prng.split(prep.key, 3) for prep in preps]
     req = torch.repeat_interleave(
         torch.arange(len(sizes), device=device),
@@ -2147,6 +2161,7 @@ class LazyFusedResult:
             scales=np.asarray(scales), keep_table=np.asarray(keep_table),
             thr=float(thr), s_scale=float(s_scale),
             min_count=float(min_count), rows_per_uid=float(rows_per_uid),
+            # lint: disable=rng-purity(seed protocol root key, pure in rng_seed)
             key=prng.PRNGKey(_run_seed(self._rng_seed)))
 
     def finish_from_fused(self, prep: FusionPrep, keep_np, raw_np,
@@ -2238,6 +2253,7 @@ class LazyFusedResult:
             part64 = {k: (v.astype(np.int64) if v.dtype.kind in "iu" else
                           v.astype(np.float64)) for k, v in fetched.items()}
             _fold_fixedpoint(config, part64, fx_bits)
+            # lint: disable=rng-purity(host-release rng seeded by the engine seed)
             rng = (np.random.default_rng(self._rng_seed)
                    if self._rng_seed is not None else None)
             # The vector noise is keyed by the global vocab index of each
@@ -2312,6 +2328,7 @@ class LazyFusedResult:
                 part64 = {k: v[kept_idx] for k, v in part64.items()}
                 rel_sel = np.arange(len(kept_idx))
                 vocab_idx = kept_idx
+            # lint: disable=rng-purity(host-release rng seeded by the engine seed)
             rng = (np.random.default_rng(self._rng_seed)
                    if self._rng_seed is not None else None)
             metric_arrays = _host_release(config, self._specs, part64,

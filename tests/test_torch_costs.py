@@ -15,7 +15,6 @@ run's ``device_costs`` section; and the scan that keeps CUDA-event timing
 and memory probes under ``obs/``.
 """
 
-import ast
 import csv
 import io
 import json
@@ -577,21 +576,16 @@ class TestNoDirectMeasurementCalls:
               "reset_peak_memory_stats", "memory_allocated"}
 
     def test_measurement_calls_only_under_obs(self):
-        found = []
-        for root, _, files in os.walk(PORT_DIR):
-            for name in files:
-                path = os.path.join(root, name)
-                rel = os.path.relpath(path, PORT_DIR)
-                if not name.endswith(".py") or rel.startswith("obs"):
-                    continue
-                with open(path, encoding="utf-8") as f:
-                    tree = ast.parse(f.read())
-                for node in ast.walk(tree):
-                    if (isinstance(node, ast.Call) and
-                            isinstance(node.func, ast.Attribute) and
-                            node.func.attr in self.BANNED):
-                        found.append(f"{rel}:{node.lineno}")
-        assert found == []
+        """The port's lint (``nocost``) makes the scan."""
+        from pipelinedp_tpu_torch import lint
+        nocost = lint.rules.get("nocost")
+        assert set(nocost._BANNED) == self.BANNED
+        assert nocost.blessed == ("pipelinedp_tpu_torch/obs/",)
+        result = lint.run(root=os.path.dirname(PORT_DIR),
+                          rule_ids=["nocost"])
+        assert result.files_scanned > 50
+        assert [f.format() for f in result.findings] == []
+        assert result.suppressed == []
 
 
 class TestPeakMemoryOnTheCard:

@@ -14,7 +14,6 @@ the cases that need a healthy probe probe the CPU runtime
 (``device="cpu"``), which is what a mesh put on the CPU probes.
 """
 
-import ast
 import json
 import os
 import subprocess
@@ -488,23 +487,20 @@ class TestNoDirectSleep:
     """No code path of the port's ``resilience/`` or ``parallel/`` calls
     ``time.sleep`` or starts a bare ``threading.Thread``: every wait goes
     through the injectable clock or an event's beats (``clock.py`` is the
-    one module allowed to sleep)."""
+    one module allowed to sleep). The port's lint (``nosleep``) makes the
+    scan."""
 
     def test_no_time_sleep_and_no_bare_threads(self):
-        found = []
+        from pipelinedp_tpu_torch import lint
+        nosleep = lint.rules.get("nosleep")
+        assert nosleep._SLEEP_EXEMPT == (
+            "pipelinedp_tpu_torch/resilience/clock.py",)
+        assert nosleep._THREAD_EXEMPT == ("pipelinedp_tpu_torch/ingest/",)
+        paths = []
         for sub in ("resilience", "parallel"):
             d = os.path.join(REPO, "pipelinedp_tpu_torch", sub)
-            for name in sorted(os.listdir(d)):
-                if not name.endswith(".py") or name == "clock.py":
-                    continue
-                tree = ast.parse(open(os.path.join(d, name)).read())
-                for node in ast.walk(tree):
-                    if not isinstance(node, ast.Call):
-                        continue
-                    f = node.func
-                    if (isinstance(f, ast.Attribute) and
-                            isinstance(f.value, ast.Name) and
-                            (f.value.id, f.attr) in (("time", "sleep"),
-                                                     ("threading", "Thread"))):
-                        found.append(f"{sub}/{name}:{node.lineno}")
-        assert found == []
+            paths += [f"pipelinedp_tpu_torch/{sub}/{name}"
+                      for name in sorted(os.listdir(d))
+                      if name.endswith(".py")]
+        assert len(paths) > 5
+        assert lint.check_tree("nosleep", root=REPO, paths=paths) == []

@@ -13,7 +13,8 @@ BANNED = ("jax", "jaxlib", "pipelinedp_tpu")
 #: The modules of the sketch-first path, the peeker, the fluent APIs, the
 #: PLD engine, the native library, the obs and plan planes with the
 #: clock and retry policy they use, the resident service, the mesh and its
-#: elastic half (the health probe, the stream's assignment module).
+#: elastic half (the health probe, the stream's assignment module), the
+#: chaos campaign and the lint.
 NEW_MODULES = ("sketch/__init__.py", "sketch/hashing.py",
                "sketch/params.py", "sketch/device.py", "sketch/engine.py",
                "sketch/peek.py", "peeker/__init__.py",
@@ -30,7 +31,11 @@ NEW_MODULES = ("sketch/__init__.py", "sketch/hashing.py",
                "serve/__init__.py", "serve/budget_ledger.py",
                "serve/service.py", "serve/fusion.py",
                "parallel/__init__.py", "parallel/sharded.py",
-               "parallel/launch.py", "ingest/assign.py")
+               "parallel/launch.py", "ingest/assign.py",
+               "resilience/chaos.py", "lint/__init__.py", "lint/__main__.py",
+               "lint/cli.py", "lint/engine.py", "lint/rules/__init__.py",
+               "lint/rules/base.py", "lint/rules/confinement.py",
+               "lint/rules/locks.py", "lint/rules/rng_purity.py")
 
 
 def _port_files():

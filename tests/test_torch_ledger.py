@@ -393,26 +393,14 @@ class TestNoAdHocArtifactWrites:
     and plan."""
 
     def test_json_dump_only_under_obs(self):
-        import ast
-        port = os.path.join(REPO, "pipelinedp_tpu_torch")
-        found = []
-        for root, _, files in os.walk(port):
-            for name in files:
-                path = os.path.join(root, name)
-                rel = os.path.relpath(path, port)
-                if not name.endswith(".py") or rel.split(os.sep)[0] in (
-                        "obs", "plan"):
-                    continue
-                with open(path, encoding="utf-8") as f:
-                    tree = ast.parse(f.read())
-                for node in ast.walk(tree):
-                    if (isinstance(node, ast.Call) and
-                            isinstance(node.func, ast.Attribute) and
-                            node.func.attr == "dump" and
-                            isinstance(node.func.value, ast.Name) and
-                            node.func.value.id == "json"):
-                        found.append(f"{rel}:{node.lineno}")
-        assert found == []
+        """The port's lint (``noartifacts``) makes the scan."""
+        from pipelinedp_tpu_torch import lint
+        result = lint.run(root=REPO, rule_ids=["noartifacts"])
+        assert result.files_scanned > 50
+        assert [f.format() for f in result.findings] == []
+        assert result.suppressed == []
+        assert lint.rules.get("noartifacts").blessed == (
+            "pipelinedp_tpu_torch/obs/", "pipelinedp_tpu_torch/plan/")
 
 
 class TestFsck:

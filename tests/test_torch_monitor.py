@@ -8,7 +8,6 @@ the store's analytics and CLI, the Chrome trace's thread names, and the
 monitor's clock discipline.
 """
 
-import ast
 import json
 import os
 import subprocess
@@ -507,18 +506,13 @@ class TestMonitorClockLint:
     ``time.monotonic`` is caught too)."""
 
     def test_monitor_never_calls_time_module(self):
-        path = os.path.join(REPO, "pipelinedp_tpu_torch", "obs",
-                            "monitor.py")
-        with open(path, encoding="utf-8") as f:
-            tree = ast.parse(f.read())
-        found = []
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                found += [a.name for a in node.names if a.name == "time"]
-            if isinstance(node, ast.ImportFrom) and node.module == "time":
-                found.append("from time")
-            if (isinstance(node, ast.Attribute) and
-                    isinstance(node.value, ast.Name) and
-                    node.value.id in ("time", "_time")):
-                found.append(f"{node.value.id}.{node.attr}:{node.lineno}")
-        assert found == []
+        """The port's lint (``noperf``'s monitor check) makes the scan: an
+        import of ``time``, a ``from time`` import, or any ``time.*`` /
+        ``_time.*`` attribute in ``obs/monitor.py`` is a finding."""
+        from pipelinedp_tpu_torch import lint
+        rel = "pipelinedp_tpu_torch/obs/monitor.py"
+        assert lint.check_tree("noperf", root=REPO, paths=[rel]) == []
+        for seeded in ("import time\n", "from time import monotonic\n",
+                       "import os\nX = _time.monotonic\n"):
+            assert lint.lint_source(
+                seeded, rel, [lint.rules.get("noperf")]).findings

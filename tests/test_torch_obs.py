@@ -14,7 +14,6 @@ holds the release bit for bit with every plane on against every plane
 off.
 """
 
-import ast
 import json
 import os
 import threading
@@ -480,29 +479,25 @@ class TestResilienceEvents:
 
 
 class TestNoRawPerfCounter:
-    """Raw ``time.perf_counter`` phase timing stays under ``obs/`` (the
-    monitor included: its deadlines ride the injectable clock), so every
-    measured phase lands in the run ledger."""
+    """Raw ``time.perf_counter`` phase timing (a call, a reference or an
+    import of the name) stays under ``obs/`` (the monitor included: its
+    deadlines ride the injectable clock), so every measured phase lands in
+    the run ledger. The port's lint (``noperf``) makes the scan."""
 
     def test_no_perf_counter_outside_obs(self):
-        found = []
-        for root, _, files in os.walk(PORT_DIR):
-            for name in files:
-                path = os.path.join(root, name)
-                rel = os.path.relpath(path, PORT_DIR)
-                if not name.endswith(".py") or (
-                        rel.startswith("obs" + os.sep) and
-                        rel != os.path.join("obs", "monitor.py")):
-                    continue
-                with open(path, encoding="utf-8") as f:
-                    tree = ast.parse(f.read())
-                for node in ast.walk(tree):
-                    if (isinstance(node, ast.Attribute) and
-                            node.attr == "perf_counter") or (
-                            isinstance(node, ast.alias) and
-                            node.name == "perf_counter"):
-                        found.append(f"{rel}:{node.lineno}")
-        assert found == []
+        from pipelinedp_tpu_torch import lint
+        repo = os.path.dirname(PORT_DIR)
+        result = lint.run(root=repo, rule_ids=["noperf"])
+        assert result.files_scanned > 50
+        assert [f.format() for f in result.findings] == []
+        assert result.suppressed == []
+        # The scope: every module but obs/'s, the monitor included.
+        src = "import time\nT = time.perf_counter()\n"
+        for rel, found in (("obs/costs.py", False), ("obs/monitor.py", True),
+                           ("resilience/chaos.py", True)):
+            result = lint.lint_source(src, "pipelinedp_tpu_torch/" + rel,
+                                      [lint.rules.get("noperf")])
+            assert bool(result.findings) == found, rel
 
 
 # ---------------------------------------------------------------------------

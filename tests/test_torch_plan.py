@@ -13,7 +13,6 @@ resolution under the same environment and plan file, and the autotune
 candidates to the JAX package's.
 """
 
-import ast
 import json
 import os
 
@@ -534,18 +533,6 @@ class TestSinceRunId:
         assert out["entries"] == 2
 
 
-def _literal_assignments(tree):
-    """{name: string} of the module-level ``NAME = "literal"``s."""
-    out = {}
-    for node in tree.body:
-        if (isinstance(node, ast.Assign) and len(node.targets) == 1 and
-                isinstance(node.targets[0], ast.Name) and
-                isinstance(node.value, ast.Constant) and
-                isinstance(node.value.value, str)):
-            out[node.targets[0].id] = node.value.value
-    return out
-
-
 class TestNoDirectKnobReads:
     """No module of the port reads a registered knob's environment
     variable outside ``plan/knobs.py``: no string literal naming one
@@ -554,36 +541,25 @@ class TestNoDirectKnobReads:
     names as seams exist and hold the registered defaults."""
 
     def test_knob_reads_only_under_plan(self):
+        """The port's lint (``noknobs``) makes the scan. Its list of the
+        registry's variables is the registry's, and it blesses only
+        ``plan/knobs.py`` (and the lint's own rule module, which names the
+        variables to find them)."""
+        from pipelinedp_tpu_torch import lint
         env_vars = {s.env_var for s in plan_knobs.REGISTRY if s.env_var}
-        found = []
-        for root, _, files in os.walk(PORT_DIR):
-            for name in files:
-                path = os.path.join(root, name)
-                rel = os.path.relpath(path, PORT_DIR)
-                if (not name.endswith(".py") or
-                        rel == os.path.join("plan", "knobs.py")):
-                    continue
-                with open(path, encoding="utf-8") as f:
-                    tree = ast.parse(f.read())
-                names = _literal_assignments(tree)
-                for node in ast.walk(tree):
-                    if (isinstance(node, ast.Constant) and
-                            node.value in env_vars):
-                        found.append(f"{rel}:{node.lineno} literal "
-                                     f"{node.value}")
-                    if not isinstance(node, (ast.Call, ast.Subscript)):
-                        continue
-                    src = ast.unparse(node)
-                    if "environ" not in src and "getenv" not in src:
-                        continue
-                    args = (node.args if isinstance(node, ast.Call)
-                            else [node.slice])
-                    for a in args[:1]:
-                        if (isinstance(a, ast.Name) and
-                                names.get(a.id) in env_vars):
-                            found.append(f"{rel}:{node.lineno} reads "
-                                         f"{names[a.id]}")
-        assert found == []
+        noknobs = lint.rules.get("noknobs")
+        assert set(noknobs.KNOB_ENV_VARS) == env_vars
+        assert noknobs.blessed == (
+            "pipelinedp_tpu_torch/plan/knobs.py",
+            "pipelinedp_tpu_torch/lint/rules/confinement.py")
+        seams = {s.seam[1]: s.seam[0].replace(".", "/") + ".py"
+                 for s in plan_knobs.REGISTRY if s.seam}
+        assert {k: v for k, v in noknobs.DEFINING.items()} == seams
+        result = lint.run(root=os.path.dirname(PORT_DIR),
+                          rule_ids=["noknobs"])
+        assert result.files_scanned > 50
+        assert [f.format() for f in result.findings] == []
+        assert result.suppressed == []
 
     def test_registry_seams_exist_with_their_defaults(self):
         import importlib
