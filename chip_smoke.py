@@ -955,8 +955,9 @@ def config4_stack(columns):
     b = te._bound_rows(config, pid, pk, values, k_bound)
     qrows = te._qrows(config, b.spk, b.svalues, b.keep_row)
     mid = te._mid_histogram(P, qrows)
-    k_tree = prng.fold_in(k_noise, 0x7ee)
-    leaf_lo = te._walk_top(config, P, mid, k_tree, scale)[3]
+    stream = te._WalkRows.solo(te._tree_key(k_noise), scale, P,
+                               device=pid.device)
+    leaf_lo = te._walk_top(config, P, mid, stream)[3]
     qpk, leaf, kept = (x.contiguous() for x in qrows)
     starts = leaf_lo[None].to(torch.int32).contiguous()
     return qpk, leaf, kept, starts, P
@@ -1192,7 +1193,7 @@ def phase_config4_breakdown(columns, out_dir):
     table, thr, s_scale, min_count = te.selection_inputs(config, sel.eps,
                                                          sel.delta, None)
     k_bound, k_sel, k_noise = prng.split(prng.PRNGKey(CONFIG4["seed"]), 3)
-    k_tree = prng.fold_in(k_noise, 0x7ee)
+    stream = te._WalkRows.solo(te._tree_key(k_noise), scale, P, device=dev)
     part, nseg, qrows = timed("partials", lambda: te._partials(
         config, P, pid, pk, values, k_bound, fx_bits))
     keep, raw = timed("selection", lambda: te._selection_and_metrics(
@@ -1200,13 +1201,12 @@ def phase_config4_breakdown(columns, out_dir):
         thr, s_scale, min_count, 1.0, k_sel))
     mid = timed("mid_histogram_k1", lambda: te._mid_histogram(P, qrows))
     lo, hi, target, leaf_lo, done = timed(
-        "walk_top", lambda: te._walk_top(config, P, mid, k_tree, scale))
+        "walk_top", lambda: te._walk_top(config, P, mid, stream))
     offset = torch.zeros(1, dtype=torch.int32, device=dev)
     sub = timed("subtree_histogram_k3", lambda: te._subtree_counts_multi(
         *qrows, leaf_lo[None], offset, P, 256)[0])
     vals = timed("walk_bottom", lambda: te._walk_bottom(
-        config, P, sub, leaf_lo, lo, hi, target, leaf_lo, done, k_tree,
-        scale, 0))
+        config, P, sub, leaf_lo, lo, hi, target, leaf_lo, done, stream))
     del sub, mid
     quantiles = np.asarray([p / 100.0 for p in config.percentiles],
                            np.float32)
@@ -3307,24 +3307,33 @@ def serve_params(pdt):
         max_contributions_per_partition=2, min_value=0.0, max_value=10.0)
 
 
+def serve_percentile_params(pdt):
+    """Phase 29 (d): COUNT + P50/90/99 over the generator's value range."""
+    return pdt.AggregateParams(
+        metrics=[pdt.Metrics.COUNT] + [pdt.Metrics.PERCENTILE(p)
+                                       for p in (50, 90, 99)],
+        noise_kind=pdt.NoiseKind.LAPLACE, max_partitions_contributed=4,
+        max_contributions_per_partition=2, min_value=0.0, max_value=10.0)
+
+
 SERVE_TENANTS = {f"bench-t{i}": (1e6, 1e-3) for i in range(3)}
 
 
-def _serve_request(pdt, columns, i, seed):
+def _serve_request(pdt, columns, i, seed, params=serve_params):
     """Request ``i``: a fresh ``ArrayDataset`` over the shared columns
     (its own encode cache, as distinct traffic has), tenant ``i % 3``."""
     from pipelinedp_tpu_torch import serve
     return serve.ServeRequest(
-        tenant=f"bench-t{i % 3}", params=serve_params(pdt),
+        tenant=f"bench-t{i % 3}", params=params(pdt),
         dataset=pdt.ArrayDataset(*columns), epsilon=0.5, delta=1e-8,
         rng_seed=seed)
 
 
-def _direct(pdt, columns, seed, device):
+def _direct(pdt, columns, seed, device, params=serve_params):
     """The same request through ``DPEngine`` (PARITY row 34)."""
     acc = pdt.NaiveBudgetAccountant(total_epsilon=0.5, total_delta=1e-8)
     engine = pdt.DPEngine(acc, pdt.TorchBackend(device, rng_seed=seed))
-    result = engine.aggregate(pdt.ArrayDataset(*columns), serve_params(pdt),
+    result = engine.aggregate(pdt.ArrayDataset(*columns), params(pdt),
                               pdt.DataExtractors())
     acc.compute_budgets()
     return list(result)
@@ -3555,6 +3564,127 @@ def phase_serve_burst(pdt, tmp):
     return rec
 
 
+def _percentile_burst(pdt, tmp, name, columns, seeds, fusion, capture=None):
+    """One burst of phase 29 (d)'s requests, every kernel count zeroed
+    just before it and read just after; with ``capture`` the K3 wrapper
+    hands each call's arguments to it. Returns (wall, responses,
+    launches, ``serve.*`` counters)."""
+    from pipelinedp_tpu_torch import obs, serve
+    from pipelinedp_tpu_torch.ops.kernels import hist
+    n = len(seeds)
+    real = hist.subtree_counts_multi
+
+    def captured(*args, **kw):
+        capture(args)
+        return real(*args, **kw)
+
+    obs.reset()
+    torch.cuda.synchronize()
+    _reset_launches()
+    if capture is not None:
+        hist.subtree_counts_multi = captured
+    try:
+        with serve.Service(os.path.join(tmp, name), tenants=SERVE_TENANTS,
+                           max_queue=2 * n, max_inflight_per_tenant=n,
+                           workers=4, fusion=fusion, fuse_window_ms=2_000,
+                           fuse_max_batch=n) as svc:
+            wall, _, outs = _burst(svc, [
+                _serve_request(pdt, columns, i, seed,
+                               serve_percentile_params)
+                for i, seed in enumerate(seeds)])
+    finally:
+        hist.subtree_counts_multi = real
+    return wall, outs, _launch_counts(), _serve_counters()
+
+
+def phase_serve_percentile(pdt, tmp):
+    """Phase 29 (d): a fused PERCENTILE burst, the quantile walk of every
+    member in one K1 mid histogram and one K3 launch. 8 requests x
+    500,000 rows fused as one batch, each member's release the same
+    request's served solo on the card; 8 x 20,000 rows fused on the card
+    against the port's CPU solo run; the batch's K3 stack timed against
+    its plain version, its bound and three ``bincount``s."""
+    from pipelinedp_tpu_torch.ops.kernels import hist
+    n = SERVE_FUSED_CONC
+    columns = serve_columns(SERVE_ROWS)
+    seeds = [3_000 + i for i in range(n)]
+    # Solo and fused in turns (solo, fused, fused, solo), each burst on a
+    # fresh service; the first fused burst's K3 call is captured.
+    calls = []
+    walls = {False: [], True: []}
+    for turn, fusion in enumerate((False, True, True, False)):
+        wall, outs, launches, counters = _percentile_burst(
+            pdt, tmp, f"pct-{turn}", columns, seeds, fusion,
+            calls.append if turn == 1 else None)
+        walls[fusion].append(wall)
+        if fusion:
+            assert counters.get("serve.fused_batches") == 1, counters
+            assert counters.get("serve.fused_requests") == n, counters
+            assert launches["segment_sum_lanes"] == 2, launches
+            assert launches["subtree_counts_multi"] == 1, launches
+        else:
+            assert launches["segment_sum_lanes"] == 2 * n, launches
+            assert launches["subtree_counts_multi"] == n, launches
+        for i, seed in enumerate(seeds):
+            assert outs[i].ok, outs[i]
+            if turn == 0:
+                continue
+            _released_identical(outs[i].results, solo_outs[i].results,
+                                f"percentile turn {turn} vs solo, seed "
+                                f"{seed}")
+        if turn == 0:
+            solo_outs, solo_launches = outs, launches
+        elif turn == 1:
+            fused_outs, fused_launches = outs, launches
+    assert len(calls) == 1, len(calls)
+    # The batch's K3 stack, [1, n * P, 3, 256]: against its plain
+    # version, then timed.
+    qpk, leaf, kept, starts, offsets, Pb, span = calls[0]
+    P = 1 << (len(np.unique(columns[1])) - 1).bit_length()
+    assert tuple(starts.shape) == (1, n * P, 3) and span == 256, (
+        tuple(starts.shape), span)
+    got = hist.subtree_counts_multi(qpk, leaf, kept, starts, offsets, Pb,
+                                    span)
+    want = hist.subtree_counts_multi_plain(qpk, leaf, kept, starts, offsets,
+                                           Pb, span)
+    torch.cuda.synchronize()
+    max_abs_err = int((got.long() - want.long()).abs().max())
+    assert max_abs_err == 0, f"K3 mismatch on the fused stack"
+    del got, want
+    timings = time_hist(qpk, leaf, kept, starts, offsets, Pb, span)
+    del calls, qpk, leaf, kept, starts, offsets
+    # The small burst: fused on the card, each member the CPU's solo run.
+    small = serve_columns(SERVE_FUSED_ROWS)
+    small_seeds = [3_100 + i for i in range(n)]
+    _, small_outs, small_launches, small_counters = _percentile_burst(
+        pdt, tmp, "pct-small", small, small_seeds, True)
+    assert small_counters.get("serve.fused_batches") == 1, small_counters
+    assert small_launches["subtree_counts_multi"] == 1, small_launches
+    for i, seed in enumerate(small_seeds):
+        assert small_outs[i].ok, small_outs[i]
+        _released_identical(
+            small_outs[i].results,
+            _direct(pdt, small, seed, "cpu", serve_percentile_params),
+            f"fused percentile on the card vs CPU, seed {seed}")
+    wall, solo_wall = min(walls[True]), min(walls[False])
+    rec = dict(requests=n, rows_per_request=SERVE_ROWS,
+               quantiles=[50, 90, 99], stack=[1, n * P, 3, span],
+               fused_wall_s=wall, solo_wall_s=solo_wall,
+               fused_walls_s=walls[True], solo_walls_s=walls[False],
+               fused_req_per_s=n / wall, solo_req_per_s=n / solo_wall,
+               speedup_vs_solo=solo_wall / wall,
+               k1_launches_fused=fused_launches["segment_sum_lanes"],
+               k3_launches_fused=fused_launches["subtree_counts_multi"],
+               k1_launches_solo=solo_launches["segment_sum_lanes"],
+               k3_launches_solo=solo_launches["subtree_counts_multi"],
+               kept=[len(o.results) for o in fused_outs],
+               identical_to_solo=n, small_rows=SERVE_FUSED_ROWS,
+               small_identical_to_cpu=n, max_abs_err=max_abs_err,
+               **timings)
+    log("serve_percentile", **rec)
+    return rec
+
+
 def phase_serve(smi):
     """Phase 29: the resident service on the card."""
     import shutil
@@ -3565,13 +3695,20 @@ def phase_serve(smi):
         latency = phase_serve_latency(pdt, tmp)
         fused = phase_serve_fused(pdt, tmp)
         burst = phase_serve_burst(pdt, tmp)
+        t0 = time.perf_counter()
+        pct = phase_serve_percentile(pdt, tmp)
+        RECORD["serve_percentile_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("serve", card=smi, latency_concurrent_req_per_s=latency[
         "concurrent_req_per_s"], fused_req_per_s=fused["fused_req_per_s"],
         solo_req_per_s=fused["solo_req_per_s"],
-        burst_k1_ms=burst["ms"], burst_k1_bound_ms=burst["bound_ms"])
-    return fused, burst
+        burst_k1_ms=burst["ms"], burst_k1_bound_ms=burst["bound_ms"],
+        percentile_fused_wall_s=pct["fused_wall_s"],
+        percentile_solo_wall_s=pct["solo_wall_s"],
+        percentile_k3_ms=pct["ms"], percentile_k3_bound_ms=pct["bound_ms"],
+        seconds_d=RECORD["serve_percentile_s"])
+    return fused, burst, pct
 
 
 # ---------------------------------------------------------------------------
@@ -4593,7 +4730,7 @@ def main() -> int:
     phase_pld_secure(smi)
     RECORD["pld_secure_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    serve_fused, _ = phase_serve(smi)
+    serve_fused, _, serve_pct = phase_serve(smi)
     RECORD["serve_s"] = time.perf_counter() - t0
     phase_mesh(smi)
     t0 = time.perf_counter()
@@ -4651,6 +4788,7 @@ def main() -> int:
         "launches": c4_single["launches"]["subtree_counts_multi"],
         "launches_streamed": c4_streamed["launches"][
             "subtree_counts_multi"],
+        "launches_serve_fused": serve_pct["k3_launches_fused"],
         "launches_elastic_per_rank": elastic_k3,
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],

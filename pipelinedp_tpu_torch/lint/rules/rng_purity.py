@@ -44,8 +44,7 @@ BLESSED_MODULES = (PKG + "ops/prng.py", PKG + "ops/counter_rng.py",
 
 _PRNG_MEMBERS = frozenset({"PRNGKey", "split", "fold_in", "bits",
                            "uniform", "laplace", "normal", "threefry2x32"})
-_COUNTER_MEMBERS = frozenset({"row_bits", "laplace", "normal",
-                              "normal_erfinv"})
+_COUNTER_MEMBERS = frozenset({"row_bits", "laplace", "normal"})
 _TORCH_DRAWS = frozenset({"rand", "rand_like", "randn", "randn_like",
                           "randint", "randint_like", "randperm", "normal",
                           "bernoulli", "multinomial", "poisson",

@@ -84,13 +84,3 @@ def normal(key: torch.Tensor, x0: torch.Tensor,
     k0, k1 = key_words(key)
     bits, _ = threefry2x32(k0, k1, x0, x1)
     return normal_from_bits(bits)
-
-
-def normal_erfinv(key: torch.Tensor, x0: torch.Tensor,
-                  x1: torch.Tensor) -> torch.Tensor:
-    """``normal(key, x0, x1)`` before its factor ``SQRT2_F32``: for a
-    caller that scales the draw, as XLA folds ``(sqrt(2) * e) * s`` into
-    ``e * (sqrt(2) * s)``."""
-    k0, k1 = key_words(key)
-    bits, _ = threefry2x32(k0, k1, x0, x1)
-    return erfinv_from_bits(bits)

@@ -17,7 +17,9 @@ launches and device occupancy, not by arithmetic. This module batches
 * **one device path per batch**: the batch executor hands the members'
   preparations to ``torch_engine.fused_aggregate_batch``, which
   concatenates their rows, unpadded, and reduces them with ONE launch of
-  K1 (``segment_sum_lanes``) for the whole batch. The JAX package pads
+  K1 (``segment_sum_lanes``) for the whole batch (with PERCENTILE, one
+  more K1 launch and one K3 launch walk every member's quantiles at
+  once). The JAX package pads
   every member to the bucket edge and masks the padding
   (``pad_request_to_bucket``); the port has no pad mask and no
   counterpart of that function, because it pads nothing;

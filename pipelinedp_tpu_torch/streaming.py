@@ -1018,13 +1018,12 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
         raise NotImplementedError(
             "streamed percentiles: a partition holds >= 2^31 kept rows — "
             "beyond the int32 tree-histogram capacity")
-    # lint: disable=rng-purity(tree key: constant fold of the noise stream)
-    k_tree = prng.fold_in(k_noise, 0x7ee)
-    scale = float(np.asarray(scales, np.float32)[-1])
+    stream = te._WalkRows.solo(te._tree_key(k_noise), te._walk_scale(scales),
+                               P_pad, device=device)
     with tr.span("walk.top", cat="walk"), \
             obs.device_annotation("pdp.walk_top"):
         lo, hi, target, leaf_lo, done = _walk_top(
-            config, P_pad, mid_acc.reshape(P_pad, n_mid), k_tree, scale)
+            config, P_pad, mid_acc.reshape(P_pad, n_mid), stream)
     del mid_acc
     prefix = cache or []
     complete = cache is not None and not cache_frozen
@@ -1062,8 +1061,7 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
         with tr.span("ingest.pass_b_sweep", cat="ingest", tiles=len(sweep),
                      q0=q0_s, p0=p0_s):
             vals = _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo,
-                                 hi, target, done, k_bound, k_tree, scale,
-                                 staging, run_sweep, device, vals, tr, mesh,
+                                 hi, target, done, k_bound, stream, staging, run_sweep, device, vals, tr, mesh,
                                  sup)
         obs.inc("stream.pass_b_stream_sweeps")
         obs.inc("stream.pass_b_tiles", len(sweep))
@@ -1082,8 +1080,8 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
 
 
 def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
-                  done, k_bound, k_tree, scale, staging, run_sweep, device,
-                  vals, tr, mesh=None, sup=None):
+                  done, k_bound, stream, staging, run_sweep, device, vals,
+                  tr, mesh=None, sup=None):
     """One sweep of the plan: streams the batches into the sweep's packed
     [T, Pb, Qc, span] subtree histograms, then walks the bottom levels
     per tile into ``vals``."""
@@ -1119,7 +1117,7 @@ def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
             vals[psl, qsl] = _walk_bottom(
                 config, Pb, sub[ti], starts[ti], lo[psl, qsl],
                 hi[psl, qsl], target[psl, qsl], leaf_lo[psl, qsl],
-                done[psl, qsl], k_tree, scale, p0)
+                done[psl, qsl], stream.rows(psl))
     return vals
 
 

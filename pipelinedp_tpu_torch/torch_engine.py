@@ -1013,6 +1013,41 @@ def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
     ``num_partitions * mesh.size``. The selection draws cover the global
     axis and this rank keeps its block's slice, and the walk runs on the
     owned block, so the keep decisions and the walk equal one device's."""
+    keep_pk, out = _selection(config, num_partitions, part, part_nseg,
+                              keep_table, sel_threshold, sel_scale,
+                              sel_min_count, sel_rows_per_uid, k_sel, mesh)
+    if config.percentiles:
+        P = num_partitions
+        stream = _WalkRows.solo(_tree_key(k_noise), _walk_scale(noise_scales),
+                                P, 0 if mesh is None else mesh.index * P,
+                                part_nseg.device)
+        if mesh is None:
+            vals = _percentile_values(config, P, qrows, stream)
+        else:
+            vals = _percentile_values_owned(config, P, qrows, stream, mesh)
+        for qi, name in enumerate(_percentile_field_names(
+                config.percentiles)):
+            out[name] = vals[:, qi]
+    return keep_pk, out
+
+
+def _tree_key(k_noise):
+    """The walk's node-noise key: a constant fold of the noise stream,
+    independent of the selection stream."""
+    # lint: disable=rng-purity(tree key: constant fold of the noise stream)
+    return prng.fold_in(k_noise, 0x7ee)
+
+
+def _walk_scale(noise_scales) -> float:
+    """The walk's noise scale: the last entry of ``noise_scales``."""
+    return float(np.asarray(noise_scales)[-1])
+
+
+def _selection(config: FusedConfig, num_partitions: int, part, part_nseg,
+               keep_table, sel_threshold, sel_scale, sel_min_count,
+               sel_rows_per_uid, k_sel, mesh=None):
+    """The selection half of ``_selection_and_metrics``: (keep_pk bool
+    [P], the accumulator columns and the privacy-id count), no walk."""
     P = num_partitions
     device = part_nseg.device
     offset = 0 if mesh is None else mesh.index * P
@@ -1058,19 +1093,6 @@ def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
         keep_pk = keep_pk & (part_nseg > 0)
     out = dict(part)
     out["privacy_id_count_raw"] = part_nseg
-    if config.percentiles:
-        # The tree key is independent of the selection stream.
-        # lint: disable=rng-purity(tree key: constant fold of the noise stream)
-        k_tree = prng.fold_in(k_noise, 0x7ee)
-        scale = float(np.asarray(noise_scales)[-1])
-        if mesh is None:
-            vals = _percentile_values(config, P, qrows, scale, k_tree)
-        else:
-            vals = _percentile_values_owned(config, P, qrows, scale, k_tree,
-                                            mesh)
-        for qi, name in enumerate(_percentile_field_names(
-                config.percentiles)):
-            out[name] = vals[:, qi]
     return keep_pk, out
 
 
@@ -1128,35 +1150,59 @@ def _node_noise(noise_kind: NoiseKind, key, node_ids, pk_index=None):
     two indices (``jax_engine._node_noise``): ``node_ids`` int [P, Q, b],
     ``pk_index`` the global partition of each row of ``node_ids``
     (default ``arange(P)``). The walk's draws at scale 1."""
-    draw, factor = _scaled_node_noise(noise_kind, key, node_ids, 1.0,
-                                      pk_index)
+    stream = _WalkRows.solo(key, 1.0, node_ids.shape[0],
+                            device=node_ids.device)
+    if pk_index is not None:
+        stream = stream._replace(pk_index=pk_index)
+    draw, factor = _scaled_node_noise(noise_kind, stream, node_ids)
     return draw * factor
 
 
-def _node_counters(node_ids, pk_index=None):
-    """The counter lanes (partition, node id) of ``_node_noise``."""
-    P = node_ids.shape[0]
-    if pk_index is None:
-        pk_index = torch.arange(P, device=node_ids.device)
-    x0 = pk_index.to(torch.int64).reshape(
-        (P,) + (1,) * (node_ids.dim() - 1)).expand(node_ids.shape)
-    return x0, node_ids.to(torch.int64)
+class _WalkRows(NamedTuple):
+    """The node-noise stream of a walk, one entry per walk row: the tree
+    key words, int64 [R, 2]; the walk scale rounded to float32, [R]; and
+    the partition that keys the row's draws, [R]. A single request's walk
+    has one key and scale for every row (``solo``); in a fused batch, row
+    ``b * P + p`` carries member ``b``'s key and scale and its
+    member-local partition ``p``."""
+    words: torch.Tensor
+    scale: torch.Tensor
+    pk_index: torch.Tensor
+
+    @classmethod
+    def solo(cls, key, scale: float, P: int, p_offset: int = 0,
+             device=None) -> "_WalkRows":
+        """``P`` rows under one key and scale, keyed by the partitions
+        ``p_offset + arange(P)``."""
+        return cls(key.to(device=device, dtype=torch.int64).expand(P, 2),
+                   torch.full((P,), _f32(scale), dtype=torch.float32,
+                              device=device),
+                   p_offset + torch.arange(P, device=device))
+
+    def rows(self, sl: slice) -> "_WalkRows":
+        return _WalkRows(self.words[sl], self.scale[sl], self.pk_index[sl])
 
 
-def _scaled_node_noise(noise_kind: NoiseKind, key, node_ids, scale: float,
-                       pk_index=None):
+def _scaled_node_noise(noise_kind: NoiseKind, stream: _WalkRows, node_ids):
     """``(draw, factor)`` whose float32 product is the walk's noise
-    ``_node_noise * scale`` as XLA computes it: a Laplace draw times
-    ``scale``, and for a Gaussian ``erf_inv`` times ``float32(sqrt(2) *
-    scale)``, since XLA folds the constant ``sqrt(2)`` of the draw into
-    the scale."""
-    x0, x1 = _node_counters(node_ids, pk_index)
+    ``_node_noise * scale`` as XLA computes it, each row of ``node_ids``
+    under its own key, scale and partition from ``stream``: a Laplace
+    draw times ``scale``, and for a Gaussian ``erf_inv`` times
+    ``float32(sqrt(2) * scale)``, since XLA folds the constant ``sqrt(2)``
+    of the draw into the scale (a float32 product of two float32 values
+    is the correctly rounded one, as XLA's constant fold gives it)."""
+    shape = (-1,) + (1,) * (node_ids.dim() - 1)
+    x0 = stream.pk_index.to(torch.int64).reshape(shape).expand(
+        node_ids.shape)
+    # lint: disable=rng-purity(node noise keyed by its tree key and its node and partition counters, the JAX walk's stream)
+    bits, _ = prng.threefry2x32(stream.words[:, 0].reshape(shape),
+                                stream.words[:, 1].reshape(shape), x0,
+                                node_ids.to(torch.int64))
+    factor = stream.scale.reshape(shape)
     if noise_kind == NoiseKind.LAPLACE:
-        # lint: disable=rng-purity(node noise keyed by its node and partition counters, the JAX walk's stream)
-        return counter_rng.laplace(key, x0, x1), _f32(scale)
-    # lint: disable=rng-purity(node noise keyed by its node and partition counters, the JAX walk's stream)
-    return (counter_rng.normal_erfinv(key, x0, x1),
-            _f32(counter_rng.SQRT2_F32 * _f32(scale)))
+        return counter_rng.laplace_from_bits(bits), factor
+    return (counter_rng.erfinv_from_bits(bits),
+            factor * counter_rng.SQRT2_F32)
 
 
 def _halves_sum(x):
@@ -1210,8 +1256,8 @@ def _walk_step(noisy, lo, hi, target, leaf_lo, done, b, w, scan=None,
     return lo, hi, target, leaf_lo, stop
 
 
-def _walk_level(noise_kind, key, scale, raw, base, level_offset, lo, hi,
-                target, leaf_lo, done, b, w, pk_index=None):
+def _walk_level(noise_kind, stream, raw, base, level_offset, lo, hi,
+                target, leaf_lo, done, b, w):
     """One walk level from its raw child counts (``jax_engine.
     _walk_level``): node-id-keyed noise, ``max(raw + noise * scale, 0)``,
     then the descent step. At the root every quantile shares base 0, so
@@ -1228,12 +1274,11 @@ def _walk_level(noise_kind, key, scale, raw, base, level_offset, lo, hi,
         b, dtype=torch.int32, device=base.device)
     root = level_offset == 0
     if root:
-        draw, factor = _scaled_node_noise(noise_kind, key, node_ids[:, :1, :],
-                                          scale, pk_index)
+        draw, factor = _scaled_node_noise(noise_kind, stream,
+                                          node_ids[:, :1, :])
         draw = draw.expand(node_ids.shape)
     else:
-        draw, factor = _scaled_node_noise(noise_kind, key, node_ids, scale,
-                                          pk_index)
+        draw, factor = _scaled_node_noise(noise_kind, stream, node_ids)
     noisy = torch.clamp_min(prng.fma32(draw, factor, raw), 0.0)
     # With one quantile there is no broadcast over Q, and XLA's root
     # takes its running sum and total over the fused counts too.
@@ -1282,6 +1327,7 @@ def _mid_histogram(P: int, qrows):
     ``P * n_mid`` segments through ``segment_sum_lanes`` (K1 on the card).
     Additive across the batches of a stream."""
     _, _, n_mid, bucket_w = quantile_tree.tree_constants()
+    assert P * n_mid < _LANE_SUM_CAP, f"{P * n_mid} segments pass int32"
     qpk, leaf, kept = qrows
     key = qpk * n_mid + torch.clamp_max(leaf // bucket_w, n_mid - 1)
     return segsum.segment_sum_lanes(
@@ -1302,9 +1348,10 @@ def _subtree_counts_multi(qpk, leaf, kept, sub_starts, p_offsets, Pb: int,
         p_offsets.to(torch.int32).contiguous(), Pb, span, out=out)
 
 
-def _walk_top(config: FusedConfig, P: int, mid, key, scale):
+def _walk_top(config: FusedConfig, P: int, mid, stream):
     """The levels the mid histogram serves (node width >= bucket_w: levels
-    0 and 1), from the root state. Returns (lo, hi, target, leaf_lo, done)
+    0 and 1), from the root state, with the node noise of ``stream``
+    (``_WalkRows``, one row a partition). Returns (lo, hi, target, leaf_lo, done)
     [P, Q] (``streaming._walk_top_kernel`` of the JAX package, which is
     also the top of its single-batch walk)."""
     b, height, _, bucket_w = quantile_tree.tree_constants()
@@ -1325,29 +1372,29 @@ def _walk_top(config: FusedConfig, P: int, mid, key, scale):
         base = leaf_lo // w
         raw = _mid_level_counts(mid, base, w, bucket_w, b)
         lo, hi, target, leaf_lo, done = _walk_level(
-            config.noise_kind, key, scale, raw, base, level_offset, lo, hi,
+            config.noise_kind, stream, raw, base, level_offset, lo, hi,
             target, leaf_lo, done, b, w)
         level_offset += b**(level + 1)
     return lo, hi, target, leaf_lo, done
 
 
 def _walk_bottom(config: FusedConfig, P: int, sub, sub_start, lo, hi,
-                 target, leaf_lo, done, key, scale, p_offset: int):
-    """Finishes the walk of a block of ``P`` partitions, the first global
-    partition ``p_offset``, from its [P, Qc, span] subtree histograms
-    (``streaming._walk_bottom_kernel`` of the JAX package). Node noise is
-    keyed by the global partition, so any blocking walks alike. Returns
-    the [P, Qc] float32 values ``lo + (hi - lo) * target``, one FMA."""
+                 target, leaf_lo, done, stream):
+    """Finishes the walk of a block of ``P`` partitions from its
+    [P, Qc, span] subtree histograms (``streaming._walk_bottom_kernel`` of
+    the JAX package). ``stream`` holds the block's rows of the walk's
+    ``_WalkRows``, so node noise keeps each row's own key and partition
+    and any blocking walks alike. Returns the [P, Qc] float32 values
+    ``lo + (hi - lo) * target``, one FMA."""
     b, height, _, _ = quantile_tree.tree_constants()
-    pk_index = p_offset + torch.arange(P, device=sub.device)
     level_offset = sum(b**(level + 1) for level in range(min(2, height)))
     for level in range(min(2, height), height):
         w = b**(height - 1 - level)
         base = leaf_lo // w
         raw = _sub_level_counts(sub, sub_start, leaf_lo, w, b)
         lo, hi, target, leaf_lo, done = _walk_level(
-            config.noise_kind, key, scale, raw, base, level_offset, lo, hi,
-            target, leaf_lo, done, b, w, pk_index=pk_index)
+            config.noise_kind, stream, raw, base, level_offset, lo, hi,
+            target, leaf_lo, done, b, w)
         level_offset += b**(level + 1)
     return prng.fma32(hi - lo, target, lo)
 
@@ -1362,19 +1409,20 @@ def _walk_blocks(P: int, Q: int, span: int) -> int:
     return min(P, 1 << max(0, (cap // (Q * span * 4)).bit_length() - 1))
 
 
-def _percentile_values(config: FusedConfig, P: int, qrows, scale, key):
+def _percentile_values(config: FusedConfig, P: int, qrows, stream):
     """The batched quantile-tree descent over every partition at once
     (``jax_engine._percentile_values``): the top two levels from the mid
     histogram, the bottom two from subtree-leaf histograms built by
     ``_subtree_counts_multi``, one partition block at a time (one block
-    when the histogram fits the byte cap). Returns [P, Q] float32."""
+    when the histogram fits the byte cap). ``stream`` is the walk's
+    ``_WalkRows`` over the ``P`` partitions. Returns [P, Q] float32."""
     qpk, leaf, kept = qrows
     _, _, _, span = quantile_tree.tree_constants()
     quantiles = np.asarray([p / 100.0 for p in config.percentiles],
                            np.float32)
     Q = quantiles.shape[0]
     mid = _mid_histogram(P, qrows)
-    lo, hi, target, leaf_lo, done = _walk_top(config, P, mid, key, scale)
+    lo, hi, target, leaf_lo, done = _walk_top(config, P, mid, stream)
     del mid
     blk = _walk_blocks(P, Q, span)
     if blk == P:
@@ -1394,13 +1442,58 @@ def _percentile_values(config: FusedConfig, P: int, qrows, scale, key):
         sub = _subtree_counts_multi(qpk, leaf, kept, ss[None],
                                     offset + p0, Pb, span)[0]
         outs.append(_walk_bottom(config, Pb, sub, ss, lo[psl], hi[psl],
-                                 target[psl], ss, done[psl], key, scale, p0))
+                                 target[psl], ss, done[psl],
+                                 stream.rows(psl)))
         del sub
     return _monotone_in_q(torch.cat(outs, dim=0), quantiles)
 
 
-def _percentile_values_owned(config: FusedConfig, P_own: int, qrows, scale,
-                             key, mesh):
+def _walk_members(P: int) -> int:
+    """Members of a fused batch that one quantile walk takes: as many as
+    keep the mid histogram's ``members * P * n_mid`` segment ids within
+    int32 (at least one)."""
+    _, _, n_mid, _ = quantile_tree.tree_constants()
+    return max(1, (_LANE_SUM_CAP - 1) // (P * n_mid))
+
+
+def _percentile_values_batch(config: FusedConfig, B: int, P: int, qrows,
+                             scales: Sequence[float], tree_keys):
+    """The quantile walk of every member of a fused batch at once:
+    ``qrows`` keys the rows by the flat partition ``b * P + p``, so the
+    batch walks ``B * P`` partitions with one mid histogram (one K1
+    launch over ``B * P * n_mid`` segments) and one subtree histogram (one
+    K3 launch when it fits the byte cap; else the same partition blocks
+    as any walk of ``B * P`` partitions). A batch whose segment ids would
+    pass int32 walks in runs of ``_walk_members(P)`` members, each over
+    its own members' rows. Member ``b``'s node noise is keyed by its own
+    tree key ``tree_keys[b]`` and its member-local partition, at its own
+    scale ``scales[b]``, whatever the blocking, so its rows are its solo
+    walk bit for bit. Returns [B, P, Q] float32."""
+    device = qrows[0].device
+    rows = torch.arange(B * P, device=device)
+    member = rows // P
+    stream = _WalkRows(
+        torch.stack(list(tree_keys)).to(device)[member],
+        torch.tensor([_f32(s) for s in scales], dtype=torch.float32,
+                     device=device)[member],
+        rows % P)
+    per = _walk_members(P)
+    if per >= B:
+        vals = _percentile_values(config, B * P, qrows, stream)
+        return vals.reshape(B, P, vals.shape[1])
+    qpk, leaf, kept = qrows
+    outs = []
+    for b0 in range(0, B, per):
+        r0, r1 = b0 * P, min(B, b0 + per) * P
+        inside = kept & (qpk >= r0) & (qpk < r1)
+        outs.append(_percentile_values(
+            config, r1 - r0, (torch.where(inside, qpk - r0, 0), leaf, inside),
+            stream.rows(slice(r0, r1))))
+    return torch.cat(outs).reshape(B, P, outs[0].shape[1])
+
+
+def _percentile_values_owned(config: FusedConfig, P_own: int, qrows,
+                             stream, mesh):
     """The quantile descent with the partition axis sharded over the mesh
     (``jax_engine._percentile_values_owned``): each rank walks its owned
     block of ``P_own`` partitions (global partition ``mesh.index * P_own +
@@ -1409,8 +1502,8 @@ def _percentile_values_owned(config: FusedConfig, P_own: int, qrows, scale,
     this rank's rows over the global axis in ONE ``segment_sum_lanes``
     call (K1 on the card, as the single-device walk counts its mid
     histogram), and hand each owner its block of the [P, Q, b] counts.
-    Node noise is keyed by the global partition, so the walk equals one
-    device's bit for bit."""
+    ``stream`` keys node noise by the global partition, so the walk equals
+    one device's bit for bit."""
     from pipelinedp_tpu_torch.parallel import sharded as psh
     qpk, leaf, kept = qrows
     b, height, _, _ = quantile_tree.tree_constants()
@@ -1419,7 +1512,6 @@ def _percentile_values_owned(config: FusedConfig, P_own: int, qrows, scale,
     Q = quantiles.shape[0]
     P = P_own * mesh.size
     device = qpk.device
-    pk_index = mesh.index * P_own + torch.arange(P_own, device=device)
     lo = torch.full((P_own, Q), _f32(config.min_value), dtype=torch.float32,
                     device=device)
     hi = torch.full((P_own, Q), _f32(config.max_value), dtype=torch.float32,
@@ -1445,8 +1537,8 @@ def _percentile_values_owned(config: FusedConfig, P_own: int, qrows, scale,
         raw = psh.scatter_to_owner(counts, mesh, 0,
                                    f"walk.counts{level}").to(torch.float32)
         lo, hi, target, leaf_lo, done = _walk_level(
-            config.noise_kind, key, scale, raw, base_own, level_offset, lo,
-            hi, target, leaf_lo, done, b, w, pk_index=pk_index)
+            config.noise_kind, stream, raw, base_own, level_offset, lo, hi,
+            target, leaf_lo, done, b, w)
         level_offset += b**(level + 1)
     return _monotone_in_q(prng.fma32(hi - lo, target, lo), quantiles)
 
@@ -1861,18 +1953,21 @@ class FusionPrep:
 @costs.instrumented(phase="serve_fused")
 def _fused_batch_body(config: FusedConfig, num_partitions: int, pid, pk,
                       values, sizes: Tuple[int, ...], preps, fx_bits: int):
-    """The device path of a fused batch of requests without percentiles:
-    ``pid``/``pk``/``values`` are the members' rows concatenated (member
-    ``b`` holds ``sizes[b]`` rows, unpadded). Each member keeps its own
-    root split, bounding streams, selection and noise keys; the bounding
-    sorts all rows once by (request, pid, hpk, tie) with every run
-    breaking at a request boundary, K4 runs once on the flat rows, and the
-    reduction offsets each member's partitions by ``b * num_partitions``,
-    so ONE ``segment_sum_lanes`` call (K1) reduces the whole batch (and
-    one ``segment_sum_wide`` call, K2, its fixed-point VECTOR_SUM). K1 and
-    K2 give exact int32 totals per segment, so each member's columns are
-    its solo columns bit for bit. Returns (keep [B, P], columns
-    [B, P] or [B, P, W])."""
+    """The device path of a fused batch of requests: ``pid``/``pk``/
+    ``values`` are the members' rows concatenated (member ``b`` holds
+    ``sizes[b]`` rows, unpadded). Each member keeps its own root split,
+    bounding streams, selection and noise keys; the bounding sorts all
+    rows once by (request, pid, hpk, tie) with every run breaking at a
+    request boundary, K4 runs once on the flat rows, and the reduction
+    offsets each member's partitions by ``b * num_partitions``, so ONE
+    ``segment_sum_lanes`` call (K1) reduces the whole batch (and one
+    ``segment_sum_wide`` call, K2, its fixed-point VECTOR_SUM). With
+    percentiles the bounded rows, keyed by the same flat partition, feed
+    one quantile walk of the whole batch (``_percentile_values_batch``:
+    one more K1 launch and one K3 launch). K1 to K3 give exact int32
+    counts per segment and each member's walk draws its own noise, so
+    each member's columns are its solo columns bit for bit. Returns (keep
+    [B, P], columns [B, P] or [B, P, W])."""
     P = num_partitions
     device = pk.device
     # lint: disable=rng-purity(root split seam, pure in each request's key)
@@ -1898,21 +1993,30 @@ def _fused_batch_body(config: FusedConfig, num_partitions: int, pid, pk,
                                 len(sizes) * P, seg_marker=b.seg_marker,
                                 fx_bits=fx_bits, contrib=b.contrib,
                                 capacity_rows=max(sizes))
+    qrows = (_qrows(config, flat_pk, b.svalues, b.keep_row)
+             if config.percentiles else None)
     del b, flat_pk
     if config.bounds_already_enforced:
         nseg = part["count"]
     keeps, outs = [], []
-    for i, (prep, (_, k_sel, k_noise)) in enumerate(zip(preps, roots)):
+    for i, (prep, (_, k_sel, _)) in enumerate(zip(preps, roots)):
         rows = slice(i * P, (i + 1) * P)
-        keep_i, out_i = _selection_and_metrics(
+        keep_i, out_i = _selection(
             config, P, {k: v[rows] for k, v in part.items()}, nseg[rows],
             prep.keep_table, prep.thr, prep.s_scale, prep.min_count,
-            prep.rows_per_uid, k_sel, k_noise=k_noise,
-            noise_scales=prep.scales)
+            prep.rows_per_uid, k_sel)
         keeps.append(keep_i)
         outs.append(out_i)
-    return torch.stack(keeps), {k: torch.stack([o[k] for o in outs])
-                                for k in outs[0]}
+    cols = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    if config.percentiles:
+        vals = _percentile_values_batch(
+            config, len(preps), P, qrows,
+            [_walk_scale(prep.scales) for prep in preps],
+            [_tree_key(k_noise) for _, _, k_noise in roots])
+        for qi, name in enumerate(_percentile_field_names(
+                config.percentiles)):
+            cols[name] = vals[:, :, qi]
+    return torch.stack(keeps), cols
 
 
 def fused_aggregate_batch(config: FusedConfig, num_partitions: int,
@@ -1924,39 +2028,23 @@ def fused_aggregate_batch(config: FusedConfig, num_partitions: int,
     [B, P, W]) as host arrays; member ``b``'s slice is what its solo run
     computes (``LazyFusedResult.finish_from_fused`` releases it).
 
-    Without percentiles the members' rows run concatenated through
-    ``_fused_batch_body``: one K1 launch for the batch. A bucket whose
-    config has PERCENTILE runs its members through the solo
-    ``_fused_body`` one after another (K1 and K3 launch per member);
-    batching the quantile walk is the next step (ROADMAP step 6)."""
+    The members' rows run concatenated through ``_fused_batch_body``:
+    one K1 launch for the batch, and with PERCENTILE one more K1 launch
+    and one K3 launch for the quantile walk of every member."""
     device = torch.device(device)
     with obs.device_annotation("pdp.fused_aggregate_batch"):
-        if config.percentiles:
-            runs = []
-            for prep in preps:
-                pid, pk, values = put_on_device(
-                    prep.encoded, device, with_values=config.needs_values)
-                runs.append(_fused_body(
-                    config, num_partitions, pid, pk, values, prep.scales,
-                    prep.keep_table, prep.thr, prep.s_scale, prep.min_count,
-                    prep.rows_per_uid, prep.key, fx_bits))
-            keep = torch.stack([k for k, _ in runs])
-            raw = {k: torch.stack([r[k] for _, r in runs])
-                   for k in runs[0][1]}
-            del runs
-        else:
-            cols = [put_on_device(prep.encoded, device,
-                                  with_values=config.needs_values)
-                    for prep in preps]
-            pid = torch.cat([c[0] for c in cols])
-            pk = torch.cat([c[1] for c in cols])
-            values = (torch.cat([c[2] for c in cols])
-                      if config.needs_values else None)
-            del cols
-            keep, raw = _fused_batch_body(
-                config, num_partitions, pid, pk, values,
-                tuple(int(prep.encoded.n_rows) for prep in preps), preps,
-                fx_bits)
+        cols = [put_on_device(prep.encoded, device,
+                              with_values=config.needs_values)
+                for prep in preps]
+        pid = torch.cat([c[0] for c in cols])
+        pk = torch.cat([c[1] for c in cols])
+        values = (torch.cat([c[2] for c in cols])
+                  if config.needs_values else None)
+        del cols
+        keep, raw = _fused_batch_body(
+            config, num_partitions, pid, pk, values,
+            tuple(int(prep.encoded.n_rows) for prep in preps), preps,
+            fx_bits)
         # The [B, P] columns ride one packed int32 block (float columns
         # bitcast into it), as the solo fetch does; [B, P, W] columns
         # follow one each.

@@ -792,28 +792,71 @@ class TestFusedBucketKinds:
         assert calls["segment_sum_wide"] == (1 if kind == "vector_fx"
                                              else 0)
 
-    def test_percentile_bucket_runs_each_member(self, tmp_path,
-                                                monkeypatch):
-        """A bucket with PERCENTILE runs its members one after another
-        inside the one dispatch: K1 twice per member (the lanes and the
-        walk's mid histogram)."""
+    @pytest.mark.parametrize("members", [2, 3])
+    def test_percentile_batch_walks_once(self, tmp_path, monkeypatch,
+                                         members):
+        """A fused batch with PERCENTILE walks every member's quantiles
+        at once: ``segment_sum_lanes`` (K1 on the card) twice, the lanes
+        and the batch's one mid histogram, and ``subtree_counts_multi``
+        (K3) once, whatever the number of members."""
+        from pipelinedp_tpu_torch.ops.kernels import hist
+        calls = {"segment_sum_lanes": 0, "subtree_counts_multi": 0}
+        for mod, name in ((segsum, "segment_sum_lanes"),
+                          (hist, "subtree_counts_multi")):
+            real = getattr(mod, name)
+
+            def counted(*a, _real=real, _name=name, **k):
+                calls[_name] += 1
+                return _real(*a, **k)
+
+            monkeypatch.setattr(mod, name, counted)
+        sizes = (7_000, 8_000, 6_000)[:members]
+        datasets = [make_ds(40 + i, n) for i, n in enumerate(sizes)]
+        with Service(str(tmp_path / "svc"),
+                     tenants={f"t{i}": (BIG_EPS, 1e-3)
+                              for i in range(members)},
+                     workers=2, fusion=True, fuse_window_ms=250,
+                     fuse_max_batch=members) as svc:
+            outs = submit_concurrently(svc, [
+                req(f"t{i}", datasets[i], seed=70 + i, rid=f"p{i}")
+                for i in range(members)])
+        assert all(o.ok for o in outs), outs
+        counters = obs.ledger().snapshot()["counters"]
+        assert counters.get("serve.fused_batches") == 1
+        assert counters.get("serve.fused_requests") == members
+        assert calls == {"segment_sum_lanes": 2, "subtree_counts_multi": 1}
+
+    def test_failed_walk_refuses_the_batch(self, tmp_path, monkeypatch):
+        """A K3 that fails inside a fused percentile batch refuses every
+        member with an ``"error"`` refusal and refunds its reserve: no
+        member is served another way."""
+        from pipelinedp_tpu_torch.ops.kernels import hist
         calls = []
-        real = segsum.segment_sum_lanes
-        monkeypatch.setattr(segsum, "segment_sum_lanes",
-                            lambda *a, **k: calls.append(1) or real(*a, **k))
+
+        def broken(*a, **k):
+            calls.append(1)
+            raise RuntimeError("hist_bin launch failed: CUDA error 700")
+
+        monkeypatch.setattr(hist, "subtree_counts_multi", broken)
+        tenants = {f"t{i}": (BIG_EPS, 1e-3) for i in range(2)}
         datasets = [make_ds(40 + i, n) for i, n in enumerate((7_000,
                                                               8_000))]
-        with Service(str(tmp_path / "svc"),
-                     tenants={f"t{i}": (BIG_EPS, 1e-3) for i in range(2)},
-                     workers=2, fusion=True, fuse_window_ms=250,
+        with Service(str(tmp_path / "svc"), tenants=tenants, workers=2,
+                     fusion=True, fuse_window_ms=250,
                      fuse_max_batch=2) as svc:
             outs = submit_concurrently(svc, [
                 req(f"t{i}", datasets[i], seed=70 + i, rid=f"p{i}")
                 for i in range(2)])
-        assert all(o.ok for o in outs), outs
+            remaining = {t: svc.budgets.remaining(t) for t in tenants}
+        assert len(calls) == 1
+        for o in outs:
+            assert not o.ok, o
+            assert o.reason == "error" and "hist_bin" in o.detail, o
+        for t, (eps, delta) in tenants.items():
+            assert (remaining[t].epsilon, remaining[t].delta) == (eps,
+                                                                  delta)
         assert obs.ledger().snapshot()["counters"].get(
-            "serve.fused_batches") == 1
-        assert len(calls) == 4
+            "serve.fused_batches") is None
 
 
 # ---------------------------------------------------------------------

@@ -231,7 +231,8 @@ def test_walk_level_bit_equal(noise, level):
     leaf_lo = (rng.integers(0, 65536 // (w * B), (P, Q)) * w * B).astype(
         np.int32)
     base = leaf_lo // w
-    pk_index = (rng.integers(0, 1000) + np.arange(P)).astype(np.uint32)
+    p_offset = int(rng.integers(0, 1000))
+    pk_index = (p_offset + np.arange(P)).astype(np.uint32)
 
     def jax_level(raw, base, lo, hi, target, leaf_lo, done, scale, pki):
         return je._walk_level(JNoiseKind[noise], key, scale, raw, base,
@@ -241,12 +242,12 @@ def test_walk_level_bit_equal(noise, level):
     want = jax.jit(jax_level)(*(jnp.asarray(x) for x in (
         raw, base, lo, hi, target, leaf_lo, done)), jnp.float32(scale),
         jnp.asarray(pk_index))
-    got = te._walk_level(pdt.NoiseKind[noise], convert.key_from_jax(key),
-                         float(scale), *(torch.from_numpy(x) for x in (
-                             raw, base)), level_offset,
-                         *(torch.from_numpy(x) for x in (
-                             lo, hi, target, leaf_lo, done)), B, w,
-                         pk_index=torch.from_numpy(pk_index.astype(np.int64)))
+    stream = te._WalkRows.solo(convert.key_from_jax(key), float(scale), P,
+                               p_offset)
+    got = te._walk_level(pdt.NoiseKind[noise], stream,
+                         *(torch.from_numpy(x) for x in (raw, base)),
+                         level_offset, *(torch.from_numpy(x) for x in (
+                             lo, hi, target, leaf_lo, done)), B, w)
     for name, g, wv in zip(("lo", "hi", "target", "leaf_lo", "done"), got,
                            want):
         _assert_bit_equal(g, wv, name)
@@ -282,7 +283,8 @@ def test_walk_level_root_bit_equal(noise, P, Q):
     leaf_lo = torch.zeros((P, Q), dtype=torch.int32)
     raw = te._mid_level_counts(torch.from_numpy(mid), leaf_lo, w, SPAN, B)
     got = te._walk_level(
-        pdt.NoiseKind[noise], convert.key_from_jax(key), float(scale), raw,
+        pdt.NoiseKind[noise],
+        te._WalkRows.solo(convert.key_from_jax(key), float(scale), P), raw,
         leaf_lo, 0, torch.full((P, Q), 0.0), torch.full((P, Q), 10.0),
         torch.from_numpy(quantiles).expand(P, Q), leaf_lo,
         torch.zeros((P, Q), dtype=torch.bool), B, w)
@@ -348,7 +350,8 @@ def test_percentile_values_bit_equal(noise, cap, blocks, monkeypatch):
     monkeypatch.setattr(te, "_subtree_counts_multi", spy)
     got = te._percentile_values(cfg_t, P,
                                 tuple(torch.from_numpy(x) for x in qrows),
-                                float(scale), convert.key_from_jax(key))
+                                te._WalkRows.solo(convert.key_from_jax(key),
+                                                  float(scale), P))
     assert len(seen) == blocks and sum(seen) == P
     assert hist.LAUNCHES["subtree_counts_multi"] == before  # CPU: plain
     _assert_bit_equal(got, want)
@@ -374,8 +377,9 @@ def test_percentile_values_one_quantile_bit_equal(scale, seed):
         tuple(jnp.asarray(x) for x in qrows), jnp.float32(scale), key)
     got = te._percentile_values(cfg_t, P,
                                 tuple(torch.from_numpy(x) for x in qrows),
-                                float(np.float32(scale)),
-                                convert.key_from_jax(key))
+                                te._WalkRows.solo(convert.key_from_jax(key),
+                                                  float(np.float32(scale)),
+                                                  P))
     _assert_bit_equal(got, want)
 
 
