@@ -48,12 +48,18 @@ Phases, one line each; any failure raises and exits non-zero:
 8. K3 vs plain: ``subtree_counts_multi`` on the card against its plain
    version, bit for bit, at the shapes of the tests (T = 1, 3, 5;
    unaligned starts; rows outside every block; ``kept`` mostly false;
-   span 16, 64 and 256; adding into a sweep's buffer) and on the config-4
-   stack (the bounded rows and top-walk starts of the aggregation in
-   phase 10: T = 1, P = 131072, Q = 3, span = 256, N = 10M), where K3,
-   the plain version, one ``bincount`` per (t, q) (the library
-   yardstick) and the [P, 256] mid histogram are timed, the latter's K1
-   launch held to its plain version and timed with its bound;
+   span 16, 64 and 256; adding into a sweep's buffer), on the count
+   pass's edges (1, 15, 17 and 16 k + 3 rows, none kept, an output of no
+   whole 16-byte words, a clipped hot bin), each aligned and as views 4,
+   8 and 12 bytes past a 16-byte boundary, fresh and added into, and on
+   the config-4 stack (the bounded rows and top-walk starts of the
+   aggregation in phase 10: T = 1, P = 131072, Q = 3, span = 256, N =
+   10M) and a clipped hot-bin stack of the fused serve stack's size,
+   where K3's wrapper, its count pass alone (``out=``), its zero pass
+   beside ``torch.zeros``, the plain version and one ``bincount`` per
+   (t, q) (the library yardstick) are timed, and on config 4 the [P,
+   256] mid histogram, its K1 launch held to its plain version and timed
+   with its bound;
 9. PERCENTILE, GPU vs CPU: 1M rows of the config-4 generator over 10k
    partitions, Laplace with private selection and Gaussian with public
    partitions, each single-batch and streamed at a chunk of n // 6 rows
@@ -371,6 +377,32 @@ def cuda_ms(fn, reps: int = 21, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps: int = 30, warm: int = 3) -> float:
+    """Device milliseconds per call of ``fn`` with the host ahead of the
+    card: a sleep kernel of about 20 ms goes first, so every call is
+    queued before the first one runs, and the events time the card's work
+    back to back (the gaps between launches included, the host's time per
+    call not). ``cuda_ms`` times one call from an idle card, the host's
+    time before its first launch included."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    # The host queued every call before the sleep (20 ms at the top
+    # clock, longer below it) ended.
+    assert host_ms < 15.0, f"the host took {host_ms} ms to queue the calls"
+    return start.elapsed_time(end) / reps
 
 
 def phase_card():
@@ -932,6 +964,60 @@ def hist_case(T, Pb, Qc, span, n, kept_share, gen):
     return qpk, leaf, kept, starts, offsets.to(torch.int32)
 
 
+def hot_bin_case(T, Pb, Qc, span, n, kept_share, gen, hot_share=0.9):
+    """K3 inputs with a clipped hot bin: ``hot_share`` of the rows in one
+    partition of every tile's block, at the top leaf of a 2^16-leaf tree
+    (values clipped at ``max_value``), inside that partition's subtree for
+    every quantile; the other rows spread over the partitions and leaves;
+    subtree starts on span-aligned leaves."""
+    dev = torch.device("cuda")
+    n_leaves = 1 << 16
+    offsets = torch.arange(T, dtype=torch.int32, device=dev) * Pb
+    hot = Pb // 3
+    qpk = torch.randint(0, T * Pb, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    leaf = torch.randint(0, n_leaves, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    is_hot = torch.rand(n, generator=gen, device=dev) < hot_share
+    qpk[is_hot] = hot
+    leaf[is_hot] = n_leaves - 1
+    kept = torch.rand(n, generator=gen, device=dev) < kept_share
+    starts = span * torch.randint(0, n_leaves // span, (T, Pb, Qc),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+    starts[:, hot, :] = n_leaves - span
+    return qpk, leaf, kept, starts, offsets
+
+
+def hist_edge_cases(gen):
+    """(name, args, Pb, span): the row counts around the count pass's
+    16-row steps (1, 15, 17, 16 k + 3), every row not kept, an output
+    whose size is no multiple of 16 bytes, and a clipped hot bin."""
+    for n in (1, 15, 17, 16 * 4096 + 3):
+        yield f"n={n}", hist_case(2, 8, 3, 16, n, 0.8, gen), 8, 16
+    yield "none kept", hist_case(3, 64, 3, 256, 50_003, 0.0, gen), 64, 256
+    yield "odd output", hist_case(1, 3, 1, 7, 9001, 0.8, gen), 3, 7
+    yield "hot bin", hot_bin_case(2, 64, 3, 256, 200_003, 0.6, gen), 64, 256
+
+
+def hist_views(args, k, unit):
+    """Contiguous copies of K3's tensors as views that start past a
+    16-byte boundary: ``unit="bytes"`` puts every data_ptr ``4 k`` bytes
+    past it (kept ``4 k`` flags in, the int32 tensors ``k`` words in: the
+    kept flags and the rows' words at different phases), ``"rows"`` starts
+    every tensor ``k`` elements in (one phase for the rows)."""
+    views = []
+    for x in args:
+        skip = (4 * k) // x.element_size() if unit == "bytes" else k
+        buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+        view = buf[skip:skip + x.numel()].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous()
+        assert view.data_ptr() % 16 == (skip * x.element_size()) % 16
+        views.append(view)
+    return views
+
+
 def config4_stack(columns):
     """The inputs the single-batch walk hands K3 in the config-4
     aggregation (same data, params and seed): the percentile row view of
@@ -964,11 +1050,17 @@ def config4_stack(columns):
 
 
 def time_hist(qpk, leaf, kept, starts, offsets, Pb, span):
-    """Median ms of K3 (its wrapper: the output's memset and the launch),
-    its plain version and the library yardstick, one ``torch.bincount``
-    per (t, q) over the flat bin index of the rows in range (the XLA
-    scatter's work; the indices are computed outside the timing), and
-    the bound for these inputs."""
+    """Median ms of K3's wrapper (a fresh output: its allocation, the zero
+    pass and the count pass), of the count pass alone (``out=`` into a
+    preallocated buffer), of the zero pass alone (the wrapper on no rows)
+    beside ``torch.zeros`` of the output, of the plain version and of the
+    library yardstick, one ``torch.bincount`` per (t, q) over the flat bin
+    index of the rows in range (the XLA scatter's work; the indices are
+    computed outside the timing), and the bound for these inputs. The
+    wrapper's calls and ``torch.zeros`` are also timed as device time per
+    call (``queued_ms``, the ``*device_ms`` keys): from an idle card
+    (``cuda_ms``) a call's time holds the host's time before its first
+    launch."""
     from pipelinedp_tpu_torch.ops.kernels import hist
     T, _, Qc = starts.shape
     flat = []
@@ -993,15 +1085,34 @@ def time_hist(qpk, leaf, kept, starts, offsets, Pb, span):
     work = hist.work(qpk, leaf, kept, starts, offsets, Pb, span)
     assert work.ops == sum(int(f.numel()) for f in flat)
     bound = card_bound(work)
+    acc = torch.zeros_like(want)
+    no_rows = (qpk[:0], leaf[:0], kept[:0])
+    zeroed = hist.subtree_counts_multi(*no_rows, starts, offsets, Pb, span)
+    assert int(zeroed.abs().max()) == 0, "K3's zero pass left a nonzero"
+    del want, lib, zeroed
+
+    def fresh():
+        return hist.subtree_counts_multi(qpk, leaf, kept, starts, offsets,
+                                         Pb, span)
+
+    def count():
+        return hist.subtree_counts_multi(qpk, leaf, kept, starts, offsets,
+                                         Pb, span, out=acc)
+
+    def zero():
+        return hist.subtree_counts_multi(*no_rows, starts, offsets, Pb, span)
+
+    def zeros():
+        return torch.zeros(T, Pb, Qc, span, dtype=torch.int32,
+                           device=qpk.device)
+
     return dict(
-        ms=cuda_ms(lambda: hist.subtree_counts_multi(
-            qpk, leaf, kept, starts, offsets, Pb, span)),
+        ms=cuda_ms(fresh), count_ms=cuda_ms(count), zero_ms=cuda_ms(zero),
+        device_ms=queued_ms(fresh), count_device_ms=queued_ms(count),
+        zero_device_ms=queued_ms(zero), memset_device_ms=queued_ms(zeros),
         plain_ms=cuda_ms(lambda: hist.subtree_counts_multi_plain(
             qpk, leaf, kept, starts, offsets, Pb, span), reps=5),
-        library_ms=cuda_ms(library),
-        memset_ms=cuda_ms(lambda: torch.zeros(T, Pb, Qc, span,
-                                              dtype=torch.int32,
-                                              device=qpk.device)),
+        library_ms=cuda_ms(library), memset_ms=cuda_ms(zeros),
         bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
         bound_bytes=work.bytes, kept_rows=int(kept.sum()),
         in_range_adds=work.ops, out_bytes=T * Pb * Qc * span * 4)
@@ -1033,6 +1144,7 @@ def phase_hist_kernel(columns):
         assert torch.equal(acc, 2 * want)
         assert int(want.sum()) > 0
         checked.append([T, Pb, Qc, span, n, share])
+    edges = check_hist_edges(gen)
 
     qpk, leaf, kept, starts, P = config4_stack(columns)
     offsets = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -1057,11 +1169,67 @@ def phase_hist_kernel(columns):
                        segsum.segment_sum_lanes_plain(mcol, mkey, P * n_mid))
     mid_k1 = time_kernel(mcol, mkey, P * n_mid)
     del qpk, leaf, kept, starts, mkey, mcol
+    hot = hot_bin_stack()
     log("hist_kernel", kernel="subtree_counts_multi",
-        bit_equal_shapes=checked,
-        config4=dict(shape=[1, P, Q, span], **timings),
+        bit_equal_shapes=checked, edges=edges,
+        config4=dict(shape=[1, P, Q, span], **timings), hot_bin=hot,
         mid_histogram=dict(segments=P * n_mid, ms=mid_ms, k1=mid_k1))
-    return dict(max_abs_err=max_abs_err, mid_ms=mid_ms, **timings)
+    return dict(max_abs_err=max_abs_err, mid_ms=mid_ms, hot_bin=hot,
+                **timings)
+
+
+def check_hist_edges(gen):
+    """K3 against its plain version, bit for bit, on ``hist_edge_cases``:
+    each aligned, as views 4, 8 and 12 bytes past a 16-byte boundary (in
+    both of ``hist_views``' units), and adding into a buffer (``out=``).
+    A fresh output lands on memory the allocator held filled with -1, so
+    the zero pass is seen to zero it. Returns the names and row counts."""
+    from pipelinedp_tpu_torch.ops.kernels import hist
+    checked = []
+    for name, args, Pb, span in hist_edge_cases(gen):
+        want = hist.subtree_counts_multi_plain(*args, Pb, span)
+        for unit, k in [("bytes", 0), ("bytes", 1), ("bytes", 2),
+                        ("bytes", 3), ("rows", 1), ("rows", 2),
+                        ("rows", 3)]:
+            views = hist_views(args, k, unit)
+            dirty = torch.full_like(want, -1)
+            ptr = dirty.data_ptr()
+            del dirty
+            got = hist.subtree_counts_multi(*views, Pb, span)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (
+                f"K3 mismatch on {name}, {unit} offset {k}")
+            reused = got.data_ptr() == ptr
+            acc = want + 5
+            hist.subtree_counts_multi(*views, Pb, span, out=acc)
+            assert torch.equal(acc, 2 * want + 5), (
+                f"K3 out= mismatch on {name}, {unit} offset {k}")
+        checked.append(dict(case=name, rows=int(args[0].shape[0]),
+                            kept=int(args[2].sum()),
+                            counted=int(want.sum()),
+                            zeroed_dirty_memory=reused))
+    assert any(c["zeroed_dirty_memory"] for c in checked)
+    return checked
+
+
+def hot_bin_stack():
+    """K3 on a clipped hot bin at the fused serve stack's size ([1, 16384,
+    3, 256], 4M rows, 57% kept, 90% of the rows at one partition's top
+    leaf): bit for bit its plain version, then timed (``time_hist``)."""
+    from pipelinedp_tpu_torch.ops.kernels import hist
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    Pb, span = 16384, 256
+    args = hot_bin_case(1, Pb, 3, span, 4_000_000, 0.57, gen)
+    got = hist.subtree_counts_multi(*args, Pb, span)
+    want = hist.subtree_counts_multi_plain(*args, Pb, span)
+    torch.cuda.synchronize()
+    max_abs_err = int((got.long() - want.long()).abs().max())
+    assert max_abs_err == 0, "K3 mismatch on the hot-bin stack"
+    top = int(want.max())
+    del got, want
+    return dict(shape=[1, Pb, 3, span], rows=4_000_000, hottest_bin=top,
+                max_abs_err=max_abs_err, **time_hist(*args, Pb, span))
 
 
 def _released_identical(a_rows, b_rows, what):
@@ -3602,8 +3770,9 @@ def phase_serve_percentile(pdt, tmp):
     member in one K1 mid histogram and one K3 launch. 8 requests x
     500,000 rows fused as one batch, each member's release the same
     request's served solo on the card; 8 x 20,000 rows fused on the card
-    against the port's CPU solo run; the batch's K3 stack timed against
-    its plain version, its bound and three ``bincount``s."""
+    against the port's CPU solo run; the batch's K3 stack (its wrapper
+    and its count pass alone) timed against its plain version, its bound
+    and three ``bincount``s."""
     from pipelinedp_tpu_torch.ops.kernels import hist
     n = SERVE_FUSED_CONC
     columns = serve_columns(SERVE_ROWS)
@@ -3707,6 +3876,7 @@ def phase_serve(smi):
         percentile_fused_wall_s=pct["fused_wall_s"],
         percentile_solo_wall_s=pct["solo_wall_s"],
         percentile_k3_ms=pct["ms"], percentile_k3_bound_ms=pct["bound_ms"],
+        percentile_k3_count_ms=pct["count_ms"],
         seconds_d=RECORD["serve_percentile_s"])
     return fused, burst, pct
 
@@ -4792,7 +4962,16 @@ def main() -> int:
         "launches_elastic_per_rank": elastic_k3,
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}, {
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+        # Its two passes on the config-4 stack, and the other stacks.
+        "count_ms": k3["count_ms"], "zero_ms": k3["zero_ms"],
+        "memset_ms": k3["memset_ms"], "device_ms": k3["device_ms"],
+        "count_device_ms": k3["count_device_ms"],
+        "serve_fused_ms": serve_pct["ms"],
+        "serve_fused_count_ms": serve_pct["count_ms"],
+        "serve_fused_device_ms": serve_pct["device_ms"],
+        "serve_fused_count_device_ms": serve_pct["count_device_ms"],
+        "hot_bin_ms": k3["hot_bin"]["ms"]}, {
         # Port-only: it replaces the XLA segment_sum of the per-partition
         # SUM, not a Pallas kernel; its library call is a float32
         # index_add_, whose bits differ.

@@ -15,14 +15,18 @@ partition block, rows whose leaf lies outside ``[0, span)`` of their walk
 start and rows not kept count nowhere; the starts need not be
 span-aligned. The relative indices are int32, the output index int64.
 
-Dispatch is by the device of the tensors and nothing else: a CUDA tensor
-launches the kernel (or raises), a CPU tensor takes the plain version.
+On the card a fresh output is allocated with ``torch.empty`` and zeroed
+by the kernel library's own zero pass, ahead of the count pass; with
+``out=`` the counts are added into it. Dispatch is by the device of the
+tensors and nothing else: a CUDA tensor launches the kernels (or
+raises), a CPU tensor takes the plain version.
 There is no envelope, no fallback and no row-block knob: the TPU kernel's
 4 MB VMEM envelope (``dispatch.hist_envelope``) has no counterpart.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional
 
@@ -92,10 +96,14 @@ def _check(qpk, leaf, kept, sub_starts, p_offsets, Pb: int, span: int,
             raise ValueError(f"out must be int32 {(T, Pb, Qc, span)}, got "
                              f"{out.dtype} {tuple(out.shape)}")
         tensors.append(out)
-    if any(x.device != qpk.device for x in tensors):
-        raise ValueError("subtree_counts_multi takes tensors on one device")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("subtree_counts_multi takes contiguous tensors")
+    # One plain loop: a launch's host time is time the card may wait.
+    device = qpk.device
+    for x in tensors:
+        if x.device != device:
+            raise ValueError("subtree_counts_multi takes tensors on one "
+                             "device")
+        if not x.is_contiguous():
+            raise ValueError("subtree_counts_multi takes contiguous tensors")
     if qpk.device.type not in ("cpu", "cuda"):
         raise ValueError(f"subtree_counts_multi runs on cuda or cpu, not "
                          f"{qpk.device}")
@@ -144,28 +152,53 @@ def work(qpk: torch.Tensor, leaf: torch.Tensor, kept: torch.Tensor,
         4 * T + 4 * T * int(Pb) * Qc * int(span))
 
 
+_LAUNCH = None
+
+
+def _launcher():
+    """``hist_bin_launch`` of the built library, its argument types set
+    once: a launch's host time is time the card may wait."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = _build.load("hist_bin").hist_bin_launch
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LAUNCH = fn
+    return _LAUNCH
+
+
+def _on(device: torch.device):
+    """The context that makes ``device`` current, a no-op where it is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _subtree_counts_multi(qpk, leaf, kept, sub_starts, p_offsets, Pb, span,
                           out):
     if qpk.device.type == "cpu":
         counts = subtree_counts_multi_plain(qpk, leaf, kept, sub_starts,
                                             p_offsets, Pb, span)
         return counts if out is None else out.add_(counts)
-    fn = _build.load("hist_bin").hist_bin_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if sub_starts.numel() >= 1 << 31:
+        raise ValueError(f"subtree_counts_multi indexes sub_starts in 32 "
+                         f"bits on the card, got {sub_starts.numel()} starts")
     T, _, Qc = sub_starts.shape
-    # The launch is asynchronous on PyTorch's current stream, so the
+    # The launches are asynchronous on PyTorch's current stream, so the
     # caching allocator hands the inputs' memory only to work queued after
-    # the kernel, even when the caller drops them right away.
-    with torch.cuda.device(qpk.device):
-        if out is None:
-            out = torch.zeros(T, int(Pb), Qc, int(span), dtype=torch.int32,
+    # them, even when the caller drops them right away. A fresh output is
+    # zeroed by the kernel library's own zero pass, ahead of the counts.
+    with _on(qpk.device):
+        zero = out is None
+        if zero:
+            out = torch.empty(T, int(Pb), Qc, int(span), dtype=torch.int32,
                               device=qpk.device)
         stream = torch.cuda.current_stream(qpk.device).cuda_stream
-        err = fn(qpk.data_ptr(), leaf.data_ptr(), kept.data_ptr(),
-                 sub_starts.data_ptr(), p_offsets.data_ptr(), out.data_ptr(),
-                 qpk.shape[0], T, int(Pb), Qc, int(span), stream)
+        err = _launcher()(qpk.data_ptr(), leaf.data_ptr(), kept.data_ptr(),
+                          sub_starts.data_ptr(), p_offsets.data_ptr(),
+                          out.data_ptr(), qpk.shape[0], T, int(Pb), Qc,
+                          int(span), int(zero), stream)
     if err != 0:
         raise RuntimeError(f"hist_bin launch failed: CUDA error {err}")
     _build.count_launch(LAUNCHES, "subtree_counts_multi")

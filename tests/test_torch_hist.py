@@ -4,9 +4,12 @@ On the CPU: ``subtree_counts_multi_plain`` against the JAX package's
 Pallas ``hist_bin_multi`` (interpret mode, at the row block of its
 envelope) and against ``jax_engine._subtree_counts_multi``, bit-equal,
 over several (T, Pb, Qc, span) with unaligned starts, nonzero partition
-offsets, rows outside every block and rows not kept; the wrapper's
-dispatch, accumulation and argument checks. On the card (``cuda``
-marker): the CUDA kernel against the plain version, bit-equal.
+offsets, rows outside every block and rows not kept, and on the CUDA
+count pass's edges (row counts around its 16-row steps, no row kept, a
+clipped hot bin); the wrapper's dispatch, accumulation, views at any
+element and argument checks. On the card (``cuda`` marker): the CUDA
+kernel against the plain version, bit-equal, also on the edges as views
+past a 16-byte boundary, fresh and added into.
 """
 
 import numpy as np
@@ -39,6 +42,44 @@ def _case(T, Pb, Qc, span, seed=0, n=9000, kept_share=0.8):
     return qpk, leaf, kept, starts, offsets
 
 
+# The CUDA count pass's edges (``csrc/hist_bin.cu`` takes rows in 16-row
+# steps): row counts around a step, no row kept, and a clipped hot bin.
+EDGES = ["n=1", "n=15", "n=17", "n=16k+3", "none kept", "hot bin"]
+
+
+def _hot_bin_case(T, Pb, Qc, span, seed=0, n=4003, kept_share=0.6,
+                  hot_share=0.9):
+    """Most rows in one partition at the top leaf of a 2^16-leaf tree
+    (values clipped at ``max_value``), inside that partition's subtree
+    for every quantile; span-aligned starts elsewhere."""
+    rng = np.random.default_rng(seed + 18)
+    n_leaves = 1 << 16
+    hot = Pb // 3
+    offsets = (np.arange(T) * Pb).astype(np.int32)
+    qpk = rng.integers(0, T * Pb, n).astype(np.int32)
+    leaf = rng.integers(0, n_leaves, n).astype(np.int32)
+    is_hot = rng.random(n) < hot_share
+    qpk[is_hot] = hot
+    leaf[is_hot] = n_leaves - 1
+    kept = rng.random(n) < kept_share
+    starts = (span * rng.integers(0, n_leaves // span, (T, Pb, Qc))).astype(
+        np.int32)
+    starts[:, hot, :] = n_leaves - span
+    return qpk, leaf, kept, starts, offsets
+
+
+def _edge(name, seed=0):
+    """((T, Pb, Qc, span), inputs) of one of ``EDGES``."""
+    if name == "hot bin":
+        shape = (2, 16, 3, 256)
+        return shape, _hot_bin_case(*shape, seed=seed)
+    shape = (2, 8, 3, 16)
+    if name == "none kept":
+        return shape, _case(*shape, seed=seed, n=4003, kept_share=0.0)
+    n = {"n=1": 1, "n=15": 15, "n=17": 17, "n=16k+3": 16 * 257 + 3}[name]
+    return shape, _case(*shape, seed=seed, n=n)
+
+
 def _plain(qpk, leaf, kept, starts, offsets, Pb, span):
     return hist.subtree_counts_multi_plain(
         *(torch.from_numpy(x) for x in (qpk, leaf, kept, starts, offsets)),
@@ -69,6 +110,65 @@ def test_plain_matches_pallas_kernel(T, Pb, Qc, span):
     got = _plain(qpk, leaf, kept, starts, offsets, Pb, span)
     np.testing.assert_array_equal(got, want)
     assert int(got.sum()) > 50
+
+
+@pytest.mark.parametrize("name", EDGES)
+def test_plain_matches_jax_on_edges(name):
+    (T, Pb, Qc, span), args = _edge(name)
+    qpk, leaf, kept, starts, offsets = args
+    want = np.asarray(je._subtree_counts_multi(
+        *(jnp.asarray(x) for x in args), Pb, span))
+    got = _plain(*args, Pb, span)
+    assert got.dtype == np.int32 and got.shape == (T, Pb, Qc, span)
+    np.testing.assert_array_equal(got, want)
+    if name == "none kept":
+        assert not got.any()
+    if name == "hot bin":
+        # Every kept hot row lands on the top leaf of each quantile.
+        hot = (qpk == Pb // 3) & (leaf == (1 << 16) - 1) & kept
+        assert (got[0, Pb // 3, :, span - 1] == int(hot.sum())).all()
+        assert int(hot.sum()) > 2000
+
+
+@pytest.mark.parametrize("name", EDGES)
+def test_plain_matches_pallas_kernel_on_edges(name):
+    """The Pallas kernel in interpret mode, at its envelope's row block."""
+    (T, Pb, Qc, span), args = _edge(name, seed=1)
+    rb = jax_kernels.hist_envelope(T, Pb, Qc, span)
+    assert rb is not None
+    want = np.asarray(jax_kernels.hist_bin_multi(
+        *(jnp.asarray(x) for x in args), Pb, span, rb,
+        jax_kernels.use_interpret()))
+    np.testing.assert_array_equal(_plain(*args, Pb, span), want)
+
+
+def _views(tensors, k, unit):
+    """Contiguous copies of ``tensors`` as views past a 16-byte boundary:
+    ``unit="bytes"`` puts every data_ptr ``4 k`` bytes past it (kept
+    flags and int32 words then sit at different phases), ``"rows"``
+    starts every tensor ``k`` elements in."""
+    views = []
+    for x in tensors:
+        skip = (4 * k) // x.element_size() if unit == "bytes" else k
+        buf = torch.zeros(x.numel() + 16, dtype=x.dtype, device=x.device)
+        view = buf[skip:skip + x.numel()].view(x.shape)
+        view.copy_(x)
+        views.append(view)
+    return views
+
+
+@pytest.mark.parametrize("unit", ["bytes", "rows"])
+def test_wrapper_takes_views_at_any_element(unit):
+    """A contiguous view may start at any element: the wrapper takes it as
+    it is (on the CPU the plain version; on the card the kernel reads it
+    in place)."""
+    (T, Pb, Qc, span), args = _edge("n=16k+3", seed=2)
+    want = _plain(*args, Pb, span)
+    for k in (1, 2, 3):
+        views = _views([torch.from_numpy(x) for x in args], k, unit)
+        assert views[0].data_ptr() % 16 != 0
+        got = hist.subtree_counts_multi(*views, Pb, span)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_dense_every_row_in_range():
@@ -154,3 +254,26 @@ def test_cuda_kernel_matches_plain(T, Pb, Qc, span):
     assert hist.LAUNCHES["subtree_counts_multi"] == before + 1
     want = hist.subtree_counts_multi_plain(*args, Pb, span)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit,k", [("bytes", 0), ("bytes", 1),
+                                    ("bytes", 2), ("bytes", 3),
+                                    ("rows", 1), ("rows", 2), ("rows", 3)])
+@pytest.mark.parametrize("name", EDGES)
+def test_cuda_kernel_on_edges_views_and_out(name, unit, k):
+    """The count pass's edges as views 0, 4, 8 and 12 bytes past a
+    16-byte boundary, fresh (the zero pass) and added into (``out=``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    (T, Pb, Qc, span), args = _edge(name)
+    args = [torch.from_numpy(x).cuda() for x in args]
+    want = hist.subtree_counts_multi_plain(*args, Pb, span)
+    views = _views(args, k, unit)
+    got = hist.subtree_counts_multi(*views, Pb, span)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    acc = want + 7
+    assert hist.subtree_counts_multi(*views, Pb, span, out=acc) is acc
+    np.testing.assert_array_equal(acc.cpu().numpy(),
+                                  (2 * want + 7).cpu().numpy())

@@ -1,9 +1,9 @@
-"""Times the segment-sum kernels K1 and K2, the ordered segment-total
-kernel K4 and the ordered keyed sum K5 of two checkouts of the port
-against each other on one NVIDIA GPU, in turns, on chip_smoke.py's
-stacks.
+"""Times the segment-sum kernels K1 and K2, the subtree-leaf histogram
+K3, the ordered segment-total kernel K4 and the ordered keyed sum K5 of
+two checkouts of the port against each other on one NVIDIA GPU, in
+turns, on chip_smoke.py's stacks.
 
-    python3 tools/segsum_ab.py OLD_ROOT NEW_ROOT [--only K1|K2|K4|K5]
+    python3 tools/segsum_ab.py OLD_ROOT NEW_ROOT [--only K1|K2|K3|K4|K5]
         [--out DIR]
 
 Each ROOT is the root of a checkout of this repository (for example one
@@ -20,6 +20,14 @@ the count and moment stacks that its own main path builds for config 5's
 first chunk of 132 configs (``segkeyed.segmented_sums``, held to the
 checkout's plain version), then each checkout's config-5 sweep (10,000
 configs) once: its wall and K5's summed device time in it (CUDA events).
+K3 runs only under ``--only K3``: each checkout's
+``hist.subtree_counts_multi`` on the config-4 stack, on the fused serve
+batch's stack as phase 29 (d) captures it from the checkout's own
+service, and on the clipped hot-bin stack, held bit for bit to the
+checkout's plain version (fresh and added into), then timed four ways:
+the wrapper with a fresh output and the count pass alone (``out=`` into
+a preallocated buffer), each from an idle card (``cuda_ms``) and as
+device time per call with the host ahead (``queued_ms``).
 It prints one JSON line per stack, with
 both checkouts' two times and the ratio of their means, and with
 ``--out`` writes them to ``DIR/segsum_ab.json``.
@@ -134,6 +142,71 @@ def k5_records(cs):
     return records
 
 
+def k3_stacks(cs):
+    """(name, args, Pb, span): K3's stacks in chip_smoke.py."""
+    import shutil
+    import tempfile
+    import torch
+    import pipelinedp_tpu_torch as pdt
+    c4 = cs.zipf_columns(cs.CONFIG4["rows"], cs.CONFIG4["users"],
+                         cs.CONFIG4["partitions"], cs.CONFIG4["seed"])
+    qpk, leaf, kept, starts, P = cs.config4_stack(c4)
+    del c4
+    offsets = torch.zeros(1, dtype=torch.int32, device="cuda")
+    yield "K3 config-4 stack", (qpk, leaf, kept, starts, offsets), P, 256
+    del qpk, leaf, kept, starts
+    calls = []
+    tmp = tempfile.mkdtemp(prefix="segsum_ab_k3_")
+    try:
+        cs._percentile_burst(
+            pdt, tmp, "capture", cs.serve_columns(cs.SERVE_ROWS),
+            [3_000 + i for i in range(cs.SERVE_FUSED_CONC)], True,
+            calls.append)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert len(calls) == 1, len(calls)
+    yield "K3 fused serve stack", tuple(calls[0][:5]), *calls[0][5:7]
+    del calls
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    yield ("K3 clipped hot-bin stack",
+           cs.hot_bin_case(1, 16384, 3, 256, 4_000_000, 0.57, gen), 16384,
+           256)
+
+
+def k3_records(cs):
+    """This checkout's K3 on ``k3_stacks``, bit for bit its plain version,
+    timed as its wrapper and as its count pass alone, each from an idle
+    card and as device time per call."""
+    import torch
+    from pipelinedp_tpu_torch.ops.kernels import hist
+    records = []
+    for name, args, Pb, span in k3_stacks(cs):
+        want = hist.subtree_counts_multi_plain(*args, Pb, span)
+        got = hist.subtree_counts_multi(*args, Pb, span)
+        acc = want.clone()
+        hist.subtree_counts_multi(*args, Pb, span, out=acc)
+        assert torch.equal(got, want), f"K3 wrong on {name}"
+        assert torch.equal(acc, 2 * want), f"K3 out= wrong on {name}"
+        del got
+
+        def fresh():
+            return hist.subtree_counts_multi(*args, Pb, span)
+
+        def count():
+            return hist.subtree_counts_multi(*args, Pb, span, out=acc)
+
+        shape = [*args[3].shape, span, int(args[0].shape[0])]
+        for what, fn in (("wrapper", fresh), ("count pass (out=)", count)):
+            records.append(dict(stack=f"{name}, {what}", shape=shape,
+                                ms=cs.cuda_ms(fn)))
+            records.append(dict(stack=f"{name}, {what}, device time",
+                                shape=shape, ms=cs.queued_ms(fn)))
+        del want, acc, args
+        torch.cuda.empty_cache()
+    return records
+
+
 def segtotal_detail(root, path):
     """``ptxas -v`` and the SASS of ``root``'s ``csrc/segtotal.cu``."""
     from pipelinedp_tpu_torch.ops.kernels import _build
@@ -239,6 +312,8 @@ def time_checkout(root, only=None, detail=None):
     os.environ["PIPELINEDP_TPU_VECTOR_ACCUMULATOR"] = "fx"
     if only == "K5":
         return k5_records(cs)
+    if only == "K3":
+        return k3_records(cs)
     records = []
     k1k2 = () if only == "K4" else stacks(cs, segsum)
     for name, fn, cols, pk, P in k1k2:
@@ -277,7 +352,7 @@ def main():
     parser.add_argument("new", nargs="?")
     parser.add_argument("--out", default=None)
     parser.add_argument("--only", default=None,
-                        choices=["K1", "K2", "K4", "K5"],
+                        choices=["K1", "K2", "K3", "K4", "K5"],
                         help="time only that kernel's stacks")
     parser.add_argument("--k4-detail", action="store_true",
                         help="K4's device times per launch, its SASS and "
