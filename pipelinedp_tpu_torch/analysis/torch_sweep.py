@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import functools
 import math
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -991,7 +990,8 @@ class LazySweepResult:
         device = self._device
         vectors, all_params = _config_vectors(options)
         C = len(all_params)
-        encoded = self._encode()
+        with obs.span("sweep.encode", cat="sweep"):
+            encoded = self._encode()
         n_pad = _pad_rows(encoded.n_rows)
         P = len(encoded.pk_vocab)
         P_pad = _pad_pow2(max(P, 1))
@@ -1005,17 +1005,18 @@ class LazySweepResult:
             if pp_bytes > _PP_BYTE_CAP:
                 return self._host_fallback()
 
-        marker, pk_safe, count_u, sum_u, npart_u, users_in = self._stage_a(
-            encoded, P, P_pad)
-        # One key order for the whole sweep: the per-row inputs of every
-        # chunk's K5 stacks go into it once, so each key's rows are one
-        # contiguous range (users_in and the chunk width keep stage A's
-        # rows).
-        layout = segkeyed.key_layout(pk_safe, P_pad,
-                                     keep=_k5_rows(marker, sum_u, vectors))
-        marker, count_u, sum_u, npart_u = (
-            a.index_select(0, layout.order)
-            for a in (marker, count_u, sum_u, npart_u))
+        with obs.span("sweep.stage_a", cat="sweep"):
+            marker, pk_safe, count_u, sum_u, npart_u, users_in = (
+                self._stage_a(encoded, P, P_pad))
+            # One key order for the whole sweep: the per-row inputs of
+            # every chunk's K5 stacks go into it once, so each key's rows
+            # are one contiguous range (users_in and the chunk width keep
+            # stage A's rows).
+            layout = segkeyed.key_layout(
+                pk_safe, P_pad, keep=_k5_rows(marker, sum_u, vectors))
+            marker, count_u, sum_u, npart_u = (
+                a.index_select(0, layout.order)
+                for a in (marker, count_u, sum_u, npart_u))
 
         noise_rows = np.stack([
             _noise_stds(m, all_params, self._budgets)
@@ -1122,24 +1123,21 @@ class LazySweepResult:
         pp_chunks = []
         self.chunk = chunk
         self.n_chunks = -(-C // chunk)
-        t_sweep0 = time.monotonic()
-        live_configs = 0  # configs run by this call (not the resumed ones)
         for ci, start in enumerate(range(0, C, chunk)):
             if ckpt_store is not None and ci < done_chunks:
                 continue  # restored from the checkpoint prefix
             faults.check_chunk(ci)
             faults.check_sweep_config_chunk(ci)
             # The heartbeat's sweep section: configs done against the
-            # plan and configs/s, so a stalled chunk can be named.
-            el = time.monotonic() - t_sweep0
+            # plan, so a stalled chunk can be named. ``configs_done``
+            # counts the configs of the chunks the host enqueued before
+            # this one; the device may still be running the last.
             obs.monitor.update_sweep({
                 "configs_done": min(ci * chunk, C),
                 "configs_planned": C,
                 "chunk": ci,
                 "chunks_planned": self.n_chunks,
                 "config_batch": chunk,
-                "configs_per_s": (round(live_configs / el, 1) if el > 0
-                                  else 0.0),
                 "resumed_from_chunk": done_chunks,
             })
             with obs.span("sweep.chunk", cat="sweep", chunk=ci,
@@ -1161,7 +1159,8 @@ class LazySweepResult:
             if per_partition:
                 pp_chunks.append(pp)
             if ckpt_store is not None:
-                flat = flatten_host(out, sel)
+                with obs.span("sweep.fetch", cat="sweep"):
+                    flat = flatten_host(out, sel)
                 acc_flat = (flat if acc_flat is None else
                             {k: np.concatenate([acc_flat[k], flat[k]])
                              for k in flat})
@@ -1170,7 +1169,6 @@ class LazySweepResult:
                         ckpt_fp, ci + 1, acc_flat))
             else:
                 chunk_outs.append((out, sel))
-            live_configs += chunk
 
         # The grid completed: clear the heartbeat's sweep section (a
         # killed sweep leaves its last snapshot for the stall watchdog).
@@ -1187,21 +1185,25 @@ class LazySweepResult:
                     sel_cat[k[2:]] = v[:C]
             sel_cat = sel_cat or None
         else:
-            out_cat, sel_cat = _concat_fetch(chunk_outs, metric_names, C)
+            with obs.span("sweep.fetch", cat="sweep"):
+                out_cat, sel_cat = _concat_fetch(chunk_outs, metric_names,
+                                                 C)
         fields = {nm: out_cat[nm] for nm in metric_names}
 
         if per_partition:
             keys = sorted(pp_chunks[0])
-            blocks = {k: torch.cat([c[k] for c in pp_chunks], dim=1)
-                      [:P, :C].cpu().numpy() for k in keys}
-            users_np = users_in.cpu().numpy()[:P]
+            with obs.span("sweep.fetch", cat="sweep"):
+                blocks = {k: torch.cat([c[k] for c in pp_chunks], dim=1)
+                          [:P, :C].cpu().numpy() for k in keys}
+                users_np = users_in.cpu().numpy()[:P]
             mask_np = (users_np > 0) | (public & (users_np == 0))
             self._pp_rows = self._assemble_pp(
                 all_params, metric_names, blocks, mask_np, noise_rows,
                 encoded.pk_vocab)
 
-        result = self._pack(all_params, fields, sel_cat, noise_rows,
-                            metric_names)
+        with obs.span("sweep.pack", cat="sweep"):
+            result = self._pack(all_params, fields, sel_cat, noise_rows,
+                                metric_names)
         if ckpt_store is not None and ckpt_writer:
             # A finished run must not be resumable.
             ckpt_store.clear()

@@ -11,7 +11,12 @@ fast. This package is the one place that knowledge accumulates:
   spans into the ledger only when ``PIPELINEDP_TPU_TRACE`` is set.
 * :func:`tracer` — the global tracer for ledger-only call sites (sweep
   chunks, checkpoint phases, walk rounds): a recording tracer when
-  tracing is on, the shared zero-overhead no-op otherwise.
+  tracing is on, a range-only tracer while ``torch.profiler`` records,
+  the shared zero-overhead no-op otherwise.
+* Profiler ranges: while ``torch.profiler`` records, every span of every
+  tracer opens a ``record_function`` range ``pdp.<span name>`` on the
+  profiler's clock, beside the device operations it launched; under
+  ``PIPELINEDP_TPU_TRACE`` a span also pushes an NVTX range on the card.
 * :func:`inc` / :func:`event` — the counters/events registry. Always
   on: retries, health degradations, checkpoint saves/resumes/refusals,
   fault injections, cache hits, and which fallback path fired are rare
@@ -25,9 +30,6 @@ fast. This package is the one place that knowledge accumulates:
 * :func:`build_run_report` / :func:`write_chrome_trace` — exporters:
   the schema-versioned run report (merged into bench records) and the
   Perfetto-loadable Chrome-trace file.
-* :func:`device_annotation` — an NVTX range and a
-  ``torch.profiler.record_function`` around device dispatches, active
-  only under ``PIPELINEDP_TPU_TRACE``.
 * :mod:`~pipelinedp_tpu_torch.obs.audit` — the structured privacy/utility
   audit registry behind the run report's schema-v2 ``privacy`` section:
   per-mechanism eps/delta splits + noise stddevs (pushed by
@@ -59,7 +61,6 @@ fold threads emit concurrently with the dispatch thread.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict, Optional
 
 from pipelinedp_tpu_torch.obs import (audit, costs, metrics, store,
@@ -67,20 +68,21 @@ from pipelinedp_tpu_torch.obs import (audit, costs, metrics, store,
 from pipelinedp_tpu_torch.obs import report as _report
 from pipelinedp_tpu_torch.obs.tracer import (
     ACTIVITY, ENV_VAR, MAX_EVENTS, MAX_SPANS, NOOP_SPAN, NOOP_TRACER,
-    NoopTracer, RunLedger, Span, Tracer, trace_destination, trace_enabled)
+    RANGE_PREFIX, RANGE_TRACER, NoopTracer, RangeTracer, RunLedger, Span,
+    Tracer, profiler_recording, trace_destination, trace_enabled)
 from pipelinedp_tpu_torch.obs.report import (SCHEMA_VERSION,
                                              environment_fingerprint)
 from pipelinedp_tpu_torch.obs import monitor  # noqa: E402 (needs store first)
 
 __all__ = [
     "ENV_VAR", "SCHEMA_VERSION", "MAX_SPANS", "MAX_EVENTS",
-    "Span", "Tracer", "NoopTracer", "RunLedger",
-    "NOOP_SPAN", "NOOP_TRACER", "ACTIVITY",
-    "trace_enabled", "trace_destination",
+    "Span", "Tracer", "NoopTracer", "RangeTracer", "RunLedger",
+    "NOOP_SPAN", "NOOP_TRACER", "RANGE_TRACER", "RANGE_PREFIX", "ACTIVITY",
+    "trace_enabled", "trace_destination", "profiler_recording",
     "ledger", "tracer", "run_tracer", "span", "inc", "event", "reset",
     "gauge", "gauge_max", "sample",
     "environment_fingerprint", "build_run_report", "write_chrome_trace",
-    "device_annotation", "audit", "costs", "store", "monitor",
+    "audit", "costs", "store", "monitor",
     "metrics", "trace_context",
 ]
 
@@ -106,11 +108,14 @@ def tracer() -> Any:
     """Global tracer for ledger-only span sites: recording when
     ``PIPELINEDP_TPU_TRACE`` is set, measuring-only when the live
     monitor is armed (its watchdog needs real span open/close signals),
-    the shared no-op otherwise."""
+    range-only while ``torch.profiler`` records, the shared no-op
+    otherwise."""
     if trace_enabled():
         return _RECORDING
     if ACTIVITY.enabled:
         return _MEASURING
+    if profiler_recording():
+        return RANGE_TRACER
     return NOOP_TRACER
 
 
@@ -187,24 +192,3 @@ def write_chrome_trace(path: Optional[str] = None,
     return _report.write_chrome_trace(
         path or trace_destination(),
         snapshot if snapshot is not None else _LEDGER.snapshot())
-
-
-@contextlib.contextmanager
-def _annotated(name: str):
-    import torch
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
-
-
-def device_annotation(name: str):
-    """An NVTX range plus a ``torch.profiler.record_function`` around a
-    device dispatch, so device profiles line up with host spans — active
-    only under ``PIPELINEDP_TPU_TRACE``; otherwise the shared no-op
-    context."""
-    if not trace_enabled():
-        return NOOP_SPAN
-    return _annotated(name)

@@ -246,8 +246,8 @@ def serve_health_snapshot() -> Optional[Dict[str, Any]]:
 # (analysis/torch_sweep.py) pushes its config-chunk progress here — same
 # push pattern as fusion/mesh above (the monitor never imports the
 # layers it observes). The heartbeat grows a "sweep" section while a
-# megasweep is in flight (configs done vs planned, configs/s, current
-# chunk), so the stall watchdog can name the blocked config batch.
+# megasweep is in flight (configs enqueued vs planned, current chunk),
+# so the stall watchdog can name the blocked config batch.
 
 _SWEEP_LOCK = threading.Lock()
 _SWEEP_STATE: Optional[Dict[str, Any]] = None
@@ -580,9 +580,9 @@ class Monitor:
             }
         sweep = sweep_snapshot()
         if sweep is not None:
-            # Megasweep progress: configs done vs planned + configs/s,
-            # so a long utility-analysis sweep is visible live and a
-            # stall names its blocked config batch.
+            # Megasweep progress: configs enqueued vs planned, so a long
+            # utility-analysis sweep is visible live and a stall names
+            # its blocked config batch.
             hb["sweep"] = sweep
         tenants = tenants_snapshot()
         if tenants is not None:

@@ -23,6 +23,14 @@ thread, and all three emit spans into one tracer — every mutation here
 is lock-guarded, and each completed span carries its thread identity so
 the Chrome-trace export lays the three lanes out side by side.
 
+Profiler ranges: while ``torch.profiler`` records, every span of every
+tracer also opens a ``torch.profiler.record_function`` range named
+``pdp.<span name>``, so the span lands on the profiler's clock beside the
+device operations it launched; a recording tracer (``PIPELINEDP_TPU_TRACE``)
+also pushes an NVTX range once CUDA is initialised. The profiler's state is
+read through ``sys.modules``: a process that never imported torch runs no
+profiler, and this module keeps to the standard library.
+
 Clock: tracers accept any ``pipelinedp_tpu_torch.resilience.clock.Clock``
 (``monotonic()`` is the only method used), so fault tests drive spans
 with a ``FakeClock`` and assert exact durations in zero wall time. The
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import collections
 import os
+import sys
 import threading
 import time as _time
 from typing import Any, Dict, List, Optional, Tuple
@@ -82,6 +91,44 @@ def trace_destination(default: str = "pdp_trace.json") -> str:
     if os.sep in v or "/" in v or v.endswith(".json"):
         return v
     return default
+
+
+#: The prefix of the profiler range (and NVTX range) a span opens.
+RANGE_PREFIX = "pdp."
+
+
+def _profiler():
+    """``torch.autograd.profiler`` while a ``torch.profiler`` records,
+    else None (one dict lookup and one attribute read)."""
+    mod = sys.modules.get("torch.autograd.profiler")
+    if mod is not None and mod._is_profiler_enabled:
+        return mod
+    return None
+
+
+def profiler_recording() -> bool:
+    """True while a ``torch.profiler`` records in this process."""
+    return _profiler() is not None
+
+
+def _open_range(name: str):
+    """The span's profiler range, entered, or None when no profiler
+    records."""
+    prof = _profiler()
+    if prof is None:
+        return None
+    rf = prof.record_function(RANGE_PREFIX + name)
+    rf.__enter__()
+    return rf
+
+
+def _nvtx():
+    """``torch.cuda.nvtx`` once this process has initialised CUDA, else
+    None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    return torch.cuda.nvtx
 
 
 class _PerfClock:
@@ -294,7 +341,7 @@ class _SpanHandle:
     two-``perf_counter`` idiom)."""
 
     __slots__ = ("_tracer", "name", "cat", "args", "_t0", "duration",
-                 "_ctx_token")
+                 "_ctx_token", "_range", "_nvtx")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: Dict[str, Any]):
@@ -305,8 +352,15 @@ class _SpanHandle:
         self._t0 = 0.0
         self.duration = 0.0
         self._ctx_token = None
+        self._range = None
+        self._nvtx = None
 
     def __enter__(self) -> "_SpanHandle":
+        self._range = _open_range(self.name)
+        if self._tracer._ledger is not None:
+            self._nvtx = _nvtx()
+            if self._nvtx is not None:
+                self._nvtx.range_push(RANGE_PREFIX + self.name)
         self._t0 = self._tracer._clock.monotonic()
         sid = self.args.get("span_id")
         if sid is not None:
@@ -326,6 +380,12 @@ class _SpanHandle:
         if ACTIVITY.enabled:
             ACTIVITY.span_closed(self, self.duration)
         self._tracer._finish(self, self._t0, self.duration)
+        if self._nvtx is not None:
+            self._nvtx.range_pop()
+            self._nvtx = None
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         return False
 
 
@@ -399,8 +459,8 @@ class _NoopSpan:
         return False
 
 
-#: The one no-op span handle — ``NoopTracer.span`` and
-#: ``obs.device_annotation`` return THIS object, never a fresh one.
+#: The one no-op span handle — ``NoopTracer.span`` returns THIS object,
+#: never a fresh one.
 NOOP_SPAN = _NoopSpan()
 
 
@@ -427,3 +487,39 @@ class NoopTracer:
 
 #: The one no-op tracer instance.
 NOOP_TRACER = NoopTracer()
+
+
+class _RangeSpan:
+    """A span that is only its profiler range (see ``RangeTracer``)."""
+
+    __slots__ = ("name", "_range")
+    duration = 0.0
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> "_RangeSpan":
+        self._range = _open_range(self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        return False
+
+
+class RangeTracer(NoopTracer):
+    """The tracer ``obs.tracer()`` hands out while ``torch.profiler``
+    records and span recording is off: each span opens its ``pdp.`` range
+    and nothing else — no totals, nothing in the ledger, no run report."""
+
+    __slots__ = ()
+
+    def span(self, name: str, cat: str = "run", **args) -> _RangeSpan:
+        return _RangeSpan(name)
+
+
+#: The one range-only tracer instance.
+RANGE_TRACER = RangeTracer()

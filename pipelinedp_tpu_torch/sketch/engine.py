@@ -247,7 +247,7 @@ def _accumulate_stream(pair_buckets: np.ndarray, width: int,
                     compute = torch.cuda.current_stream(device)
                     compute.wait_event(ready)
                     dev.record_stream(compute)
-                with obs.device_annotation("pdp.sketch_chunk"):
+                with obs.span("sketch.chunk", cat="sketch"):
                     out = sketch_device.sketch_chunk(dev, width, backend)
                     if n_dev > 1:
                         out = psh.combine_shards(out, mesh, 1, True,

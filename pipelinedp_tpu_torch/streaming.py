@@ -854,7 +854,7 @@ def _stream_impl(config, encoded, scales, keep_table, sel_threshold,
         if sup is not None:
             sup.gate()
         staging.ready_on_compute(item)
-        with obs.device_annotation("pdp.stream_partials"):
+        with obs.span("stream.partials", cat="ingest"):
             part, nseg, mid = _batch_partials(
                 config, P_pad, pid, pk, values, _cell_key(k_bound, b, mesh),
                 fx_bits)
@@ -953,8 +953,7 @@ def _stream_impl(config, encoded, scales, keep_table, sel_threshold,
                 "more than 2^31 privacy units in one partition")
         # Selection never reads the walk: strip the percentiles.
         sel_config = dataclasses.replace(config, percentiles=())
-        with tr.span("ingest.select", cat="ingest"), \
-                obs.device_annotation("pdp.partition_select"):
+        with tr.span("ingest.select", cat="ingest"):
             keep = _select(sel_config, P_pad, torch.from_numpy(
                 nseg.astype(np.int32)).to(device), keep_table,
                 sel_threshold, sel_scale, sel_min_count, sel_rows_per_uid,
@@ -1020,8 +1019,7 @@ def _pass_b(config, plan, P_pad, acc, mid_acc, scales, k_bound, k_noise,
             "beyond the int32 tree-histogram capacity")
     stream = te._WalkRows.solo(te._tree_key(k_noise), te._walk_scale(scales),
                                P_pad, device=device)
-    with tr.span("walk.top", cat="walk"), \
-            obs.device_annotation("pdp.walk_top"):
+    with tr.span("walk.top", cat="walk"):
         lo, hi, target, leaf_lo, done = _walk_top(
             config, P_pad, mid_acc.reshape(P_pad, n_mid), stream)
     del mid_acc
@@ -1099,7 +1097,7 @@ def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
         if sup is not None:
             sup.gate()
         staging.ready_on_compute(item)
-        with obs.device_annotation("pdp.stream_pass_b"):
+        with obs.span("stream.pass_b", cat="ingest"):
             _sweep_batch(config, pid, pk, values, _cell_key(k_bound, b, mesh),
                          starts, p_offs, Pb, span, sub)
         if ring_b is not None:
@@ -1112,8 +1110,7 @@ def _pass_b_sweep(config, sweep, Pb, qn, span, leaf_lo, lo, hi, target,
         sub = psh.combine_shards(sub, mesh, 0, True, "stream.subtree")
     for ti, (q0, _, p0) in enumerate(sweep):
         psl, qsl = slice(p0, p0 + Pb), slice(q0, q0 + qn)
-        with tr.span("walk.bottom", cat="walk", p0=p0, q0=q0), \
-                obs.device_annotation("pdp.walk_bottom"):
+        with tr.span("walk.bottom", cat="walk", p0=p0, q0=q0):
             vals[psl, qsl] = _walk_bottom(
                 config, Pb, sub[ti], starts[ti], lo[psl, qsl],
                 hi[psl, qsl], target[psl, qsl], leaf_lo[psl, qsl],

@@ -368,29 +368,33 @@ def _encode_arrays(ds: ArrayDataset, public_partitions: Optional[Sequence],
             "all data silently dropped by contribution bounding.")
     pid_arr = (np.asarray(ds.privacy_ids) if ds.privacy_ids is not None
                else np.zeros(n, np.int64))
-    values = (np.asarray(ds.values, dtype=np.float32)
-              if ds.values is not None else np.zeros(n, np.float32))
-    if public_partitions is not None:
-        vocab = np.asarray(list(public_partitions))
-        sorter = np.argsort(vocab, kind="stable")
-        pos = np.searchsorted(vocab, pk_arr, sorter=sorter)
-        pos = np.clip(pos, 0, len(vocab) - 1)
-        candidate = sorter[pos]
-        mask = vocab[candidate] == pk_arr
-        pk_idx = candidate[mask].astype(np.int32)
-        pid_arr = pid_arr[mask]
-        values = values[mask]
-        pk_vocab = list(vocab.tolist())
-    else:
-        fac = _int_factorize(pk_arr)
-        if fac is not None:
-            uniq, pk_idx = fac
+    with obs.span("encode.values", cat="encode"):
+        values = (np.asarray(ds.values, dtype=np.float32)
+                  if ds.values is not None else np.zeros(n, np.float32))
+    with obs.span("encode.pk", cat="encode"):
+        if public_partitions is not None:
+            vocab = np.asarray(list(public_partitions))
+            sorter = np.argsort(vocab, kind="stable")
+            pos = np.searchsorted(vocab, pk_arr, sorter=sorter)
+            pos = np.clip(pos, 0, len(vocab) - 1)
+            candidate = sorter[pos]
+            mask = vocab[candidate] == pk_arr
+            pk_idx = candidate[mask].astype(np.int32)
+            pid_arr = pid_arr[mask]
+            values = values[mask]
+            pk_vocab = list(vocab.tolist())
         else:
-            uniq, pk_idx = _unique_inverse(pk_arr)
-        pk_vocab = list(uniq.tolist())
+            fac = _int_factorize(pk_arr)
+            if fac is not None:
+                uniq, pk_idx = fac
+            else:
+                uniq, pk_idx = _unique_inverse(pk_arr)
+            pk_vocab = list(uniq.tolist())
+    with obs.span("encode.pid", cat="encode"):
+        pid = _pid_ids(pid_arr)
     if vector_size:
         values = values.reshape(len(values), vector_size)
-    return EncodedData(pid=_pid_ids(pid_arr), pk=pk_idx, values=values,
+    return EncodedData(pid=pid, pk=pk_idx, values=values,
                        pk_vocab=pk_vocab, n_rows=len(pk_idx))
 
 
@@ -592,15 +596,19 @@ def _partials(config: FusedConfig, num_partitions: int, pid, pk, values,
     one device. Returns (columns dict of int32 [P], plus VECTOR_SUM's
     [P, W] column; the privacy-id-count column; the percentile row view
     ``_qrows`` of the bounded rows, or None without percentiles)."""
-    b = _bound_rows(config, pid, pk, values, key)
-    part, nseg = _reduce_per_pk(config, b.spk, b.masked, b.keep_row,
-                                num_partitions, seg_marker=b.seg_marker,
-                                fx_bits=fx_bits, contrib=b.contrib)
+    with obs.span("engine.bound", cat="engine"):
+        b = _bound_rows(config, pid, pk, values, key)
+    with obs.span("engine.reduce", cat="engine"):
+        part, nseg = _reduce_per_pk(config, b.spk, b.masked, b.keep_row,
+                                    num_partitions, seg_marker=b.seg_marker,
+                                    fx_bits=fx_bits, contrib=b.contrib)
     if config.bounds_already_enforced:
         # Without pids every row counts as its own privacy unit.
         nseg = part["count"]
-    qrows = (_qrows(config, b.spk, b.svalues, b.keep_row)
-             if config.percentiles else None)
+    qrows = None
+    if config.percentiles:
+        with obs.span("engine.walk", cat="engine"):
+            qrows = _qrows(config, b.spk, b.svalues, b.keep_row)
     return part, nseg, qrows
 
 
@@ -1013,16 +1021,19 @@ def _selection_and_metrics(config: FusedConfig, num_partitions: int, part,
     ``num_partitions * mesh.size``. The selection draws cover the global
     axis and this rank keeps its block's slice, and the walk runs on the
     owned block, so the keep decisions and the walk equal one device's."""
-    keep_pk, out = _selection(config, num_partitions, part, part_nseg,
-                              keep_table, sel_threshold, sel_scale,
-                              sel_min_count, sel_rows_per_uid, k_sel, mesh)
+    with obs.span("engine.select", cat="engine"):
+        keep_pk, out = _selection(config, num_partitions, part, part_nseg,
+                                  keep_table, sel_threshold, sel_scale,
+                                  sel_min_count, sel_rows_per_uid, k_sel,
+                                  mesh)
     if config.percentiles:
         P = num_partitions
         stream = _WalkRows.solo(_tree_key(k_noise), _walk_scale(noise_scales),
                                 P, 0 if mesh is None else mesh.index * P,
                                 part_nseg.device)
         if mesh is None:
-            vals = _percentile_values(config, P, qrows, stream)
+            with obs.span("engine.walk", cat="engine"):
+                vals = _percentile_values(config, P, qrows, stream)
         else:
             vals = _percentile_values_owned(config, P, qrows, stream, mesh)
         for qi, name in enumerate(_percentile_field_names(
@@ -1895,15 +1906,16 @@ def _run_fused(config: FusedConfig, encoded: EncodedData, scales,
         fx_bits = 12
     if mesh is not None:
         from pipelinedp_tpu_torch.parallel import sharded
-        with obs.device_annotation("pdp.sharded_fused_aggregate"):
+        with obs.span("engine.sharded_fused_aggregate", cat="engine"):
             keep_pk, raw = sharded.sharded_fused_aggregate(
                 mesh, config, P_pad, encoded.pid, encoded.pk,
                 encoded.values if config.needs_values else None, scales,
                 keep_table, thr, s_scale, min_count, rows_per_uid, key,
                 fx_bits)
         return keep_pk, raw, fx_bits
-    pid, pk, values = put_on_device(encoded, device,
-                                    with_values=config.needs_values)
+    with obs.span("engine.put", cat="engine"):
+        pid, pk, values = put_on_device(encoded, device,
+                                        with_values=config.needs_values)
     keep_pk, raw = _fused_body(config, P_pad, pid, pk, values, scales,
                                keep_table, thr, s_scale, min_count,
                                rows_per_uid, key, fx_bits)
@@ -2032,7 +2044,7 @@ def fused_aggregate_batch(config: FusedConfig, num_partitions: int,
     one K1 launch for the batch, and with PERCENTILE one more K1 launch
     and one K3 launch for the quantile walk of every member."""
     device = torch.device(device)
-    with obs.device_annotation("pdp.fused_aggregate_batch"):
+    with obs.span("engine.fused_aggregate_batch", cat="engine"):
         cols = [put_on_device(prep.encoded, device,
                               with_values=config.needs_values)
                 for prep in preps]
@@ -2295,40 +2307,41 @@ class LazyFusedResult:
         keep_pk, raw, fx_bits = _run_fused(
             config, encoded, scales, keep_table, thr, s_scale, min_count,
             rows_per_uid, self._rng_seed, self._device, self._mesh)
-        # The rank-1 columns are [P_pad] and ride one packed int32 block,
-        # the float32 percentile columns bitcast into it; the rank-2
-        # VECTOR_SUM column is gathered by the kept indices.
-        flat = sorted(k for k, v in raw.items() if v.dim() == 1)
-        cols = [raw[name] if raw[name].dtype == torch.int32 else
-                raw[name].contiguous().view(torch.int32) for name in flat]
-        compact = self._public is None
-        if compact:
-            cap = min(P, _COMPACT_FETCH_CAP)
-            packed = _compact_fetch(keep_pk, cols, P, cap).cpu().numpy()
-            n_keep = int(packed[0, 0])
-            if n_keep > cap:  # too many kept: fetch everything
+        with obs.span("engine.fetch", cat="engine"):
+            # The rank-1 columns are [P_pad] and ride one packed int32 block,
+            # the float32 percentile columns bitcast into it; the rank-2
+            # VECTOR_SUM column is gathered by the kept indices.
+            flat = sorted(k for k, v in raw.items() if v.dim() == 1)
+            cols = [raw[name] if raw[name].dtype == torch.int32 else
+                    raw[name].contiguous().view(torch.int32) for name in flat]
+            compact = self._public is None
+            if compact:
+                cap = min(P, _COMPACT_FETCH_CAP)
+                packed = _compact_fetch(keep_pk, cols, P, cap).cpu().numpy()
+                n_keep = int(packed[0, 0])
+                if n_keep > cap:  # too many kept: fetch everything
+                    stacked = torch.stack(
+                        [keep_pk.to(torch.int32)] + cols)[:, :P].cpu().numpy()
+                    kept_idx = np.flatnonzero(stacked[0] > 0)
+                    compact = False
+                else:
+                    stacked = packed[1:, :n_keep]
+                    kept_idx = stacked[0]
+            else:
                 stacked = torch.stack(
                     [keep_pk.to(torch.int32)] + cols)[:, :P].cpu().numpy()
                 kept_idx = np.flatnonzero(stacked[0] > 0)
-                compact = False
-            else:
-                stacked = packed[1:, :n_keep]
-                kept_idx = stacked[0]
-        else:
-            stacked = torch.stack(
-                [keep_pk.to(torch.int32)] + cols)[:, :P].cpu().numpy()
-            kept_idx = np.flatnonzero(stacked[0] > 0)
-        fetched = {name: (stacked[1 + i] if raw[name].dtype == torch.int32
-                          else stacked[1 + i].view(np.float32))
-                   for i, name in enumerate(flat)}
-        for name, arr in raw.items():
-            if arr.dim() != 1:
-                if compact:
-                    rows = torch.from_numpy(kept_idx.astype(np.int64))
-                    fetched[name] = arr[rows.to(arr.device)].cpu().numpy()
-                else:
-                    fetched[name] = arr[:P].cpu().numpy()
-        _sync(self._device)
+            fetched = {name: (stacked[1 + i] if raw[name].dtype == torch.int32
+                              else stacked[1 + i].view(np.float32))
+                       for i, name in enumerate(flat)}
+            for name, arr in raw.items():
+                if arr.dim() != 1:
+                    if compact:
+                        rows = torch.from_numpy(kept_idx.astype(np.int64))
+                        fetched[name] = arr[rows.to(arr.device)].cpu().numpy()
+                    else:
+                        fetched[name] = arr[:P].cpu().numpy()
+            _sync(self._device)
         return fetched, fx_bits, compact, kept_idx
 
     def _finish_release(self, encoded: EncodedData, fetched, fx_bits: int,

@@ -156,7 +156,7 @@ class TestNoopMode:
             assert sp.duration == 0.0
         assert not hasattr(obs.NOOP_SPAN, "__dict__")
         assert not hasattr(obs.NOOP_TRACER, "__dict__")
-        assert obs.device_annotation("k") is obs.NOOP_SPAN
+        assert obs.span("k") is obs.NOOP_SPAN
 
     def test_streamed_run_emits_no_spans(self):
         ds, parts = make_ds(seed=3)
