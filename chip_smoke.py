@@ -284,7 +284,17 @@ Phases, one line each; any failure raises and exits non-zero:
     sweep_kill, K1 on every survivor of device_loss and topo_kill); the
     campaign's clean count_sum, percentile and megasweep baselines on the
     card equal the CPU's bit for bit;
-33. a ``kernels`` JSON line per kernel (K1-K5, each with
+33. K6 vs plain (after phase 12): ``run_scan`` and ``bound_linf_l0`` on
+    the card against their plain versions (``cummax``), bit for bit, on
+    the query cell's own flags (``benchmark/``'s MovieLens-25M table and
+    ``ml25m.query_scalar``'s query, the bounding's call captured from one
+    aggregation, which launches the bounding epilogue once and the
+    generic one never), on ML-1M's stage-A flags (with ``_run_ends``),
+    and on every layout of ``segscan.seam_layout`` and n = 0, 1, one tile
+    and one tile and a row, aligned and as an offset view; each epilogue
+    timed from an idle card and as queued device time, beside its plain
+    version and its bound; the generic launches of one ML-1M sweep;
+34. a ``kernels`` JSON line per kernel (K1-K6, each with
     ``launches_chaos``, its launches over phase 32's recovered runs), then
     the card line, then the result line ``{"ok": true, "device": {...}}``
     last.
@@ -328,7 +338,7 @@ CONFIG4 = dict(rows=10_000_000, users=200_000, partitions=100_000, seed=4)
 CHUNK_ENV = "PIPELINEDP_TPU_STREAM_CHUNK"
 CAP_ENV = "PIPELINEDP_TPU_SUBHIST_CAP"
 KERNEL_SOURCES = ("segsum_lanes", "segsum_wide", "hist_bin", "segtotal",
-                  "segkeyed")
+                  "segkeyed", "segscan")
 # ``bench.py``'s ``bench_streaming`` at its default ``--stream-rows``.
 STREAM_ROWS = 150_000_000
 # K4's hot segment: one (user, partition) pair of 2^20 rows.
@@ -1599,6 +1609,209 @@ def phase_segtotal_kernel(columns, max_sm_mhz):
     return flagship
 
 
+def benchmark_table(name, seed):
+    """The benchmark's table of configuration ``name``
+    (``benchmark/configs/<name>.json``) from ``seed``, made on the card by
+    its generator: (user ids, item ids, ratings) NumPy columns."""
+    from benchmark.data import ratings
+    with open(os.path.join(HERE, "benchmark", "configs",
+                           name + ".json")) as f:
+        cfg = json.load(f)
+    return ratings.generate(cfg, seed, torch.device("cuda"))
+
+
+def query_params(pdt):
+    """``benchmark/traffic/query_scalar.json``'s query: MEAN+COUNT+SUM,
+    Laplace, L0 = 4, Linf = 2, values in [0, 5], truncated-geometric
+    selection."""
+    return dict(flagship_params(pdt), max_value=5.0)
+
+
+def captured_bound_flags(columns, params_kw, seed):
+    """The flags K6's bounding epilogue takes in one aggregation of
+    ``columns`` on the card (the main path's own call, captured), and the
+    K6 launches of that aggregation by epilogue."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch.ops.kernels import segscan
+    seen = []
+    real = segscan.bound_linf_l0
+
+    def capture(new_seg, new_pid, linf_cap, l0):
+        seen.append((new_seg.clone(), new_pid.clone(), linf_cap, l0))
+        return real(new_seg, new_pid, linf_cap, l0)
+
+    segscan.reset_launches()
+    segscan.bound_linf_l0 = capture
+    try:
+        _aggregate(pdt, columns, params_kw, "cuda", seed)
+    finally:
+        segscan.bound_linf_l0 = real
+    assert len(seen) == 1, f"{len(seen)} bounding scans in one aggregation"
+    return seen[0], dict(segscan.LAUNCHES)
+
+
+def _assert_segscan_plain(new_run, new_group, caps, what):
+    """K6's epilogues against their plain versions, bit for bit: the
+    generic one with both outputs and with each alone, the bounding one
+    at each (linf_cap, l0) of ``caps``."""
+    from pipelinedp_tpu_torch.ops.kernels import segscan
+    start, ord_ = segscan.run_scan_plain(new_run, new_group)
+    for got in (segscan.run_scan(new_run, new_group),
+                (segscan.run_scan(new_run)[0], None),
+                (None, segscan.run_scan(new_run, new_group, False)[1])):
+        for g, w, name in ((got[0], start, "run_start"),
+                           (got[1], ord_, "run_ord")):
+            if g is not None:
+                assert torch.equal(g, w), (
+                    f"K6 {name} differs from its plain version on {what} "
+                    f"at {int((g != w).sum())} rows")
+    for linf_cap, l0 in caps:
+        got = segscan.bound_linf_l0(new_run, new_group, linf_cap, l0)
+        want = segscan.bound_linf_l0_plain(new_run, new_group, linf_cap, l0)
+        for g, w, name in zip(got, want, ("keep_row", "seg_marker")):
+            assert torch.equal(g, w), (
+                f"K6 {name} differs from its plain version on {what} "
+                f"(linf {linf_cap}, l0 {l0}) at {int((g != w).sum())} rows")
+
+
+def segscan_seams():
+    """K6 against its plain version, bit for bit, on every layout of
+    ``segscan.seam_layout``, at n = 0, 1, one tile and one tile and a row,
+    aligned and as a view one row in."""
+    from pipelinedp_tpu_torch.ops.kernels import segscan
+    rng = np.random.default_rng(61)
+    cases = [(name, *segscan.seam_layout(name))
+             for name in segscan.SEAM_LAYOUTS]
+    for n in (0, 1, segscan.TILE_ROWS, segscan.TILE_ROWS + 1):
+        new_run = rng.random(n) < 0.3
+        new_group = new_run & (rng.random(n) < 0.4)
+        if n:
+            new_run[0] = new_group[0] = True
+        cases.append((f"n{n}", new_run, new_group))
+    checked = []
+    for name, new_run, new_group in cases:
+        for offset in (0, 1) if len(new_run) else (0,):
+            pad = np.zeros(offset, bool)
+            r = torch.from_numpy(np.concatenate([pad, new_run])).cuda()
+            g = torch.from_numpy(np.concatenate([pad, new_group])).cuda()
+            _assert_segscan_plain(r[offset:], g[offset:],
+                                  ((1, 1), (2, 4), (3, 2)),
+                                  f"{name}/{offset}")
+            checked.append(f"{name}/{offset}")
+    return checked
+
+
+def launch_ms(fn, reps=20):
+    """Device milliseconds per call of each kernel ``fn`` launches, by
+    name, from ``torch.profiler``. A profiled process queues launches
+    more slowly afterwards, so no timing follows it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us:
+            out[e.key[:80]] = us / 1e3 / reps
+    return out
+
+
+def time_segscan(new_run, new_group, linf_cap, l0, plain_reps=3):
+    """K6's two epilogues on these flags against their plain versions, bit
+    for bit, each timed (from an idle card, and as device time per call
+    queued back to back) beside its plain version and its bound (the
+    bytes of ``segscan.work``: each flag read once, each output written
+    once)."""
+    from pipelinedp_tpu_torch.ops.kernels import segscan
+    _assert_segscan_plain(new_run, new_group, ((linf_cap, l0),), "a stack")
+    rec = dict(rows=new_run.shape[0], runs=int(new_run.sum()),
+               groups=int(new_group.sum()))
+    for name, fn, plain, out_bytes in (
+            ("bound", lambda: segscan.bound_linf_l0(new_run, new_group,
+                                                     linf_cap, l0),
+             lambda: segscan.bound_linf_l0_plain(new_run, new_group,
+                                                 linf_cap, l0), 2),
+            ("generic", lambda: segscan.run_scan(new_run, new_group),
+             lambda: segscan.run_scan_plain(new_run, new_group), 16)):
+        bound = card_bound(segscan.work(new_run, new_group, out_bytes))
+        rec[name] = dict(
+            ms=cuda_ms(fn), device_ms=queued_ms(fn),
+            plain_ms=cuda_ms(plain, reps=plain_reps, warm=1),
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    return rec
+
+
+def phase_segscan_kernel(smi, per_launch=False):
+    """K6 against its plain version, bit for bit, and timed: on the query
+    cell's own flags (``ml25m.query_scalar``'s table and query, the
+    bounding's call captured from one aggregation on the card, with the
+    K6 launches of that call), on ML-1M's stage-A flags (the sweep cell's
+    table sorted by (user, item)) with the K6 launches of one sweep, and
+    on the seam layouts. ``per_launch`` adds, last, each epilogue's device
+    time per launch on the query cell's flags (``launch_ms``)."""
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import analysis
+    from pipelinedp_tpu_torch.analysis import torch_sweep
+    from pipelinedp_tpu_torch.ops.kernels import segscan
+    t0 = time.perf_counter()
+    columns = benchmark_table("movielens25m", 22)
+    (new_seg, new_pid, linf_cap, l0), query_launches = captured_bound_flags(
+        columns, query_params(pdt), 22)
+    del columns
+    assert query_launches == {"run_scan": 0, "bound_linf_l0": 1}, (
+        query_launches)
+    query = time_segscan(new_seg, new_pid, linf_cap, l0)
+    query_flags = (new_seg, new_pid)
+    pid, pk, values = benchmark_table("movielens1m", 22)
+    pid_t = torch.from_numpy(pid).cuda()
+    pk_t = torch.from_numpy(pk).cuda()
+    order = torch_sweep._sort_pid_pk(pid_t, pk_t)
+    spid, spk = pid_t[order], pk_t[order]
+    idx = torch.arange(len(pid), device=spid.device)
+    new_pid = (idx == 0) | (spid != torch.roll(spid, 1))
+    new_seg = new_pid | (spk != torch.roll(spk, 1))
+    for flags in (new_seg, new_pid):
+        got = torch_sweep._run_ends(flags)
+        ends = torch_sweep._last_of_run(flags)
+        want = len(pid) - 1 - torch.flip(segscan.run_scan_plain(
+            torch.flip(ends, (0,)))[0], (0,))
+        assert torch.equal(got, want), "K6 _run_ends differs on ML-1M"
+    stage_a = time_segscan(new_seg, new_pid, 2, 4)
+    options = analysis.UtilityAnalysisOptions(
+        epsilon=1.0, delta=1e-6, aggregate_params=pdt.AggregateParams(
+            metrics=[pdt.Metrics.COUNT], noise_kind=pdt.NoiseKind.LAPLACE,
+            max_partitions_contributed=1, max_contributions_per_partition=1),
+        multi_param_configuration=analysis.MultiParameterConfiguration(
+            max_partitions_contributed=[1, 4],
+            max_contributions_per_partition=[1, 2]))
+    segscan.reset_launches()
+    list(analysis.perform_utility_analysis(
+        pdt.ArrayDataset(privacy_ids=pid, partition_keys=pk, values=values),
+        pdt.TorchBackend(device="cuda"), options, pdt.DataExtractors()))
+    sweep_launches = dict(segscan.LAUNCHES)
+    assert sweep_launches["run_scan"] >= 1, sweep_launches
+    seams = segscan_seams()
+    if per_launch:
+        new_seg, new_pid = query_flags
+        query["bound"]["per_launch_ms"] = launch_ms(
+            lambda: segscan.bound_linf_l0(new_seg, new_pid, linf_cap, l0))
+        query["generic"]["per_launch_ms"] = launch_ms(
+            lambda: segscan.run_scan(new_seg, new_pid))
+    del query_flags
+    rec = dict(card=smi, kernel="run_scan/bound_linf_l0", query=query,
+               query_launches=query_launches, stage_a_ml1m=stage_a,
+               sweep_launches=sweep_launches, seams_identical=seams,
+               seconds=time.perf_counter() - t0)
+    log("segscan_kernel", **rec)
+    return rec
+
+
 def hot_stack():
     """The hot segment: 3M flagship-like rows and one more user with
     HOT_ROWS rows in partition 0, all kept (Linf 2^21), bounded as the
@@ -1654,16 +1867,16 @@ def phase_sum_bounds_gpu_vs_cpu():
 
 
 def _launch_counts():
-    from pipelinedp_tpu_torch.ops.kernels import (hist, segkeyed, segsum,
-                                                  segtotal)
+    from pipelinedp_tpu_torch.ops.kernels import (hist, segkeyed, segscan,
+                                                  segsum, segtotal)
     return dict(segsum.LAUNCHES, **hist.LAUNCHES, **segtotal.LAUNCHES,
-                **segkeyed.LAUNCHES)
+                **segkeyed.LAUNCHES, **segscan.LAUNCHES)
 
 
 def _reset_launches():
-    from pipelinedp_tpu_torch.ops.kernels import (hist, segkeyed, segsum,
-                                                  segtotal)
-    for mod in (segsum, hist, segtotal, segkeyed):
+    from pipelinedp_tpu_torch.ops.kernels import (hist, segkeyed, segscan,
+                                                  segsum, segtotal)
+    for mod in (segsum, hist, segtotal, segkeyed, segscan):
         mod.reset_launches()
 
 
@@ -4754,7 +4967,8 @@ def phase_chaos(smi):
                 f"{scenario}: survivor rank {rank} never launched K1")
     totals = dict.fromkeys(("segment_sum_lanes", "segment_sum_wide",
                             "subtree_counts_multi", "segment_totals",
-                            "segmented_sums"), 0)
+                            "segmented_sums", "run_scan", "bound_linf_l0"),
+                           0)
     for rec in records.values():
         for counts in [rec["launches"],
                        *rec.get("launches_per_rank", {}).values()]:
@@ -4826,6 +5040,7 @@ def main() -> int:
     RECORD["health_flagship_s"] = time.perf_counter() - t0
     del flagship_rows
     k4 = phase_segtotal_kernel(columns, max_sm_mhz)
+    k6 = phase_segscan_kernel(smi)
     phase_sum_bounds_gpu_vs_cpu()
     sum_bounds = phase_sum_bounds_full(columns)
     flag_prefix = tuple(c[:HOST_FLAGSHIP_ROWS].copy() for c in columns)
@@ -4996,7 +5211,23 @@ def main() -> int:
         "launches": config5["launches"]["segmented_sums"],
         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
-        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}]
+        "bound_by": k5["bound_by"], "library_ms": k5["library_ms"]}, {
+        # Port-only: it replaces the cummax scans of the bounding and the
+        # sweep (XLA's cummax, pipelinedp_tpu/ops/segment.py:50 and :69);
+        # no single PyTorch call computes the segmented scan. Timed on the
+        # query cell's flags, bounding epilogue.
+        "name": "bound_linf_l0", "route": "cuda",
+        "launches_chaos": chaos_launches["bound_linf_l0"],
+        "source": "pipelinedp_tpu_torch/csrc/segscan.cu",
+        "replaces": "pipelinedp_tpu/ops/segment.py:50",
+        "port_only": True, "parity": "bit-equal",
+        "launches": k6["query_launches"]["bound_linf_l0"],
+        "launches_sweep": k6["sweep_launches"]["run_scan"],
+        "max_abs_err": 0.0, "ms": k6["query"]["bound"]["ms"],
+        "device_ms": k6["query"]["bound"]["device_ms"],
+        "plain_ms": k6["query"]["bound"]["plain_ms"],
+        "bound_ms": k6["query"]["bound"]["bound_ms"],
+        "bound_by": k6["query"]["bound"]["bound_by"], "library_ms": None}]
     RECORD["kernels"] = kernels
     RECORD["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -8,6 +8,10 @@ from pipelinedp_tpu_torch.ops.kernels.hist import (subtree_counts_multi,
 from pipelinedp_tpu_torch.ops.kernels.segkeyed import (key_layout,
                                                        segmented_sums,
                                                        segmented_sums_plain)
+from pipelinedp_tpu_torch.ops.kernels.segscan import (bound_linf_l0,
+                                                      bound_linf_l0_plain,
+                                                      run_scan,
+                                                      run_scan_plain)
 from pipelinedp_tpu_torch.ops.kernels.segsum import (segment_sum_lanes,
                                                      segment_sum_lanes_plain,
                                                      segment_sum_wide,
@@ -15,7 +19,9 @@ from pipelinedp_tpu_torch.ops.kernels.segsum import (segment_sum_lanes,
 from pipelinedp_tpu_torch.ops.kernels.segtotal import (segment_totals,
                                                        segment_totals_plain)
 
-__all__ = ["build", "key_layout", "segmented_sums", "segmented_sums_plain",
+__all__ = ["bound_linf_l0", "bound_linf_l0_plain", "build", "key_layout",
+           "run_scan", "run_scan_plain", "segmented_sums",
+           "segmented_sums_plain",
            "segment_sum_lanes", "segment_sum_lanes_plain",
            "segment_sum_wide", "segment_sum_wide_plain",
            "segment_totals", "segment_totals_plain",

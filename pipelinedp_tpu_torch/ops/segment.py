@@ -2,9 +2,11 @@
 
 Port of ``pipelinedp_tpu/ops/segment.py``. After the one sort by
 (pid, hashed pk, tie-break) every run of equal keys is contiguous, so the
-per-segment quantities come from cumulative ops over the runs:
-``run_starts`` is a running maximum of the marked indices, ranks are index
-differences and group ordinals are cumulative-sum differences.
+per-segment quantities come from scans over the runs: ``run_starts`` is a
+running maximum of the marked indices, ranks are index differences and
+group ordinals are cumulative-sum differences. The scans are kernel K6
+(``ops/kernels/segscan.py``) for CUDA tensors and its plain version, the
+JAX package's ``cummax`` arithmetic, for CPU tensors.
 
 Unsigned order: ``fmix32`` works on int64 tensors holding uint32 values
 and masks with ``& 0xFFFFFFFF`` after every shift and multiply, where
@@ -16,6 +18,8 @@ inside int64 without overflow.
 from __future__ import annotations
 
 import torch
+
+from pipelinedp_tpu_torch.ops.kernels import segscan
 
 # Sentinel for padding rows: sorts after all real ids.
 PAD_ID = 2**31 - 1
@@ -45,8 +49,7 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
 def run_starts(new_run: torch.Tensor) -> torch.Tensor:
     """Per-row index of the first row of its run. ``new_run`` is a bool
     [N] marking run boundaries over sorted rows; row 0 must be marked."""
-    idx = torch.arange(new_run.shape[0], device=new_run.device)
-    return torch.cummax(torch.where(new_run, idx, 0), dim=0).values
+    return segscan.run_scan(new_run)[0]
 
 
 def rank_in_run(new_run: torch.Tensor) -> torch.Tensor:
@@ -62,7 +65,4 @@ def run_ordinal_in_group(new_run: torch.Tensor,
     each group randomised by a hashed sort key, ``ordinal < k`` is a
     uniform without-replacement sample of k runs per group (the L0
     bound)."""
-    run_ord = torch.cumsum(new_run.to(torch.int64), dim=0) - 1
-    group_first_run = torch.cummax(torch.where(new_group, run_ord, 0),
-                                   dim=0).values
-    return run_ord - group_first_run
+    return segscan.run_scan(new_run, new_group, starts=False)[1]

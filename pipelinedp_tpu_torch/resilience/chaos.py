@@ -126,9 +126,9 @@ def require_device(device: str) -> str:
 
 
 def _kernel_modules():
-    from pipelinedp_tpu_torch.ops.kernels import (hist, segkeyed, segsum,
-                                                  segtotal)
-    return (segsum, hist, segtotal, segkeyed)
+    from pipelinedp_tpu_torch.ops.kernels import (hist, segkeyed, segscan,
+                                                  segsum, segtotal)
+    return (segsum, hist, segtotal, segkeyed, segscan)
 
 
 def kernel_launches() -> Dict[str, int]:

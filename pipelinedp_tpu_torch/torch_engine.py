@@ -88,7 +88,7 @@ from pipelinedp_tpu_torch.ops import prng
 from pipelinedp_tpu_torch.ops import quantile_tree
 from pipelinedp_tpu_torch.ops import segment as seg_ops
 from pipelinedp_tpu_torch.ops import vector_noise
-from pipelinedp_tpu_torch.ops.kernels import hist, segsum, segtotal
+from pipelinedp_tpu_torch.ops.kernels import hist, segscan, segsum, segtotal
 
 #: VECTOR_SUM's accumulator, "f32" or "fx": the module seam of the
 #: ``vector_accumulator`` knob (``plan/knobs.py``). The knob is not dp-safe
@@ -751,13 +751,11 @@ def _bound_sorted(config: FusedConfig, pid, pk, values, streams: _Streams,
         kept_before_seg = wk[seg_start] - keep_row[seg_start].to(torch.int64)
         seg_marker = keep_row & (wk == kept_before_seg + 1)
     else:
-        # Linf: the first linf (randomly ordered) rows per segment.
+        # Linf: the first linf (randomly ordered) rows per segment; L0:
+        # the segment's ordinal within its pid must be < l0. One scan, K6.
         linf_cap = config.linf if config.linf is not None else n
-        row_keep = seg_ops.rank_in_run(new_seg) < linf_cap
-        # L0: the segment's ordinal within its pid must be < l0.
-        keep_l0 = seg_ops.run_ordinal_in_group(new_seg, new_pid) < config.l0
-        keep_row = row_keep & keep_l0
-        seg_marker = new_seg & keep_l0
+        keep_row, seg_marker = segscan.bound_linf_l0(new_seg, new_pid,
+                                                     linf_cap, config.l0)
 
     masked = None
     contrib = None
