@@ -86,9 +86,16 @@ class StagingRing:
 class _CaptureThread(threading.Thread):
     """A worker thread that keeps its body's exception for the dispatch
     thread to raise (``IngestCancelled`` is a clean exit). Its name starts
-    with ``pdp-``: ``THREAD_PREFIX`` unless it has the prefix already."""
+    with ``pdp-``: ``THREAD_PREFIX`` unless it has the prefix already.
 
-    def __init__(self, body, name: str):
+    With ``inherit``, a thread started while a ``torch.profiler`` records
+    runs under the starting thread's PyTorch thread-local state
+    (``native/thread_state.py``): the profiler records only the threads
+    that carry its state, and without it the worker's spans and operators
+    would be missing from the trace. The stream's workers inherit; they
+    end inside the call that started them."""
+
+    def __init__(self, body, name: str, inherit: bool = False):
         # A name that already carries the package's ``pdp-`` prefix (the
         # monitor's, the introspection server's) is kept as it is.
         super().__init__(name=(name if name.startswith("pdp-")
@@ -96,12 +103,20 @@ class _CaptureThread(threading.Thread):
                          daemon=True)
         self._body = body
         self.exc: Optional[BaseException] = None
+        self._torch_state = None
+        if inherit:
+            from pipelinedp_tpu_torch import obs
+            if obs.profiler_recording():
+                from pipelinedp_tpu_torch.native import thread_state
+                self._torch_state = thread_state.capture()
 
     def run(self):
         from pipelinedp_tpu_torch import obs
+        from pipelinedp_tpu_torch.native import thread_state
         obs.inc("ingest.worker_threads_started")
         try:
-            self._body()
+            with thread_state.entered(self._torch_state):
+                self._body()
         except IngestCancelled:
             pass
         except BaseException as e:  # raised again by the owner, not lost
@@ -143,7 +158,7 @@ class BackgroundStager:
                 getattr(gen, "close", lambda: None)()
                 self._put(self._done, sentinel=True)
 
-        self._thread = _CaptureThread(body, name)
+        self._thread = _CaptureThread(body, name, inherit=True)
         self._thread.start()
 
     def _put(self, item, sentinel: bool = False) -> None:
@@ -244,7 +259,7 @@ class OrderedFoldWorker:
                     return
                 fold_fn(item)
 
-        self._thread = _CaptureThread(body, name)
+        self._thread = _CaptureThread(body, name, inherit=True)
         self._thread.start()
 
     def raise_if_failed(self) -> None:

@@ -66,13 +66,15 @@ class NativeUnavailableError(RuntimeError):
     """The native library could not be built or loaded on this host."""
 
 
-def _build_shared_lib(src: str, name: str) -> str:
-    """The path of ``src`` compiled with ``g++``, built on first use. The
-    file name carries a hash of the source and the flags; the build goes
-    to a per-process temporary name and is renamed into place, so
-    concurrent builders race harmlessly."""
+def _build_shared_lib(src: str, name: str, flags=GXX_FLAGS,
+                      libs=()) -> str:
+    """The path of ``src`` compiled with ``g++ flags src libs``, built on
+    first use. The file name carries a hash of the source, the flags and
+    the libraries; the build goes to a per-process temporary name and is
+    renamed into place, so concurrent builders race harmlessly."""
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(
+            (*flags, *libs)).encode())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
     from pipelinedp_tpu_torch.obs import costs
     cached = os.path.exists(out)
@@ -80,7 +82,7 @@ def _build_shared_lib(src: str, name: str) -> str:
         if not cached:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run(["g++", *GXX_FLAGS, src, "-o", tmp],
+            proc = subprocess.run(["g++", *flags, src, *libs, "-o", tmp],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise NativeUnavailableError(

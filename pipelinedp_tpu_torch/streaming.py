@@ -78,6 +78,7 @@ from pipelinedp_tpu_torch import ingest, obs
 from pipelinedp_tpu_torch.ingest.assign import (group_rows_by_cell,
                                                 regroup_cells)
 from pipelinedp_tpu_torch import plan as plan_mod
+from pipelinedp_tpu_torch.native import thread_state
 from pipelinedp_tpu_torch.obs import costs
 from pipelinedp_tpu_torch import torch_engine as te
 from pipelinedp_tpu_torch.ops import prng
@@ -282,6 +283,13 @@ class _Staging:
     fetched; without a ring (a CPU run that feeds the pass-B cache, which
     keeps what it ships) every batch gets fresh buffers.
 
+    Staging a batch is the ``ingest.stage`` span, which holds the
+    ``ingest.pin`` span (a set's allocation), ``ingest.gather`` (the host
+    gather into the set) and ``ingest.copy`` (the copy's enqueue and its
+    event); the counters ``ingest.pinned_bytes`` and
+    ``ingest.gathered_bytes`` count the sets' bytes and the bytes
+    gathered.
+
     ``counts`` is the [n_batches, n_dev] cell table of ``_batch_assignment``
     and ``cell`` this rank's column: the rank stages its own cell of each
     batch, and an empty cell of a non-empty batch still yields (a rank
@@ -313,17 +321,24 @@ class _Staging:
         spans' total."""
         return self.tracer.total("ingest.stage")
 
-    def _alloc(self):
+    def _alloc(self, b: int):
+        """A staging set for batches of up to ``max_rows`` rows (the
+        ``ingest.pin`` span; ``ingest.pinned_bytes`` counts its bytes,
+        pinned on the card)."""
         vshape = ((self.max_rows, self.config.vector_size)
                   if self.config.vector_size else (self.max_rows,))
 
         def empty(shape, dtype):
             return torch.empty(shape, dtype=dtype, pin_memory=self.on_card)
 
-        return (empty(self.max_rows, torch.int32),
-                empty(self.max_rows, torch.int32),
-                empty(vshape, torch.float32) if self.config.needs_values
-                else None)
+        with self.tracer.span("ingest.pin", cat="ingest", batch=b):
+            bufs = (empty(self.max_rows, torch.int32),
+                    empty(self.max_rows, torch.int32),
+                    empty(vshape, torch.float32) if self.config.needs_values
+                    else None)
+        obs.inc("ingest.pinned_bytes",
+                sum(int(t.nbytes) for t in bufs if t is not None))
+        return bufs
 
     def batches(self, start_at=0, cancelled=None, ring=None,
                 track_reship=False):
@@ -347,32 +362,37 @@ class _Staging:
                 ring.acquire(cancelled)
             with self.tracer.span("ingest.stage", cat="ingest", batch=b):
                 if ring is None:
-                    bufs = self._alloc()
+                    bufs = self._alloc(b)
                 else:
                     slot = staged % ring.n_slots
                     if slot not in self._sets:
-                        self._sets[slot] = self._alloc()
+                        self._sets[slot] = self._alloc(b)
                     bufs = self._sets[slot]
                 staged += 1
                 host = [buf[:cnt] for buf in bufs if buf is not None]
                 sources = [enc.pid, enc.pk] + (
                     [enc.values] if self.config.needs_values else [])
-                for dst, src in zip(host, sources):
-                    if self.order is None:
-                        dst.numpy()[...] = src[rows]
-                    else:
-                        np.take(src, rows, axis=0, out=dst.numpy(),
-                                mode="clip")
+                with self.tracer.span("ingest.gather", cat="ingest",
+                                      batch=b, rows=cnt):
+                    for dst, src in zip(host, sources):
+                        if self.order is None:
+                            dst.numpy()[...] = src[rows]
+                        else:
+                            np.take(src, rows, axis=0, out=dst.numpy(),
+                                    mode="clip")
+                obs.inc("ingest.gathered_bytes",
+                        sum(int(h.nbytes) for h in host))
                 ready = None
-                if self.on_card:
-                    with torch.cuda.device(self.device), \
-                            torch.cuda.stream(self.copy_stream):
-                        dev = [h.to(self.device, non_blocking=True)
-                               for h in host]
-                        ready = torch.cuda.Event()
-                        ready.record(self.copy_stream)
-                else:
-                    dev = host
+                with self.tracer.span("ingest.copy", cat="ingest", batch=b):
+                    if self.on_card:
+                        with torch.cuda.device(self.device), \
+                                torch.cuda.stream(self.copy_stream):
+                            dev = [h.to(self.device, non_blocking=True)
+                                   for h in host]
+                            ready = torch.cuda.Event()
+                            ready.record(self.copy_stream)
+                    else:
+                        dev = host
                 obs.inc("ingest.batches_staged")
                 if track_reship:
                     # The host-to-device bytes this sweep pays past the cached
@@ -676,13 +696,14 @@ def _stream_impl(config, encoded, scales, keep_table, sel_threshold,
         if rec not in reshard_history:
             reshard_history.append(rec)
 
-    if adopt is not None:
-        order, counts = _batch_assignment(config, encoded, n_batches, seed,
-                                          adopt["n_dev"])
-        counts = regroup_cells(counts, n_dev)
-    else:
-        order, counts = _batch_assignment(config, encoded, n_batches, seed,
-                                          n_dev)
+    with tr.span("ingest.assign", cat="ingest", n_batches=n_batches):
+        if adopt is not None:
+            order, counts = _batch_assignment(config, encoded, n_batches,
+                                              seed, adopt["n_dev"])
+            counts = regroup_cells(counts, n_dev)
+        else:
+            order, counts = _batch_assignment(config, encoded, n_batches,
+                                              seed, n_dev)
     batch_rows = counts.sum(axis=1)
     # The lane plan bounds a batch's GLOBAL rows: the ranks' lanes add.
     max_rows = int(batch_rows.max())
@@ -753,6 +774,10 @@ def _stream_impl(config, encoded, scales, keep_table, sel_threshold,
     cache_upto = 0  # the first batch past the cached prefix
     staging = _Staging(config, encoded, order, counts, device, tr,
                        cell=mesh.index if mesh is not None else 0)
+    if use_executor and device.type == "cuda":
+        # Built before any profiled call needs it: the executor's workers
+        # carry a recording profiler's state through it.
+        thread_state.prepare()
     ckpt_writer = mesh is None or mesh.index == 0
     # On the CPU a cached batch's tensors are the staging buffers, so a
     # run that feeds the cache stages into fresh buffers; on the card the
