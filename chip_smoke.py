@@ -294,7 +294,15 @@ Phases, one line each; any failure raises and exits non-zero:
     and one tile and a row, aligned and as an offset view; each epilogue
     timed from an idle card and as queued device time, beside its plain
     version and its bound; the generic launches of one ML-1M sweep;
-34. a ``kernels`` JSON line per kernel (K1-K6, each with
+34. K7 vs host (after phase 33): the stream's batch assignment on the
+    card against the host's numpy, bit for bit, at the Netflix table's
+    shape (``benchmark/``'s ``netflix_prize`` table, two batches), and on
+    a small grid up to K7's 4,096 cells; K7 alone timed from an idle card
+    and as queued device time beside its bound, the ids' copy in and the
+    order's copy out, the whole card assignment's host ms and peak
+    memory; then K7's launches and counters in streamed calls of the
+    cell's query (one launch a call, no host assignment);
+35. a ``kernels`` JSON line per kernel (K1-K7; K1-K6 each with
     ``launches_chaos``, its launches over phase 32's recovered runs), then
     the card line, then the result line ``{"ok": true, "device": {...}}``
     last.
@@ -338,7 +346,7 @@ CONFIG4 = dict(rows=10_000_000, users=200_000, partitions=100_000, seed=4)
 CHUNK_ENV = "PIPELINEDP_TPU_STREAM_CHUNK"
 CAP_ENV = "PIPELINEDP_TPU_SUBHIST_CAP"
 KERNEL_SOURCES = ("segsum_lanes", "segsum_wide", "hist_bin", "segtotal",
-                  "segkeyed", "segscan")
+                  "segkeyed", "segscan", "assign")
 # ``bench.py``'s ``bench_streaming`` at its default ``--stream-rows``.
 STREAM_ROWS = 150_000_000
 # K4's hot segment: one (user, partition) pair of 2^20 rows.
@@ -1809,6 +1817,115 @@ def phase_segscan_kernel(smi, per_launch=False):
                sweep_launches=sweep_launches, seams_identical=seams,
                seconds=time.perf_counter() - t0)
     log("segscan_kernel", **rec)
+    return rec
+
+
+def phase_assign_kernel(smi, per_launch=False):
+    """K7 against the host's numpy, bit for bit, at the Netflix table's
+    shape (``benchmark/``'s ``netflix_prize`` table, its ids as encode
+    hands them over, two batches): the stream's own assignment
+    (``streaming._batch_assignment``) on the card and on the host; K7
+    alone on ids already on the card, from an idle card and as queued
+    device time, beside its bound (``assign.work``); the ids' copy in and
+    the order's copy out alone; the whole card assignment's host ms and
+    peak memory; a small grid (n = 0, 1, a segment and its seam plus one;
+    1-4,096 cells); then K7's launches, its counters and the wall of
+    streamed calls of the cell's query over the resident table.
+    ``per_launch`` adds, last, each launch's device time (``launch_ms``)."""
+    import types
+
+    import pipelinedp_tpu_torch as pdt
+    from pipelinedp_tpu_torch import obs, streaming
+    from pipelinedp_tpu_torch.ops.kernels import assign
+    t0 = time.perf_counter()
+    pid, item, value = benchmark_table("netflix_prize", 24)
+    ids = pid.astype(np.int32)
+    dev = torch.device("cuda")
+    seed = 2**40 + 2**31 + 24
+    encoded = types.SimpleNamespace(pid=ids, n_rows=len(ids))
+    config = types.SimpleNamespace(bounds_already_enforced=False)
+    t1 = time.perf_counter()
+    host = streaming._batch_assignment(config, encoded, 2, seed, 1)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        card = streaming._stream_assignment(config, encoded, 2, seed, 1, dev)
+        walls.append((time.perf_counter() - t1) * 1e3)
+        assert card[0].dtype == np.int64
+        assert np.array_equal(card[0], host[0]), "K7's order differs"
+        assert np.array_equal(card[1], host[1]), "K7's counts differ"
+    peak = torch.cuda.max_memory_allocated()
+    del card
+    ids_dev = torch.from_numpy(ids).to(dev)
+
+    def fn():
+        return assign.group_by_cell(ids_dev, 2, 1, seed)
+
+    bound = card_bound(assign.work(ids_dev, 2))
+    kernel = dict(ms=cuda_ms(fn), device_ms=queued_ms(fn),
+                  bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    order_dev = fn()[0].to(torch.int64)
+    pinned = torch.empty(len(ids), dtype=torch.int64, pin_memory=True)
+    crossings = dict(
+        ids_in_ms=cuda_ms(lambda: torch.from_numpy(ids).to(dev), reps=5,
+                          warm=1),
+        order_out_ms=cuda_ms(
+            lambda: pinned.copy_(order_dev, non_blocking=True), reps=5,
+            warm=1))
+    del order_dev, pinned
+    grid = []
+    rng = np.random.default_rng(24)
+    for n in (0, 1, assign.SEGMENT_ROWS, assign.SEGMENT_ROWS + 1,
+              3_000_017):
+        sub = rng.integers(0, 2**31 - 1, n).astype(np.int32)
+        sub_dev = torch.from_numpy(sub).to(dev)
+        for n_batches, n_dev in ((1, 1), (2, 1), (7, 4), (assign.MAX_CELLS,
+                                                          1)):
+            want = streaming._batch_assignment(
+                config, types.SimpleNamespace(pid=sub, n_rows=n), n_batches,
+                seed, n_dev)
+            got = assign.group_by_cell(sub_dev, n_batches, n_dev, seed)
+            assert np.array_equal(got[0].cpu().numpy(), want[0]), (n,
+                                                                   n_batches)
+            assert np.array_equal(got[1].cpu().numpy(), want[1].ravel())
+            grid.append(f"{n}/{n_batches}x{n_dev}")
+    # Streamed calls of the cell's query over the resident table.
+    ds = pdt.ArrayDataset(privacy_ids=pid, partition_keys=item,
+                          values=value)
+    params = pdt.AggregateParams(**query_params(pdt))
+    calls = []
+    for i in range(3):
+        obs.reset()
+        assign.reset_launches()
+        acc = pdt.NaiveBudgetAccountant(total_epsilon=1.0, total_delta=1e-6)
+        engine = pdt.DPEngine(acc, pdt.TorchBackend(device="cuda",
+                                                    rng_seed=seed + i))
+        t1 = time.perf_counter()
+        result = engine.aggregate(ds, params, pdt.DataExtractors())
+        acc.compute_budgets()
+        kept = len(list(result))
+        wall = time.perf_counter() - t1
+        c = obs.ledger().snapshot()["counters"]
+        calls.append(dict(
+            wall_s=wall, kept=kept, batches=result.timings["stream_batches"],
+            launches=assign.LAUNCHES["group_by_cell"],
+            assign_card=c.get("ingest.assign_card", 0),
+            assign_host=c.get("ingest.assign_host", 0),
+            assign_card_bytes=c.get("ingest.assign_card_bytes", 0)))
+        assert calls[-1]["launches"] == calls[-1]["assign_card"] == 1, calls
+        assert calls[-1]["assign_host"] == 0, calls
+    del ds
+    if per_launch:
+        kernel["per_launch_ms"] = launch_ms(fn)
+    rec = dict(card=smi, kernel="group_by_cell", rows=len(ids),
+               host_ms=host_ms, card_assign_ms=walls,
+               card_assign_peak_bytes=peak, k7=kernel, crossings=crossings,
+               grid_identical=grid, streamed_calls=calls,
+               seconds=time.perf_counter() - t0)
+    log("assign_kernel", **rec)
     return rec
 
 
@@ -5041,6 +5158,7 @@ def main() -> int:
     del flagship_rows
     k4 = phase_segtotal_kernel(columns, max_sm_mhz)
     k6 = phase_segscan_kernel(smi)
+    k7 = phase_assign_kernel(smi)
     phase_sum_bounds_gpu_vs_cpu()
     sum_bounds = phase_sum_bounds_full(columns)
     flag_prefix = tuple(c[:HOST_FLAGSHIP_ROWS].copy() for c in columns)
@@ -5227,7 +5345,20 @@ def main() -> int:
         "device_ms": k6["query"]["bound"]["device_ms"],
         "plain_ms": k6["query"]["bound"]["plain_ms"],
         "bound_ms": k6["query"]["bound"]["bound_ms"],
-        "bound_by": k6["query"]["bound"]["bound_by"], "library_ms": None}]
+        "bound_by": k6["query"]["bound"]["bound_by"], "library_ms": None}, {
+        # Port-only: the JAX package assigns the stream's batches on the
+        # host in numpy (pipelinedp_tpu/streaming.py). Timed at the
+        # Netflix table's shape, ids already on the card.
+        "name": "group_by_cell", "route": "cuda",
+        "source": "pipelinedp_tpu_torch/csrc/assign.cu",
+        "replaces": "pipelinedp_tpu/streaming.py:619",
+        "port_only": True, "parity": "bit-equal",
+        "launches": k7["streamed_calls"][-1]["launches"],
+        "max_abs_err": 0.0, "ms": k7["k7"]["ms"],
+        "device_ms": k7["k7"]["device_ms"], "plain_ms": None,
+        "host_ms": k7["host_ms"],
+        "bound_ms": k7["k7"]["bound_ms"],
+        "bound_by": k7["k7"]["bound_by"], "library_ms": None}]
     RECORD["kernels"] = kernels
     RECORD["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -1,6 +1,9 @@
-"""The stream's batch and rank assignment: grouping rows by (batch, rank)
-cell, and regrouping a saved cell table onto a smaller mesh. A port of
-``pipelinedp_tpu/ingest/assign.py``.
+"""The stream's batch and rank assignment: each row's (batch, rank) cell,
+grouping rows by cell, and regrouping a saved cell table onto a smaller
+mesh. A port of ``pipelinedp_tpu/ingest/assign.py``, plus the hashes of
+the JAX package's ``streaming._batch_assignment`` and
+``parallel/sharded.py::shard_of_rows``, which the stream's host path and
+the plain version of kernel K7 (``ops/kernels/assign.py``) both take here.
 
 A row's cell is ``batch_of_row * n_dev + rank_of_row``, both from the
 privacy-id hash, and the stream stages each cell's rows as one slice of
@@ -16,6 +19,38 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+
+def fmix32(x: np.ndarray) -> np.ndarray:
+    """The murmur3 finalizer on a uint32 numpy array (wrapping products)."""
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x85EBCA6B)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0xC2B2AE35)
+    return x ^ (x >> np.uint32(16))
+
+
+def shard_of_rows(pid: np.ndarray, n_dev: int) -> np.ndarray:
+    """Each row's mesh position: ``fmix32(pid) % n_dev`` (hashed before
+    the modulo, so id families sharing low bits spread over the ranks).
+    The single-batch path and the stream's cells both take it here."""
+    return (fmix32(pid.astype(np.uint32)) % np.uint32(n_dev)).astype(
+        np.int64)
+
+
+def cell_of_rows(pid: np.ndarray, n_batches: int, n_dev: int,
+                 seed: int) -> np.ndarray:
+    """Each row's cell, int64: its batch, ``(fmix32(pid ^ seed) *
+    n_batches) >> 32``, times ``n_dev``, plus its rank, the unsalted
+    ``shard_of_rows`` (with ``n_dev > 1``). The batch hash comes before
+    the bucketing (id families sharing low bits would pile into one
+    batch) and is salted by the run seed."""
+    h = fmix32(pid.astype(np.uint32) ^ np.uint32(seed & 0xFFFFFFFF))
+    cell = ((h.astype(np.uint64) * np.uint64(n_batches)) >>
+            np.uint64(32)).astype(np.int64)
+    if n_dev > 1:
+        cell = cell * n_dev + shard_of_rows(pid, n_dev)
+    return cell
 
 
 def regroup_cells(counts: np.ndarray, n_dev_new: int) -> np.ndarray:

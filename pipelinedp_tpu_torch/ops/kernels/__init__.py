@@ -3,6 +3,8 @@ version. A wrapper launches its kernel for CUDA tensors and takes the
 plain version for CPU tensors; sources live in ``csrc/`` and build at
 first use (``_build.py``), or all at once through :func:`build`."""
 
+from pipelinedp_tpu_torch.ops.kernels.assign import (group_by_cell,
+                                                     group_by_cell_plain)
 from pipelinedp_tpu_torch.ops.kernels.hist import (subtree_counts_multi,
                                                    subtree_counts_multi_plain)
 from pipelinedp_tpu_torch.ops.kernels.segkeyed import (key_layout,
@@ -19,7 +21,8 @@ from pipelinedp_tpu_torch.ops.kernels.segsum import (segment_sum_lanes,
 from pipelinedp_tpu_torch.ops.kernels.segtotal import (segment_totals,
                                                        segment_totals_plain)
 
-__all__ = ["bound_linf_l0", "bound_linf_l0_plain", "build", "key_layout",
+__all__ = ["bound_linf_l0", "bound_linf_l0_plain", "build",
+           "group_by_cell", "group_by_cell_plain", "key_layout",
            "run_scan", "run_scan_plain", "segmented_sums",
            "segmented_sums_plain",
            "segment_sum_lanes", "segment_sum_lanes_plain",

@@ -55,6 +55,9 @@ import torch
 import torch.distributed as dist
 
 from pipelinedp_tpu_torch import obs
+# Each row's mesh position, fmix32(pid) % n_dev: the single-batch path
+# and the stream's cells both take it from there.
+from pipelinedp_tpu_torch.ingest.assign import shard_of_rows
 
 #: Knob seam (plan/knobs.py "mesh_topology"): "flat" (one collective over
 #: the whole rank axis), "hier" (two stages: within each host, then across
@@ -759,15 +762,6 @@ def scatter_to_owner(x: torch.Tensor, mesh: Mesh, dim: int = 0,
 
 
 # --- the sharded fused aggregation ------------------------------------------
-
-def shard_of_rows(pid: np.ndarray, n_dev: int) -> np.ndarray:
-    """Each row's mesh position: ``fmix32(pid) % n_dev`` (hashed before
-    the modulo, so id families sharing low bits spread over the ranks).
-    The single-batch path and the stream's cells both take it here."""
-    from pipelinedp_tpu_torch.streaming import _fmix32
-    return (_fmix32(pid.astype(np.uint32)) % np.uint32(n_dev)).astype(
-        np.int64)
-
 
 def owned_rows(pid: np.ndarray, mesh: Mesh) -> np.ndarray:
     """The indices of this rank's rows, ascending: the JAX package's

@@ -75,11 +75,13 @@ import numpy as np
 import torch
 
 from pipelinedp_tpu_torch import ingest, obs
-from pipelinedp_tpu_torch.ingest.assign import (group_rows_by_cell,
+from pipelinedp_tpu_torch.ingest.assign import (cell_of_rows,
+                                                group_rows_by_cell,
                                                 regroup_cells)
 from pipelinedp_tpu_torch import plan as plan_mod
 from pipelinedp_tpu_torch.native import thread_state
 from pipelinedp_tpu_torch.obs import costs
+from pipelinedp_tpu_torch.ops.kernels import assign as assign_kernel
 from pipelinedp_tpu_torch import torch_engine as te
 from pipelinedp_tpu_torch.ops import prng
 from pipelinedp_tpu_torch.ops import quantile_tree
@@ -143,15 +145,6 @@ def _rank1_names(config, fx_bits: int):
     return sorted(names)
 
 
-def _fmix32(x: np.ndarray) -> np.ndarray:
-    """The murmur3 finalizer on a uint32 numpy array (wrapping products)."""
-    x = x ^ (x >> np.uint32(16))
-    x = x * np.uint32(0x85EBCA6B)
-    x = x ^ (x >> np.uint32(13))
-    x = x * np.uint32(0xC2B2AE35)
-    return x ^ (x >> np.uint32(16))
-
-
 def _batch_assignment(config, encoded, n_batches: int, seed: int,
                       n_dev: int = 1):
     """Row order and per-(batch, rank) row counts such that each privacy
@@ -169,17 +162,51 @@ def _batch_assignment(config, encoded, n_batches: int, seed: int,
         counts = np.full(cells, base, np.int64)
         counts[:rem] += 1
         return None, counts.reshape(n_batches, n_dev)
-    # Hash before bucketing (id families sharing low bits would pile into
-    # one batch), salted by the run seed.
-    h = _fmix32(encoded.pid.astype(np.uint32) ^
-                np.uint32(seed & 0xFFFFFFFF))
-    cell_of_row = ((h.astype(np.uint64) * np.uint64(n_batches)) >>
-                   np.uint64(32)).astype(np.int64)
-    if n_dev > 1:
-        cell_of_row = (cell_of_row * n_dev +
-                       psh.shard_of_rows(encoded.pid, n_dev))
-    order, counts = group_rows_by_cell(cell_of_row, cells)
+    order, counts = group_rows_by_cell(
+        cell_of_rows(encoded.pid, n_batches, n_dev, seed), cells)
     return order, counts.reshape(n_batches, n_dev)
+
+
+def _stream_assignment(config, encoded, n_batches: int, seed: int,
+                       n_dev: int, device):
+    """The stream's ``_batch_assignment``: on a CUDA ``device``, with the
+    bounds not yet enforced and within K7's cell and row limits, the hash
+    and the grouping run on the card (``_card_assignment``); otherwise
+    numpy on the host. Either path gives the same int64 order. Counts
+    the path taken: ``ingest.assign_card`` or ``ingest.assign_host``."""
+    if (device.type == "cuda" and not config.bounds_already_enforced and
+            n_batches * n_dev <= assign_kernel.MAX_CELLS and
+            encoded.n_rows <= assign_kernel.MAX_ROWS):
+        obs.inc("ingest.assign_card")
+        return _card_assignment(encoded.pid, n_batches, n_dev, seed, device)
+    obs.inc("ingest.assign_host")
+    return _batch_assignment(config, encoded, n_batches, seed, n_dev)
+
+
+def _card_assignment(pid: np.ndarray, n_batches: int, n_dev: int, seed: int,
+                     device):
+    """``_batch_assignment`` on the card: the int32 ids cross once, K7
+    hashes and groups them there, and the order, widened to int64 there,
+    comes back into a pinned buffer that the caching host allocator
+    serves again. (The stager's ``np.take`` converts indices of any other
+    type to int64 into fresh pages on every gather: with an int32 order
+    it tripled the Netflix cell's gather.) The ids, the order and K7's
+    table are freed on return, before any batch is staged.
+    ``ingest.assign_card_bytes`` counts the bytes across the bus."""
+    ids = torch.from_numpy(np.ascontiguousarray(pid, dtype=np.int32))
+    with torch.cuda.device(device):
+        order_dev, counts_dev = assign_kernel.group_by_cell(
+            ids.to(device), n_batches, n_dev, seed)
+        order_dev = order_dev.to(torch.int64)
+        order = torch.empty(order_dev.shape, dtype=torch.int64,
+                            pin_memory=True)
+        order.copy_(order_dev, non_blocking=True)
+        # On the same stream after the order's copy: when the counts are
+        # on the host, so is the order.
+        counts = counts_dev.cpu().numpy()
+    obs.inc("ingest.assign_card_bytes",
+            int(ids.nbytes) + int(order.nbytes) + int(counts.nbytes))
+    return order.numpy(), counts.reshape(n_batches, n_dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -696,14 +723,18 @@ def _stream_impl(config, encoded, scales, keep_table, sel_threshold,
         if rec not in reshard_history:
             reshard_history.append(rec)
 
+    if device.type == "cuda":
+        # Built or loaded before the span, so that it times the assignment
+        # alone.
+        assign_kernel.load()
     with tr.span("ingest.assign", cat="ingest", n_batches=n_batches):
         if adopt is not None:
-            order, counts = _batch_assignment(config, encoded, n_batches,
-                                              seed, adopt["n_dev"])
+            order, counts = _stream_assignment(config, encoded, n_batches,
+                                               seed, adopt["n_dev"], device)
             counts = regroup_cells(counts, n_dev)
         else:
-            order, counts = _batch_assignment(config, encoded, n_batches,
-                                              seed, n_dev)
+            order, counts = _stream_assignment(config, encoded, n_batches,
+                                               seed, n_dev, device)
     batch_rows = counts.sum(axis=1)
     # The lane plan bounds a batch's GLOBAL rows: the ranks' lanes add.
     max_rows = int(batch_rows.max())

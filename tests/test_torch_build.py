@@ -16,7 +16,7 @@ import threading
 import pytest
 
 from pipelinedp_tpu_torch.ops.kernels import _build, hist, segkeyed, segsum
-from pipelinedp_tpu_torch.ops.kernels import segscan, segtotal
+from pipelinedp_tpu_torch.ops.kernels import assign, segscan, segtotal
 
 
 @pytest.fixture
@@ -94,7 +94,7 @@ def test_two_sources_build_side_by_side(stub_compiler):
 @pytest.mark.parametrize("module,name", [
     (segsum, "segment_sum_lanes"), (segtotal, "segment_totals"),
     (segkeyed, "segmented_sums"), (hist, "subtree_counts_multi"),
-    (segscan, "bound_linf_l0")])
+    (segscan, "bound_linf_l0"), (assign, "group_by_cell")])
 def test_launch_counts_add_up_across_threads(module, name):
     before = module.LAUNCHES[name]
     interval = sys.getswitchinterval()

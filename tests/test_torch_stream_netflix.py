@@ -7,7 +7,9 @@ Held here: the folded pre-noise per-movie columns against a plain-torch
 group-by of the table under caps that do not bind; serial and overlapped
 runs releasing the same bits with every span on; the stream's ingest
 spans and byte counters, and the worker threads' ranges reaching a
-``torch.profiler`` trace; and the streamed release importing no JAX."""
+``torch.profiler`` trace; the streamed release importing no JAX; and, on
+the card (``cuda`` marker), the release with the batch assignment on the
+card (K7) against the same release with the host's."""
 
 import collections
 import json
@@ -62,10 +64,10 @@ def _params(l0=4, linf=2):
         max_contributions_per_partition=linf, min_value=0.0, max_value=5.0)
 
 
-def _aggregate(table, params, executor=None, eps=1.0):
+def _aggregate(table, params, executor=None, eps=1.0, device="cpu"):
     pid, pk, value = table
     acc = pdt.NaiveBudgetAccountant(total_epsilon=eps, total_delta=1e-6)
-    backend = pdt.TorchBackend("cpu", rng_seed=2**32 + 9,
+    backend = pdt.TorchBackend(device, rng_seed=2**32 + 9,
                                ingest_executor=executor)
     res = pdt.DPEngine(acc, backend).aggregate(
         pdt.ArrayDataset(privacy_ids=pid, partition_keys=pk, values=value),
@@ -168,6 +170,39 @@ def test_one_assign_and_a_gather_and_copy_per_batch(two_batches, executor,
     batch_rows = [s.args["rows"] for s in spans["ingest.gather"]]
     assert sum(batch_rows) == rows
     assert counters["ingest.pinned_bytes"] == 2 * 12 * max(batch_rows)
+
+
+@pytest.mark.cuda
+def test_cuda_the_card_assignment_releases_the_host_assignments_bits(
+        two_batches, monkeypatch):
+    """Through the overlapped executor on the card, the release with the
+    batch assignment on the card (K7, once a call) has the bits of the
+    same release with the host's numpy assignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    from pipelinedp_tpu_torch.ops.kernels import assign
+
+    def run():
+        obs.reset()
+        assign.reset_launches()
+        rows, timings = _aggregate(two_batches, _params(l0=100),
+                                   executor=True, eps=RELEASE_EPS,
+                                   device="cuda")
+        assert timings["stream_executor"] == "overlapped"
+        assert timings["stream_batches"] == 2
+        c = obs.ledger().snapshot()["counters"]
+        return rows, (c.get("ingest.assign_card", 0),
+                      c.get("ingest.assign_host", 0),
+                      assign.LAUNCHES["group_by_cell"])
+
+    card, card_paths = run()
+    # A cell limit of one sends the stream's two cells to the host.
+    monkeypatch.setattr(assign, "MAX_CELLS", 1)
+    host, host_paths = run()
+    assert card_paths == (1, 0, 1)
+    assert host_paths == (0, 1, 0)
+    assert len(card) > 100
+    assert _bits(card) == _bits(host)
 
 
 def test_the_profiler_records_the_worker_threads_ranges(two_batches):
